@@ -1,0 +1,806 @@
+"""Execution engine (port of ``repro/core/engine.py``: ``_forward``,
+``_compile_plan_impl``, ``CompiledPlan``, ``PlanCache``).
+
+* :func:`_forward` — the reference forward: ``mode="packed"`` runs integer
+  levels through the quantized twins, ``mode="snn"`` runs ``(T, ...)``
+  spike planes reduced per layer by the encoding (radix: Horner).
+* :func:`_compile_plan_impl` — the controller's program memory: a one-time
+  pass that moves weights to the device, folds bias + requantization
+  multiplier into per-layer epilogue rows and returns a
+  :class:`CompiledPlan` running the whole network through the radix
+  kernels with activations kept as packed uint8 levels between layers.
+* :class:`PlanCache` — the batch-bucket ladder: requests pad up to the
+  smallest bucket or chunk by the top one, and the counters prove zero
+  steady-state recompiles.
+
+PyTorch runs eagerly, so a "compile" here builds the plan's closures and
+device-resident parameters; the CUDA kernels themselves are built once
+per process at first launch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import weakref
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import conversion, encoding, layers
+
+__all__ = ["CompiledPlan", "PlanLayerInfo", "PlanCache", "PlanCacheStats",
+           "DEFAULT_BUCKETS"]
+
+
+# ---------------------------------------------------------------------------
+# Reference forward (packed and spike-plane paths).
+# ---------------------------------------------------------------------------
+
+
+def _forward(qnet: conversion.QuantizedNet, x: torch.Tensor,
+             spec: encoding.EncodingSpec, mode: str = "packed") -> torch.Tensor:
+    """Reference forward on ``x``'s device, generic over the encoding:
+    ``mode="packed"`` on integer levels, ``mode="snn"`` on spike planes.
+    Bit-exact twins by linearity."""
+    snn = mode == "snn"
+    q = spec.quantize(x, qnet.input_scale)
+    state = spec.encode(q) if snn else q
+
+    for (kind, cfg), qp in zip(qnet.static, qnet.qlayers):
+        if kind == "conv":
+            stride, padding = cfg.get("stride", 1), cfg.get("padding", "VALID")
+            if snn:
+                per = layers._per_plane(
+                    lambda p, w=qp["w_q"]: layers._int_conv(
+                        p, w, stride, padding), state)
+                acc = spec.reduce_planes(per) + qp["b_int"].to(x.device)
+            else:
+                acc = layers.q_conv2d(state, qp["w_q"], qp["b_int"],
+                                      stride=stride, padding=padding)
+            state = _requant_or_logits(acc, qp, qnet, spec, snn)
+        elif kind == "linear":
+            if snn:
+                per = layers._int_matmul(state, qp["w_q"])
+                acc = spec.reduce_planes(per) + qp["b_int"].to(x.device)
+            else:
+                acc = layers.q_linear(state, qp["w_q"], qp["b_int"])
+            state = _requant_or_logits(acc, qp, qnet, spec, snn)
+        elif kind == "pool":
+            state = _pool(state, cfg, spec, snn)
+        elif kind == "flatten":
+            if snn:
+                state = state.reshape(state.shape[0], state.shape[1], -1)
+            else:
+                state = state.reshape(state.shape[0], -1)
+        else:
+            raise ValueError(kind)
+    return state
+
+
+def _logits(acc: torch.Tensor, logit_scale) -> torch.Tensor:
+    scale = torch.as_tensor(logit_scale, dtype=torch.float32,
+                            device=acc.device)
+    return acc.to(torch.float32) * scale
+
+
+def _requant_or_logits(acc, qp, qnet, spec, snn):
+    if qp["mult"] is None:
+        return _logits(acc, qnet.logit_scale)
+    q = spec.requantize(acc, qp["mult"])
+    return spec.encode(q) if snn else q
+
+
+def _pool(state, cfg, spec, snn):
+    w, pool_mode = cfg["window"], cfg.get("mode", "or")
+    if not spec.supports_pool(pool_mode):
+        raise ValueError(
+            f"{spec.name} encoding does not preserve pool mode "
+            f"{pool_mode!r} (supported: {spec.pool_modes})")
+    if snn:
+        if pool_mode == "or":
+            return layers.snn_or_pool(state, w)
+        if pool_mode == "avg":
+            return layers._per_plane(lambda p: layers.q_avg_pool(p, w), state)
+        if pool_mode == "max":
+            if spec.radix_planes:
+                packed = layers.snn_max_pool(state, w)
+            else:
+                packed = layers.q_max_pool(
+                    spec.decode(state).to(spec.packed_dtype), w)
+            return spec.encode(packed)
+        raise ValueError(pool_mode)
+    if pool_mode == "or":
+        return layers.q_or_pool(state, w)
+    if pool_mode == "avg":
+        return layers.q_avg_pool(state, w)
+    if pool_mode == "max":
+        return layers.q_max_pool(state, w)
+    raise ValueError(pool_mode)
+
+
+# ---------------------------------------------------------------------------
+# Compiled execution plans.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PlanLayerInfo:
+    """Per-layer summary + the activation-traffic model."""
+
+    name: str
+    out_shape: Tuple[int, ...]     # logical output, incl. batch
+    out_dtype: str                 # what the plan writes
+    act_write_bytes: int           # this plan (fused epilogue, packed uint8)
+    act_write_bytes_int32: int     # unfused baseline (raw int32 accumulator)
+
+
+@dataclasses.dataclass
+class CompiledPlan:
+    """A whole-network kernel pipeline over device-resident parameters.
+
+    ``plan(x)`` maps float input of ``input_shape`` (on the plan's device)
+    to float logits, bit-exact with ``_forward(..., mode="packed")``.  Each
+    call also runs the plane-occupancy prepass; the planes skipped
+    accumulate on the device (no sync until :meth:`plane_stats`) against
+    the static per-call budget ``plane_passes_per_call``.
+    """
+
+    input_shape: Tuple[int, ...]
+    num_steps: int
+    method: str
+    layers: List[PlanLayerInfo]
+    device: torch.device
+    _fn: Callable = dataclasses.field(repr=False)
+    plane_passes_per_call: int = 0
+    _skipped: Optional[torch.Tensor] = dataclasses.field(default=None,
+                                                         repr=False)
+    _calls: int = dataclasses.field(default=0, repr=False)
+    tuned_tiles: List[dict] = dataclasses.field(default_factory=list)
+    """Per kernel layer: the layer name and its ``KernelConfig`` fields."""
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        out, skipped = self._fn(x)
+        self._skipped = skipped if self._skipped is None \
+            else self._skipped + skipped
+        self._calls += 1
+        return out
+
+    def plane_stats(self) -> dict:
+        """Planes skipped (all-zero spike planes) vs the static schedule
+        total over every call so far.  Reading this syncs the device."""
+        skipped = 0 if self._skipped is None else int(self._skipped.sum())
+        return {"plane_passes_skipped": skipped,
+                "plane_passes_total": self._calls * self.plane_passes_per_call}
+
+    def reset_plane_stats(self) -> None:
+        self._skipped = None
+        self._calls = 0
+
+    def activation_traffic(self) -> dict:
+        """Modeled inter-layer activation bytes written: fused vs unfused."""
+        fused = sum(l.act_write_bytes for l in self.layers)
+        unfused = sum(l.act_write_bytes_int32 for l in self.layers)
+        return {
+            "layers": [dataclasses.asdict(l) for l in self.layers],
+            "fused_write_bytes": fused,
+            "int32_write_bytes": unfused,
+            "traffic_ratio": unfused / max(fused, 1),
+        }
+
+
+def _compile_plan_impl(
+    qnet: conversion.QuantizedNet,
+    input_shape: Tuple[int, ...],
+    *,
+    method: Optional[str] = "fused",
+    spec: Optional[encoding.EncodingSpec] = None,
+    device="cpu",
+) -> CompiledPlan:
+    """Compile ``qnet`` into a radix-kernel pipeline on ``device``.
+
+    One-time work: weights and epilogue rows (bias + multiplier) move to
+    the device; the avg-pool carry (activations wider than T bits, the
+    window division folded into the next multiplier) is tracked so the
+    bitserial extraction stays exact; the encoding's
+    :class:`~repro_torch.core.encoding.KernelSchedule` is threaded into
+    every kernel call.
+
+    Every layer runs the plane-occupancy prepass on its packed input; the
+    kernels skip (bitserial) or mask (fused) the empty planes and the skip
+    count accumulates on the device.
+
+    The reference pads channels to Pallas block multiples and scatters the
+    first linear layer's weight rows to the padded flatten layout, only
+    because Pallas blocks need aligned shapes.  The CUDA kernels mask their
+    own ragged edges, so this plan keeps logical channel counts and has
+    neither the padding nor the scatter.
+    """
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.autotune import KernelConfig
+    from repro_torch.kernels.radix_conv import radix_conv2d_cuda
+    from repro_torch.kernels.radix_matmul import radix_matmul_cuda
+
+    device = torch.device(device)
+    spec = spec if spec is not None else qnet.spec
+    method = spec.validate_dataflow(method)
+    sched = spec.kernel_schedule()
+    T = sched.packed_bits
+    periods = sched.periods
+    kernel_kw = dict(method=method, periods=periods)
+    epi_kw = dict(out_steps=T, out_level=sched.out_level,
+                  out_grid=sched.out_grid)
+
+    if len(input_shape) == 4:
+        batch, h, w, c = input_shape
+    elif len(input_shape) == 2:
+        batch, f = input_shape
+        h = w = c = None
+    else:
+        raise ValueError(f"input_shape must be NHWC or NF, got {input_shape}")
+
+    bits = T                       # integer bits carried by activations
+    steps: List[Callable] = []
+    infos: List[PlanLayerInfo] = []
+    tuned: List[dict] = []
+    total_passes = 0
+
+    def _elems(shape) -> int:
+        return int(np.prod(shape))
+
+    def _occ(state, in_bits):
+        """Plane-occupancy prepass: the kernels' occupancy row and the plane
+        passes they skip (bitserial) or mask (fused), on the device."""
+        row, occ_bits = kops.plane_occupancy(state, in_bits)
+        return row, (in_bits - occ_bits.sum()) * periods
+
+    def _record(name, out_shape, last):
+        infos.append(PlanLayerInfo(
+            name=name, out_shape=out_shape,
+            out_dtype="int32" if last else "uint8",
+            act_write_bytes=_elems(out_shape) * (4 if last else 1),
+            act_write_bytes_int32=_elems(out_shape) * 4))
+        tuned.append({"layer": name, "tuned": False,
+                      **KernelConfig().as_dict()})
+
+    def _kernel_step(kernel, w_q, in_bits, rows, b, pads=None, **kw):
+        """One conv/linear layer: pad, occupancy prepass, kernel (with the
+        fused epilogue ``rows``, or int32 + bias ``b`` on the last layer)."""
+        def apply(state):
+            if pads is not None:
+                state = F.pad(state, pads)
+            state = state.contiguous()
+            occ, skipped = _occ(state, in_bits)
+            out = kernel(state, w_q, num_steps=in_bits, occupancy=occ,
+                         **kernel_kw, **kw, **rows)
+            return (out if b is None else out + b), skipped
+        return apply
+
+    for (kind, cfg), qp in zip(qnet.static, qnet.qlayers):
+        if kind in ("conv", "linear"):
+            w_q = qp["w_q"].to(device=device, dtype=torch.int8).contiguous()
+            last = qp["mult"] is None
+            b, rows = None, {}
+            if last:
+                b = qp["b_int"].to(device=device, dtype=torch.int32)
+            else:
+                bias_row, mult_row = kops.epilogue_rows(
+                    qp["b_int"], qp["mult"], w_q.shape[-1], w_q.shape[-1],
+                    encoding=spec, device=device)
+                rows = dict(bias=bias_row, mult=mult_row, **epi_kw)
+            total_passes += bits * periods
+
+        if kind == "conv":
+            kh, kw, cin, cout = w_q.shape
+            assert cin == c, (cin, c)
+            stride = cfg.get("stride", 1)
+            pads = None
+            if cfg.get("padding", "VALID") == "SAME":
+                ph = kops.same_pads(h, kh, stride)
+                pw = kops.same_pads(w, kw, stride)
+                pads = (0, 0, pw[0], pw[1], ph[0], ph[1])
+                h, w = h + sum(ph), w + sum(pw)
+            h = (h - kh) // stride + 1
+            w = (w - kw) // stride + 1
+            c = cout
+            steps.append(_kernel_step(radix_conv2d_cuda, w_q, bits, rows, b,
+                                      pads, stride=stride))
+            _record(f"conv{kh}x{kw}x{cin}->{cout}" + (
+                f"/s{stride}" if stride > 1 else ""), (batch, h, w, cout),
+                last)
+            bits = T
+
+        elif kind == "linear":
+            fin, fout = w_q.shape
+            assert fin == f, (fin, f)
+            f = fout
+            steps.append(_kernel_step(radix_matmul_cuda, w_q, bits, rows, b))
+            _record(f"linear{fin}->{fout}", (batch, fout), last)
+            bits = T
+
+        elif kind == "pool":
+            state = _pool(state, cfg, spec, snn)
+        elif kind == "flatten":
+            if snn:
+                state = state.reshape(state.shape[0], state.shape[1], -1)
+            else:
+                state = state.reshape(state.shape[0], -1)
+        else:
+            raise ValueError(kind)
+    return state
+
+
+def _logits(acc: torch.Tensor, logit_scale) -> torch.Tensor:
+    scale = torch.as_tensor(logit_scale, dtype=torch.float32,
+                            device=acc.device)
+    return acc.to(torch.float32) * scale
+
+
+def _requant_or_logits(acc, qp, qnet, spec, snn):
+    if qp["mult"] is None:
+        return _logits(acc, qnet.logit_scale)
+    q = spec.requantize(acc, qp["mult"])
+    return spec.encode(q) if snn else q
+
+
+def _pool(state, cfg, spec, snn):
+    w, pool_mode = cfg["window"], cfg.get("mode", "or")
+    if not spec.supports_pool(pool_mode):
+        raise ValueError(
+            f"{spec.name} encoding does not preserve pool mode "
+            f"{pool_mode!r} (supported: {spec.pool_modes})")
+    if snn:
+        if pool_mode == "or":
+            return layers.snn_or_pool(state, w)
+        if pool_mode == "avg":
+            return layers._per_plane(lambda p: layers.q_avg_pool(p, w), state)
+        if pool_mode == "max":
+            if spec.radix_planes:
+                packed = layers.snn_max_pool(state, w)
+            else:
+                packed = layers.q_max_pool(
+                    spec.decode(state).to(spec.packed_dtype), w)
+            return spec.encode(packed)
+        raise ValueError(pool_mode)
+    if pool_mode == "or":
+        return layers.q_or_pool(state, w)
+    if pool_mode == "avg":
+        return layers.q_avg_pool(state, w)
+    if pool_mode == "max":
+        return layers.q_max_pool(state, w)
+    raise ValueError(pool_mode)
+
+
+# ---------------------------------------------------------------------------
+# Compiled execution plans.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PlanLayerInfo:
+    """Per-layer summary + the activation-traffic model."""
+
+    name: str
+    out_shape: Tuple[int, ...]     # logical output, incl. batch
+    out_dtype: str                 # what the plan writes
+    act_write_bytes: int           # this plan (fused epilogue, packed uint8)
+    act_write_bytes_int32: int     # unfused baseline (raw int32 accumulator)
+
+
+@dataclasses.dataclass
+class CompiledPlan:
+    """A whole-network kernel pipeline over device-resident parameters.
+
+    ``plan(x)`` maps float input of ``input_shape`` (on the plan's device)
+    to float logits, bit-exact with ``_forward(..., mode="packed")``.  Each
+    call also runs the plane-occupancy prepass; the planes skipped
+    accumulate on the device (no sync until :meth:`plane_stats`) against
+    the static per-call budget ``plane_passes_per_call``.
+    """
+
+    input_shape: Tuple[int, ...]
+    num_steps: int
+    method: str
+    layers: List[PlanLayerInfo]
+    device: torch.device
+    _fn: Callable = dataclasses.field(repr=False)
+    plane_passes_per_call: int = 0
+    _skipped: Optional[torch.Tensor] = dataclasses.field(default=None,
+                                                         repr=False)
+    _calls: int = dataclasses.field(default=0, repr=False)
+    tuned_tiles: List[dict] = dataclasses.field(default_factory=list)
+    """Per kernel layer: the layer name and its ``KernelConfig`` fields."""
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        out, skipped = self._fn(x)
+        self._skipped = skipped if self._skipped is None \
+            else self._skipped + skipped
+        self._calls += 1
+        return out
+
+    def plane_stats(self) -> dict:
+        """Planes skipped (all-zero spike planes) vs the static schedule
+        total over every call so far.  Reading this syncs the device."""
+        skipped = 0 if self._skipped is None else int(self._skipped.sum())
+        return {"plane_passes_skipped": skipped,
+                "plane_passes_total": self._calls * self.plane_passes_per_call}
+
+    def reset_plane_stats(self) -> None:
+        self._skipped = None
+        self._calls = 0
+
+    def activation_traffic(self) -> dict:
+        """Modeled inter-layer activation bytes written: fused vs unfused."""
+        fused = sum(l.act_write_bytes for l in self.layers)
+        unfused = sum(l.act_write_bytes_int32 for l in self.layers)
+        return {
+            "layers": [dataclasses.asdict(l) for l in self.layers],
+            "fused_write_bytes": fused,
+            "int32_write_bytes": unfused,
+            "traffic_ratio": unfused / max(fused, 1),
+        }
+
+
+def _compile_plan_impl(
+    qnet: conversion.QuantizedNet,
+    input_shape: Tuple[int, ...],
+    *,
+    method: Optional[str] = "fused",
+    spec: Optional[encoding.EncodingSpec] = None,
+    device="cpu",
+) -> CompiledPlan:
+    """Compile ``qnet`` into a radix-kernel pipeline on ``device``.
+
+    One-time work: weights and epilogue rows (bias + multiplier) move to
+    the device; the avg-pool carry (activations wider than T bits, the
+    window division folded into the next multiplier) is tracked so the
+    bitserial extraction stays exact; the encoding's
+    :class:`~repro_torch.core.encoding.KernelSchedule` is threaded into
+    every kernel call.
+
+    Every layer runs the plane-occupancy prepass on its packed input; the
+    kernels skip (bitserial) or mask (fused) the empty planes and the skip
+    count accumulates on the device.
+
+    The reference pads channels to Pallas block multiples and scatters the
+    first linear layer's weight rows to the padded flatten layout, only
+    because Pallas blocks need aligned shapes.  The CUDA kernels mask their
+    own ragged edges, so this plan keeps logical channel counts and has
+    neither the padding nor the scatter.
+    """
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.autotune import KernelConfig
+    from repro_torch.kernels.radix_conv import radix_conv2d_cuda
+    from repro_torch.kernels.radix_matmul import radix_matmul_cuda
+
+    device = torch.device(device)
+    spec = spec if spec is not None else qnet.spec
+    method = spec.validate_dataflow(method)
+    sched = spec.kernel_schedule()
+    T = sched.packed_bits
+    periods = sched.periods
+    kernel_kw = dict(method=method, periods=periods)
+    epi_kw = dict(out_steps=T, out_level=sched.out_level,
+                  out_grid=sched.out_grid)
+
+    if len(input_shape) == 4:
+        batch, h, w, c = input_shape
+    elif len(input_shape) == 2:
+        batch, f = input_shape
+        h = w = c = None
+    else:
+        raise ValueError(f"input_shape must be NHWC or NF, got {input_shape}")
+
+    bits = T                       # integer bits carried by activations
+    steps: List[Callable] = []
+    infos: List[PlanLayerInfo] = []
+    tuned: List[dict] = []
+    total_passes = 0
+
+    def _elems(shape) -> int:
+        return int(np.prod(shape))
+
+    def _occ(state, in_bits):
+        """Plane-occupancy prepass: the kernels' occupancy row and the plane
+        passes they skip (bitserial) or mask (fused), on the device."""
+        row, occ_bits = kops.plane_occupancy(state, in_bits)
+        return row, (in_bits - occ_bits.sum()) * periods
+
+    def _record(name, out_shape, last):
+        infos.append(PlanLayerInfo(
+            name=name, out_shape=out_shape,
+            out_dtype="int32" if last else "uint8",
+            act_write_bytes=_elems(out_shape) * (4 if last else 1),
+            act_write_bytes_int32=_elems(out_shape) * 4))
+        tuned.append({"layer": name, "tuned": False,
+                      **KernelConfig().as_dict()})
+
+    for (kind, cfg), qp in zip(qnet.static, qnet.qlayers):
+        if kind in ("conv", "linear"):
+            w_q = qp["w_q"].to(device=device, dtype=torch.int8).contiguous()
+            last = qp["mult"] is None
+            in_bits = bits
+            if last:
+                b = qp["b_int"].to(device=device, dtype=torch.int32)
+                rows = {}
+            else:
+                bias_row, mult_row = kops.epilogue_rows(
+                    qp["b_int"], qp["mult"], w_q.shape[-1], w_q.shape[-1],
+                    encoding=spec, device=device)
+                rows = dict(bias=bias_row, mult=mult_row, **epi_kw)
+            total_passes += in_bits * periods
+
+        if kind == "conv":
+            kh, kw, cin, cout = w_q.shape
+            assert cin == c, (cin, c)
+            stride = cfg.get("stride", 1)
+            pads = None
+            if cfg.get("padding", "VALID") == "SAME":
+                ph = kops.same_pads(h, kh, stride)
+                pw = kops.same_pads(w, kw, stride)
+                pads = (0, 0, pw[0], pw[1], ph[0], ph[1])
+                h, w = h + sum(ph), w + sum(pw)
+            h = (h - kh) // stride + 1
+            w = (w - kw) // stride + 1
+            c = cout
+
+            def apply(state, *, pads=pads, w_q=w_q, in_bits=in_bits,
+                      stride=stride, rows=rows, last=last,
+                      b=b if last else None):
+                if pads is not None:
+                    state = F.pad(state, pads)
+                state = state.contiguous()
+                occ, skipped = _occ(state, in_bits)
+                out = radix_conv2d_cuda(state, w_q, num_steps=in_bits,
+                                        stride=stride, occupancy=occ,
+                                        **kernel_kw, **rows)
+                return (out + b if last else out), skipped
+
+            name = f"conv{kh}x{kw}x{cin}->{cout}" + (
+                f"/s{stride}" if stride > 1 else "")
+            _record(name, (batch, h, w, cout), last)
+            steps.append(apply)
+            bits = T
+
+        elif kind == "linear":
+            fin, fout = w_q.shape
+            assert fin == f, (fin, f)
+            f = fout
+
+            def apply(state, *, w_q=w_q, in_bits=in_bits, rows=rows,
+                      last=last, b=b if last else None):
+                state = state.contiguous()
+                occ, skipped = _occ(state, in_bits)
+                out = radix_matmul_cuda(state, w_q, num_steps=in_bits,
+                                        occupancy=occ, **kernel_kw, **rows)
+                return (out + b if last else out), skipped
+
+            _record(f"linear{fin}->{fout}", (batch, fout), last)
+            steps.append(apply)
+            bits = T
+
+        elif kind == "pool":
+            window, pool_mode = cfg["window"], cfg.get("mode", "or")
+            h, w = h // window, w // window
+            if pool_mode == "avg":
+                # the sum-pool widens the carry; it stays packed while it
+                # fits a byte
+                bits = layers.sum_pool_bits(bits, window)
+                packed = bits <= 8
+
+                def apply(state, *, window=window, packed=packed):
+                    out = layers.q_avg_pool(state, window)
+                    return (out.to(torch.uint8) if packed else out), None
+            elif pool_mode in ("or", "max"):
+                fn = (layers.q_or_pool if pool_mode == "or"
+                      else layers.q_max_pool)
+
+                def apply(state, *, fn=fn, window=window):
+                    return fn(state, window), None
+            else:
+                raise ValueError(pool_mode)
+            steps.append(apply)
+            nbytes = 1 if bits <= 8 else 4
+            out_shape = (batch, h, w, c)
+            infos.append(PlanLayerInfo(
+                name=f"pool{window}/{pool_mode}", out_shape=out_shape,
+                out_dtype="uint8" if nbytes == 1 else "int32",
+                act_write_bytes=_elems(out_shape) * nbytes,
+                act_write_bytes_int32=_elems(out_shape) * 4))
+
+        elif kind == "flatten":
+            steps.append(lambda state: (state.reshape(state.shape[0], -1),
+                                        None))
+            f = h * w * c
+        else:
+            raise ValueError(kind)
+
+    # plain locals, not qnet attribute reads: the closure must not hold the
+    # net, or the plan cache's weakref never dies
+    input_scale = qnet.input_scale
+    logit_scale = qnet.logit_scale
+    if torch.is_tensor(logit_scale):
+        logit_scale = logit_scale.to(device)
+
+    def forward(x):
+        state = spec.quantize(x, input_scale)
+        skipped = torch.zeros((1,), dtype=torch.int64, device=device)
+        for apply in steps:
+            state, sk = apply(state)
+            if sk is not None:
+                skipped = skipped + sk
+        return _logits(state, logit_scale), skipped
+
+    return CompiledPlan(
+        input_shape=tuple(input_shape),
+        num_steps=T,
+        method=method,
+        layers=infos,
+        device=device,
+        _fn=forward,
+        plane_passes_per_call=total_passes,
+        tuned_tiles=tuned,
+    )
+
+
+# plan-cache keys hold a weakref to the net: two refs compare equal only
+# while both resolve to the same live net, so a collected net's recycled
+# id() never aliases a stale entry (QuantizedNet hashes by identity)
+def _cache_key(qnet, *rest) -> tuple:
+    return (weakref.ref(qnet),) + rest
+
+
+def _weakref_cache_get(cache: dict, key, qnet):
+    hit = cache.get(key)
+    if hit is not None and hit[0]() is qnet:
+        return hit[1]
+    return None
+
+
+def _weakref_cache_prune(cache: dict) -> int:
+    """Drop entries whose net died; returns the number dropped."""
+    stale = [k for k, (r, _) in cache.items() if r() is None]
+    for k in stale:
+        del cache[k]
+    return len(stale)
+
+
+# ---------------------------------------------------------------------------
+# Batch-bucketing plan cache.
+# ---------------------------------------------------------------------------
+
+
+DEFAULT_BUCKETS: Tuple[int, ...] = (1, 8, 32, 128)
+
+
+@dataclasses.dataclass
+class PlanCacheStats:
+    """Counters proving steady-state serving never recompiles."""
+
+    hits: int = 0            # plan served from cache
+    compiles: int = 0        # plan builds (cache misses)
+    pruned: int = 0          # entries dropped after their net was collected
+    executions: int = 0      # plan calls (chunks count individually)
+    padded_rows: int = 0     # bucket-padding rows executed and sliced off
+    failures: int = 0        # run() calls that raised
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+class PlanCache:
+    """Batch-bucketing compiled-plan cache (wrapped by ``api.Executable``).
+
+    Plans are built for a fixed ascending bucket ladder.  A request of
+    ``n`` items pads up to the smallest bucket ``>= n`` (zero rows, sliced
+    off after the call) or, above the top bucket, chunks into top-bucket
+    pieces plus one bucketed tail.  Entries are keyed by (weakref(net),
+    bucket, item shape, method, encoding) and die with the net.
+    """
+
+    def __init__(self, buckets: Sequence[int] = DEFAULT_BUCKETS, *,
+                 method: str = "fused",
+                 encoding: Optional[encoding.EncodingSpec] = None,
+                 device="cpu"):
+        bs = tuple(sorted({int(b) for b in buckets}))
+        if not bs or bs[0] < 1:
+            raise ValueError(f"bucket ladder must be positive, got {buckets}")
+        self.buckets = bs
+        self.method = method
+        self.encoding = encoding
+        self.device = torch.device(device)
+        self.stats = PlanCacheStats()
+        self._plans: dict = {}
+
+    def __len__(self) -> int:
+        return len(self._plans)
+
+    def bucket_for(self, n: int) -> int:
+        """Smallest bucket >= n (top bucket for oversize chunk tails)."""
+        if n < 1:
+            raise ValueError(f"batch size must be >= 1, got {n}")
+        for b in self.buckets:
+            if b >= n:
+                return b
+        return self.buckets[-1]
+
+    def prune(self) -> int:
+        n = _weakref_cache_prune(self._plans)
+        self.stats.pruned += n
+        return n
+
+    def plane_stats(self) -> dict:
+        """Sparsity-prepass counters summed over every live cached plan."""
+        out = {"plane_passes_skipped": 0, "plane_passes_total": 0}
+        for _, plan in self._plans.values():
+            for k, v in plan.plane_stats().items():
+                out[k] += v
+        return out
+
+    def tuned_tiles(self) -> List[dict]:
+        """Per (bucket, kernel layer): the strategy each plan uses."""
+        return [{"bucket": key[1], **row}
+                for key, (_, plan) in self._plans.items()
+                for row in plan.tuned_tiles]
+
+    def plan_for(self, qnet: conversion.QuantizedNet, bucket: int,
+                 item_shape: Tuple[int, ...]) -> CompiledPlan:
+        """Cached plan for one bucket (built on first use)."""
+        key = _cache_key(qnet, int(bucket), tuple(item_shape),
+                         self.method, self.encoding)
+        plan = _weakref_cache_get(self._plans, key, qnet)
+        if plan is not None:
+            self.stats.hits += 1
+            return plan
+        self.prune()
+        plan = _compile_plan_impl(
+            qnet, (int(bucket),) + tuple(item_shape), method=self.method,
+            spec=self.encoding, device=self.device)
+        self._plans[key] = (weakref.ref(qnet), plan)
+        self.stats.compiles += 1
+        return plan
+
+    def warmup(self, qnet: conversion.QuantizedNet,
+               item_shape: Tuple[int, ...]) -> List[CompiledPlan]:
+        """Build the whole ladder and run each plan once on zeros (which
+        also builds the CUDA kernels), then zero the sparsity counters."""
+        plans = [self.plan_for(qnet, b, item_shape) for b in self.buckets]
+        for b, plan in zip(self.buckets, plans):
+            plan(torch.zeros((b,) + tuple(item_shape), dtype=torch.float32,
+                             device=self.device))
+            plan.reset_plane_stats()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return plans
+
+    def run(self, qnet: conversion.QuantizedNet,
+            x: torch.Tensor) -> torch.Tensor:
+        """Arbitrary-batch inference: pad to the nearest bucket or chunk by
+        the top bucket, slice the logits back to the request size.  A
+        raised build or execution error counts in ``stats.failures``."""
+        try:
+            return self._run(qnet, x)
+        except Exception:
+            self.stats.failures += 1
+            raise
+
+    def _run(self, qnet, x):
+        n = x.shape[0]
+        item = tuple(x.shape[1:])
+        top = self.buckets[-1]
+        outs = []
+        off = 0
+        while n - off > top:
+            outs.append(self.plan_for(qnet, top, item)(x[off:off + top]))
+            self.stats.executions += 1
+            off += top
+        rem = n - off
+        bucket = self.bucket_for(rem)
+        tail = x[off:]
+        if bucket > rem:
+            tail = torch.cat([tail, tail.new_zeros((bucket - rem,) + item)])
+            self.stats.padded_rows += bucket - rem
+        outs.append(self.plan_for(qnet, bucket, item)(tail)[:rem])
+        self.stats.executions += 1
+        return outs[0] if len(outs) == 1 else torch.cat(outs)

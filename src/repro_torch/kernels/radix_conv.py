@@ -1,0 +1,146 @@
+"""Radix (bit-serial) 2-D convolution: the CUDA kernel wrapper and its plain version.
+
+Port of ``repro/kernels/radix_conv.py:radix_conv2d_pallas``.  The kernel
+is hand-written CUDA C++ for sm_90a (``csrc/radix_conv.cu``, an implicit
+GEMM on the tile loop of ``csrc/radix_common.cuh``, shared with the
+matmul the way the reference imports ``gated``/``occ_mask``/
+``_project_levels`` from ``radix_matmul.py``); :func:`radix_conv2d_plain`
+computes the same function in plain PyTorch (the reference's XLA twin,
+``ops._xla_conv2d``).
+
+:func:`radix_conv2d_cuda` dispatches on the device of its input: a CPU
+tensor runs the plain version, a CUDA tensor launches the kernel on the
+current stream (and counts the launch in ``radix_conv2d_cuda.launches``)
+or raises.  VALID only: SAME is pre-padded by the caller
+(``ops.radix_conv2d``, the compiled plan); the stride subsamples
+in-kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.core.layers import _int_conv
+from repro_torch.kernels import _build
+from repro_torch.kernels.radix_matmul import (
+    _bitserial,
+    _epilogue,
+    check_schedule,
+    epilogue_args,
+    occ_mask,
+    occupancy_arg,
+)
+
+__all__ = ["radix_conv2d_plain", "radix_conv2d_cuda"]
+
+_VOID = ctypes.c_void_p
+_INT = ctypes.c_int
+_ARGTYPES = [_VOID, _INT, _VOID, _VOID, _VOID, _VOID, _VOID,
+             _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+             _INT, _INT, _INT, _INT, _INT, _VOID]
+
+
+def radix_conv2d_plain(x_q: torch.Tensor, w_q: torch.Tensor, *,
+                       num_steps: int, method: str = "bitserial",
+                       stride: int = 1,
+                       bias: Optional[torch.Tensor] = None,
+                       mult: Optional[torch.Tensor] = None,
+                       out_steps: Optional[int] = None, periods: int = 1,
+                       out_level: Optional[int] = None,
+                       out_grid: str = "dense",
+                       occupancy: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Plain PyTorch version of the kernel (same arguments as
+    :func:`radix_conv2d_cuda`), on any device."""
+    occ = occupancy[0] if occupancy is not None else None
+    x = x_q.to(torch.int32)
+
+    def conv(p):
+        return _int_conv(p, w_q, stride, "VALID")
+
+    if method == "fused":
+        if occ is not None:
+            x = x & occ_mask(occ, num_steps)
+        acc = conv(x)
+    elif method == "bitserial":
+        acc = _bitserial(x, conv, num_steps, periods, occ)
+    else:
+        raise ValueError(f"unknown method {method!r}")
+    if mult is None:
+        return acc
+    return _epilogue(acc, bias, mult, num_steps=num_steps,
+                     out_steps=out_steps, out_level=out_level,
+                     out_grid=out_grid)
+
+
+def radix_conv2d_cuda(x_q: torch.Tensor, w_q: torch.Tensor, *,
+                      num_steps: int, method: str = "bitserial",
+                      stride: int = 1,
+                      bias: Optional[torch.Tensor] = None,
+                      mult: Optional[torch.Tensor] = None,
+                      out_steps: Optional[int] = None, periods: int = 1,
+                      out_level: Optional[int] = None,
+                      out_grid: str = "dense",
+                      occupancy: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """(N, H, W, Cin) packed levels (uint8 or int32) conv (KH, KW, Cin, Cout)
+    int8 -> VALID, strided (N, H', W', Cout).
+
+    Without ``mult``: int32 accumulators.  With ``mult`` (float32, Cout
+    entries) and optional ``bias`` (int32): the fused epilogue, uint8
+    levels.  ``periods``, ``out_level``/``out_steps``, ``out_grid`` and
+    ``occupancy`` as in ``radix_matmul_cuda``.
+
+    CPU tensors run :func:`radix_conv2d_plain`; CUDA tensors launch the
+    kernel or raise.
+    """
+    kw = dict(num_steps=num_steps, method=method, stride=stride, bias=bias,
+              mult=mult, out_steps=out_steps, periods=periods,
+              out_level=out_level, out_grid=out_grid, occupancy=occupancy)
+    if x_q.device.type == "cpu":
+        return radix_conv2d_plain(x_q, w_q, **kw)
+    if x_q.device.type != "cuda":
+        raise ValueError(f"radix_conv2d runs on CPU or CUDA, got {x_q.device}")
+    dev = x_q.device
+    _build.check_tensor(x_q, "x_q", (torch.uint8, torch.int32), dev, 4)
+    _build.check_tensor(w_q, "w_q", (torch.int8,), dev, 4)
+    n, h, w, cin = x_q.shape
+    kh, kwd, cin2, cout = w_q.shape
+    if cin2 != cin:
+        raise ValueError(f"x_q {tuple(x_q.shape)} and w_q "
+                         f"{tuple(w_q.shape)} disagree on Cin")
+    if stride < 1 or h < kh or w < kwd:
+        raise ValueError(f"VALID conv of {(h, w)} by {(kh, kwd)} with "
+                         f"stride {stride} has no output")
+    h_out = (h - kh) // stride + 1
+    w_out = (w - kwd) // stride + 1
+    out_steps = num_steps if out_steps is None else out_steps
+    out_level = (1 << out_steps) - 1 if out_level is None else out_level
+    check_schedule(method, num_steps, periods, out_level, out_grid)
+    if mult is not None:
+        epilogue_args(bias, mult, cout, dev)
+    occ_ptr = occupancy_arg(occupancy, dev)
+    out = torch.empty((n, h_out, w_out, cout), dtype=torch.int32
+                      if mult is None else torch.uint8, device=dev)
+    if out.numel() == 0:
+        return out
+    fn = _build.function("radix_conv", "radix_conv2d_launch", _ARGTYPES)
+    with torch.cuda.device(dev):
+        code = fn(x_q.data_ptr(), int(x_q.dtype == torch.int32), w_q.data_ptr(),
+                  out.data_ptr(),
+                  None if mult is None or bias is None else bias.data_ptr(),
+                  None if mult is None else mult.data_ptr(), occ_ptr,
+                  n, h, w, cin, kh, kwd, cout, stride, num_steps,
+                  int(method == "fused"), periods, out_level,
+                  int(out_grid == "pow2"),
+                  torch.cuda.current_stream(dev).cuda_stream)
+    if code != 0:
+        raise _build.launch_error("radix_conv2d", code)
+    radix_conv2d_cuda.launches += 1
+    return out
+
+
+radix_conv2d_cuda.launches = 0
