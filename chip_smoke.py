@@ -7,13 +7,32 @@ Run from the root of a checkout, with no arguments::
 
 It builds the CUDA kernels from ``src/repro_torch/csrc`` and runs:
 
-1. the build of both kernels (one ``nvcc`` each, in parallel);
-2. each kernel against its plain PyTorch version on the card, at every
-   distinct conv/linear shape of VGG-11 (224 x 224, batch 8) and LeNet-5
-   (full width), both dataflows, epilogue on and off, with an empty plane
-   in the occupancy row, plus ``periods=2`` and ``out_grid="pow2"`` at one
-   shape each and int32 (10-bit) levels at one small shape each — all
-   ``torch.equal`` — with timings by CUDA events;
+1. the build of all four kernels (one ``nvcc`` each, in parallel);
+2. each kernel against its plain PyTorch version on the card:
+   - ``radix_conv2d`` / ``radix_matmul`` at every distinct conv/linear
+     shape of VGG-11 (224 x 224, batch 8) and LeNet-5 (full width), both
+     dataflows, epilogue on and off, with an empty plane in the occupancy
+     row, plus ``periods=2`` and ``out_grid="pow2"`` at one shape each and
+     int32 (10-bit) levels at one small shape each;
+   - ``radix_matmul`` at Gemma-2B's four FFN shapes (decode M = 8 and
+     prefill M = 2048, K and N up to 16384, int8 weights up to +-127);
+   all ``torch.equal``;
+   - ``radix_decode_attn`` at B = 8, H = 8, Hkv = 1, hd = 256, S = 512,
+     T = 4, packed and unpacked, both dataflows, an occupancy row with an
+     empty plane and a mask set with causal prefixes, ring windows and an
+     all-masked row: max |kernel - plain| <= 3e-5 * (1 + |plain|) (the
+     two follow one float order, so they are expected to agree bit for
+     bit; the JSON records whether they did);
+   - ``spike_encode`` on a seeded 8 x 224 x 224 x 3 batch at T in
+     {1, 4, 8} and three scales: ``torch.equal``;
+   each row timed by CUDA events beside its bound, its plain version and a
+   library yardstick, checked equal where it computes the same integers
+   (fp32 cuBLAS mm, and fp32 ``F.conv2d`` with cuDNN off, TF32 off, exact
+   at VGG-11's shapes; cuDNN's own fp32 conv is timed beside it with the
+   count of values it gets wrong; ``torch._int_mm`` on M padded to 32 at
+   Gemma's shapes; ``F.scaled_dot_product_attention`` over the
+   dequantized bf16 cache, which is not the same function; none for the
+   encoder);
 3. LeNet-5 (full width, T=4, "or" pool) and 4. VGG-11 (full width, 224 x
    224 x 3, 100 classes, T=4, avg pool), each converted from seeded
    weights and calibration data, compiled for both dataflows with buckets
@@ -24,17 +43,35 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` and runs:
 5. ``quantize`` of a seeded 8 x 224 x 224 x 3 batch, on the card and on
    the CPU: equal;
 6. a ``torch.profiler`` trace of three calls of every (net, dataflow,
-   bucket) plan: device time by kernel name and the device's busy share.
+   bucket) plan: device time by kernel name and the device's busy share;
+7. the LM path: Gemma-2B at full width and depth in bf16 (seeded weights
+   on the card), T = 4, ``radix_kv_pack`` and ``packed_attn`` on,
+   compiled for both dataflows at (batch, max_len) = (8, 512) with
+   sequence buckets (64, 256), serving 8 prompts of 200 tokens (32 new)
+   and 3 prompts of 40 tokens (16 new), twice.  The second round (through
+   ``generate``) must build no plan and repeat the tokens; each prefill
+   must launch exactly 54 ``radix_matmul`` and each decode step 54
+   ``radix_matmul`` + 18 ``radix_decode_attn``.  Logits are held against
+   the port's plain path (``use_kernel=False``) on the same tokens:
+   ``torch.equal`` with ``packed_attn=False``, median per-step relative L2
+   <= 1e-2 and greedy agreement >= 0.9 with ``packed_attn=True``.  Prefill
+   ms per bucket, decode ms per step and tokens/s by host clock, and a
+   ``torch.profiler`` trace of one prefill and three decode steps;
+8. the encoder path: ``ops.radix_encode`` of the phase-5 batch at T in
+   {1, 4, 8} and three scales, on the card and on the CPU: equal.
 
-Every failure raises, so the script exits non-zero.  It prints the card's
-name and power limit (``nvidia-smi``), a ``{"kernels": [...]}`` JSON line,
-and last ``{"ok": true, "device": {...}}``; the full results go to
-``build/chip_smoke.json``.  It exits 1 without a CUDA device or without
-the repository's ``src/repro_torch`` beside it.
+Launch counters are set to 0 just before each path (phases 3-4, 7, 8)
+and read just after.  Every failure raises, so the script exits non-zero.
+It prints the card's name and power limit (``nvidia-smi``), a
+``{"kernels": [...]}`` JSON line, and last ``{"ok": true, "device":
+{...}}``; the full results go to ``build/chip_smoke.json``.  It exits 1
+without a CUDA device or without the repository's ``src/repro_torch``
+beside it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -51,12 +88,22 @@ BUCKETS = (1, 8)
 REQUESTS = (1, 3, 8, 11)       # prefixes of one 11-image batch
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 INT8_OPS_PER_S = 1.979e15      # H100 SXM dense int8 tensor-core peak
+F32_OPS_PER_S = 6.7e13         # H100 SXM float32 outside the tensor cores
 KERNEL_INFO = {
     "radix_conv2d": ("src/repro_torch/csrc/radix_conv.cu",
                      "src/repro/kernels/radix_conv.py:333"),
     "radix_matmul": ("src/repro_torch/csrc/radix_matmul.cu",
                      "src/repro/kernels/radix_matmul.py:382"),
+    "radix_decode_attn": ("src/repro_torch/csrc/radix_attn.cu",
+                          "src/repro/kernels/radix_attn.py:315"),
+    "spike_encode": ("src/repro_torch/csrc/spike_encode.cu",
+                     "src/repro/kernels/spike_encode.py:29"),
 }
+# Gemma-2B serving (phase 7)
+LM_BATCH, LM_MAX_LEN, LM_BUCKETS = 8, 512, (64, 256)
+LM_REQUESTS = ((8, 200, 32), (3, 40, 16))   # (prompts, tokens, new tokens)
+ENC_STEPS, ENC_SCALES = (1, 4, 8), (1.0, 0.37, 0.813)
+DEV = "cuda"                   # the device every phase runs on
 
 
 class SmokeFailure(RuntimeError):
@@ -82,6 +129,11 @@ def nvidia_smi() -> str:
 # ---------------------------------------------------------------------------
 # Timing and bounds.
 # ---------------------------------------------------------------------------
+
+
+def sync(torch) -> None:
+    if DEV == "cuda":
+        torch.cuda.synchronize()
 
 
 def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
@@ -112,6 +164,29 @@ def host_ms(torch, fn, reps: int, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def _dev_us(event) -> float:
+    """A profiler event's own device time in us (0 for host events)."""
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0))
+
+
+def device_ms(torch, fn, kernel: str, reps: int = 20):
+    """Device time per call of the kernels named ``kernel``, from a
+    ``torch.profiler`` trace of ``reps`` calls: the kernel alone, without
+    the host's launch latency that CUDA events around one short call also
+    catch.  None when the trace holds no device time for it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_dev_us(e) for e in prof.key_averages() if kernel in e.key)
+    return us / reps / 1e3 if us else None
 
 
 def bound(call: dict) -> tuple:
@@ -255,9 +330,8 @@ def phase_kernels(torch, nets: dict, results: dict) -> None:
                 row[f"plain_{m}_ms"] = cuda_ms(
                     torch, lambda: plain_fn(x, wq, **base, method=m, **epi),
                     reps=3, warmup=1)
-            row["library_ms"] = None
-            if call["kernel"] == "radix_matmul":
-                row["library_ms"] = int_mm_ms(torch, x, wq, kernel_fn, base)
+            row["library_ms"] = float_library_ms(torch, call, x, wq,
+                                                 kernel_fn, base, row)
             seen[key] = row
             rows.append(row)
             log(f"[kernel] {net_name:6s} {call['kernel']:12s} x={call['x']} "
@@ -266,7 +340,11 @@ def phase_kernels(torch, nets: dict, results: dict) -> None:
                 f"bitserial {row['bitserial_ms']:.4f} ms, plain "
                 f"{row['plain_fused_ms']:.4f}/{row['plain_bitserial_ms']:.4f}"
                 f" ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
-                f"library {row['library_ms']}")
+                f"library {row['library_ms']} ms"
+                + (f" (cuDNN fp32 {row['cudnn_f32_ms']:.4f} ms, "
+                   f"{row['cudnn_f32_mismatch']} values off by up to "
+                   f"{row['cudnn_f32_max_diff']})"
+                   if "cudnn_f32_ms" in row else ""))
     check({"radix_conv2d", "radix_matmul"} <= extra_done,
           "periods=2 / pow2 not covered for both kernels")
     # int32 levels: the avg-pool carry outgrows a byte at T >= 7 (10 bits
@@ -299,19 +377,316 @@ def phase_kernels(torch, nets: dict, results: dict) -> None:
     results["seen"] = seen
 
 
-def int_mm_ms(torch, x, wq, kernel_fn, base):
-    """torch._int_mm's time on the same product, where it takes the shape
-    (levels fit int8 exactly); None where it refuses it."""
-    a = x.to(torch.int8)
-    try:
-        ref = torch._int_mm(a, wq)
-    except RuntimeError as exc:
-        log(f"[kernel] torch._int_mm refuses {tuple(x.shape)} x "
-            f"{tuple(wq.shape)}: {str(exc).splitlines()[0]}")
+def float_library_ms(torch, call, x, wq, kernel_fn, base, row) -> float:
+    """The library yardstick: one fp32 PyTorch call (TF32 off) computing
+    the same integer product, exact while every sum stays below 2^24
+    (VGG-11: at most 3*3*512 taps x level 63 x |w| 3 = 870,912) and the
+    call forms plain sums.  cuBLAS ``torch.mm`` for a linear layer;
+    ``F.conv2d`` with cuDNN disabled (PyTorch's im2col + cuBLAS GEMM) for
+    a conv, because cuDNN's own fp32 choice may be a Winograd/FFT
+    transform, which is not exact: its time and mismatch count are kept
+    beside (``cudnn_f32_*``).  Checked equal to the kernel's raw int32
+    accumulator and timed without the epilogue; None where it is not
+    equal."""
+    import torch.nn.functional as F
+
+    check(not (torch.backends.cuda.matmul.allow_tf32
+               or torch.backends.cudnn.allow_tf32), "TF32 is on")
+    want = kernel_fn(x, wq, **dict(base, occupancy=None), method="fused")
+    if call["kernel"] == "radix_matmul":
+        a, b = x.float(), wq.float()
+
+        def fn():
+            return torch.mm(a, b)
+
+        def as_int(y):
+            return y.to(torch.int32)
+    else:
+        a = x.float().permute(0, 3, 1, 2)            # NHWC as channels_last
+        wt = wq.float().permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+
+        def cudnn():
+            return F.conv2d(a, wt, stride=call["stride"])
+
+        def fn():
+            with torch.backends.cudnn.flags(enabled=False):
+                return F.conv2d(a, wt, stride=call["stride"])
+
+        def as_int(y):
+            return y.permute(0, 2, 3, 1).to(torch.int32)
+        diff = (as_int(cudnn()) - want).abs()
+        row["cudnn_f32_mismatch"] = int((diff > 0).sum())
+        row["cudnn_f32_max_diff"] = int(diff.max())
+        row["cudnn_f32_ms"] = cuda_ms(torch, cudnn, reps=10)
+    got = as_int(fn())
+    if not torch.equal(got, want):
+        log(f"[kernel] fp32 library {call['kernel']} {call['x']}: "
+            f"{int((got != want).sum())} values differ from the kernel; "
+            "no exact library yardstick at this shape")
         return None
-    got = kernel_fn(x, wq, **dict(base, occupancy=None), method="fused")
-    check(torch.equal(ref, got), "torch._int_mm disagrees with the kernel")
+    return cuda_ms(torch, fn, reps=10)
+
+
+def int_mm_ms(torch, x, wq, kernel_fn) -> float:
+    """``torch._int_mm`` (int8 x int8 -> int32) on the same product, M
+    padded to 32 rows (it refuses M <= 16); checked equal to the kernel."""
+    m, k = x.shape
+    a = torch.zeros((max(m, 32), k), dtype=torch.int8, device=x.device)
+    a[:m] = x.to(torch.int8)
+    want = kernel_fn(x, wq, num_steps=T, method="fused")
+    check(torch.equal(torch._int_mm(a, wq)[:m], want),
+          f"torch._int_mm disagrees with the kernel at {tuple(x.shape)} x "
+          f"{tuple(wq.shape)}")
     return cuda_ms(torch, lambda: torch._int_mm(a, wq), reps=10)
+
+
+# ---------------------------------------------------------------------------
+# Phase 2, LM half: Gemma-2B's matmul shapes, decode attention, encoder.
+# ---------------------------------------------------------------------------
+
+
+def lm_matmul_calls(cfg) -> list:
+    """The FFN products of one prefill (M = batch * top bucket) and one
+    decode step (M = batch): w_gate/w_up (d -> d_ff), w_down (d_ff -> d)."""
+    d, f = cfg.d_model, cfg.d_ff
+    calls = []
+    for m in (LM_BATCH, LM_BATCH * LM_BUCKETS[-1]):
+        for k, n in ((d, f), (f, d)):
+            calls.append(dict(kernel="radix_matmul", x=(m, k), w=(k, n),
+                              stride=1, bits=T, epi=False, mkn=(m, k, n),
+                              x_bytes=m * k))
+    return calls
+
+
+def phase_lm_matmul(torch, cfg, results) -> None:
+    from repro_torch.kernels.radix_matmul import (radix_matmul_cuda,
+                                                  radix_matmul_plain)
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 10)
+    dev = torch.device(DEV)
+    rows = []
+    for call in lm_matmul_calls(cfg):
+        x = torch.randint(0, 1 << T, call["x"], generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+        wq = torch.randint(-127, 128, call["w"], generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.int8)
+        row = dict(net="gemma-2b", kernel="radix_matmul", x=call["x"],
+                   w=call["w"], bits=T, epi=False, mkn=call["mkn"])
+        for m in ("fused", "bitserial"):
+            got = radix_matmul_cuda(x, wq, num_steps=T, method=m)
+            want = radix_matmul_plain(x, wq, num_steps=T, method=m)
+            sync(torch)
+            check(torch.equal(got, want), f"radix_matmul {call['x']} x "
+                  f"{call['w']} {m}: max |diff| "
+                  f"{int((got.long() - want.long()).abs().max())}")
+            row[f"{m}_ms"] = cuda_ms(
+                torch, lambda: radix_matmul_cuda(x, wq, num_steps=T,
+                                                 method=m), reps=10)
+            row[f"plain_{m}_ms"] = cuda_ms(
+                torch, lambda: radix_matmul_plain(x, wq, num_steps=T,
+                                                  method=m), reps=3,
+                warmup=1)
+        row["bound_ms"], row["bound_by"] = bound(call)
+        row["library_ms"] = int_mm_ms(torch, x, wq, radix_matmul_cuda)
+        rows.append(row)
+        log(f"[kernel] gemma  radix_matmul x={call['x']} w={call['w']}: "
+            f"fused {row['fused_ms']:.4f} ms, bitserial "
+            f"{row['bitserial_ms']:.4f} ms, plain "
+            f"{row['plain_fused_ms']:.4f}/{row['plain_bitserial_ms']:.4f} "
+            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+            f"torch._int_mm {row['library_ms']:.4f} ms")
+    results["lm_matmul_rows"] = rows
+
+
+def attn_problem(torch, cfg, s_len: int, gen):
+    """A decode-attention problem at the LM's decode shape: queries, a
+    T-bit cache with plane 2 empty in K and V, per-token scales, and a
+    mask set (causal prefixes, ring windows, an all-masked row)."""
+    from repro_torch.lm import blocks
+
+    dev = torch.device(DEV)
+    b, h, hkv, hd = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = torch.randn((b, h, hd), generator=gen, device=dev)
+    lv = [torch.randint(0, 1 << T, (b, s_len, hkv, hd), generator=gen,
+                        device=dev, dtype=torch.int32) & ~0b100
+          for _ in range(2)]
+    scales = [torch.rand((b, s_len, hkv), generator=gen, device=dev) + 0.25
+              for _ in range(2)]
+    rows = [blocks.decode_mask(p, s_len, 0, device=dev)[0]
+            for p in (0, 199, 300, s_len - 1)]
+    rows += [blocks.decode_mask(p, s_len, s_len, device=dev)[0]
+             for p in (100, s_len + 37, 3 * s_len - 5)]
+    rows.append(torch.zeros(s_len, dtype=torch.bool, device=dev))
+    return q, lv, scales, torch.stack(rows[:b])
+
+
+def _pack4(x):
+    """(..., hd) levels < 16 -> (..., hd // 2), hi nibble = even dim."""
+    return (x[..., 0::2] << 4) | x[..., 1::2]
+
+
+def phase_attn(torch, cfg, results) -> None:
+    """radix_decode_attn (through ``ops.radix_decode_attention``, as the
+    LM calls it) against its plain version; times of the kernel alone."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import radix_attn as ra
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    s_len, hd = LM_MAX_LEN, cfg.hd
+    q, (kl, vl), (ks, vs), mask = attn_problem(torch, cfg, s_len, gen)
+    check(not mask[-1].any() and bool(mask[0, 0]), "mask set")
+    occ = ops.plane_occupancy(kl, T)[1]
+    check(int(occ[2]) == 0 and int(occ.sum()) == T - 1,
+          f"occupancy row {occ.tolist()}: plane 2 should be empty")
+    rows, err = [], 0.0
+    for packed in (True, False):
+        kq = (_pack4(kl) if packed else kl).to(torch.uint8)
+        vq = (_pack4(vl) if packed else vl).to(torch.uint8)
+        for method in ("fused", "bitserial"):
+            kw = dict(packed=packed, method=method)
+            got = ops.radix_decode_attention(q, kq, ks, vq, vs, mask, T, **kw)
+            want = ops.radix_decode_attention(
+                q, kq, ks, vq, vs, mask, T, **kw,
+                config=ops.KernelConfig(impl="plain"))
+            sync(torch)
+            diff = (got - want).abs()
+            err = max(err, float(diff.max()))
+            check(bool(torch.isfinite(got).all()), "non-finite attention")
+            check(bool((diff <= 3e-5 * (1 + want.abs())).all()),
+                  f"radix_decode_attn packed={packed} {method}: max |diff| "
+                  f"{float(diff.max())}")
+            check(not got[-1].any(), "all-masked row is not 0")
+            # the kernel alone, on the wrapper's prepared operands
+            n, g = LM_BATCH * cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+            qq, qs = ra.quantize_q(q)
+            args = (qq.reshape(n, g, hd), qs.reshape(n, g),
+                    kq.reshape(n, s_len, -1), ks.reshape(n, s_len),
+                    vq.reshape(n, s_len, -1), vs.reshape(n, s_len),
+                    mask.to(torch.int32),
+                    ops.plane_occupancy(ops._nibble_union(kq) if packed
+                                        else kq, T)[0],
+                    ops.plane_occupancy(ops._nibble_union(vq) if packed
+                                        else vq, T)[0])
+            akw = dict(num_steps=T, hd=hd, method=method, packed=packed)
+            check(torch.equal(ra.radix_decode_attn_cuda(*args, **akw), got),
+                  "kernel call differs from the wrapper's")
+            row = dict(kernel="radix_decode_attn", packed=packed,
+                       method=method, shape=(LM_BATCH, cfg.n_heads,
+                                             cfg.n_kv_heads, hd, s_len),
+                       max_abs_err=float(diff.max()),
+                       bitwise_equal=bool(torch.equal(got, want)))
+            row["call_ms"] = cuda_ms(
+                torch, lambda: ra.radix_decode_attn_cuda(*args, **akw),
+                reps=20)
+            row["device_ms"] = device_ms(
+                torch, lambda: ra.radix_decode_attn_cuda(*args, **akw),
+                "radix_decode_attn_kernel")
+            row["ms"] = row["device_ms"] or row["call_ms"]
+            row["plain_ms"] = cuda_ms(
+                torch, lambda: ra.radix_decode_attn_plain(*args, **akw),
+                reps=3, warmup=1)
+            row["wrapper_ms"] = cuda_ms(
+                torch, lambda: ops.radix_decode_attention(
+                    q, kq, ks, vq, vs, mask, T, **kw), reps=10)
+            nbytes = sum(a.numel() * a.element_size() for a in args)
+            nbytes += n * g * hd * 4                      # the output
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            # QK^T at the int8 peak, PV at the float32 peak
+            ops_qk = 2.0 * n * g * s_len * hd
+            t_ops = (ops_qk / INT8_OPS_PER_S + ops_qk / F32_OPS_PER_S) * 1e3
+            row["bound_ms"], row["bound_by"] = (
+                (t_bytes, "bytes") if t_bytes >= t_ops
+                else (t_ops, "operations"))
+            row["bytes"] = nbytes
+            rows.append(row)
+    # yardstick: SDPA over the dequantized bf16 cache (not the same
+    # function: the query is not quantized and the cache is float)
+    b, h, hkv = LM_BATCH, cfg.n_heads, cfg.n_kv_heads
+    lvl = (1 << T) - 1
+    kd = ((kl.float() * (2.0 / lvl) - 1.0) * ks[..., None]).to(
+        torch.bfloat16).transpose(1, 2).contiguous()      # (B, Hkv, S, hd)
+    vd = ((vl.float() * (2.0 / lvl) - 1.0) * vs[..., None]).to(
+        torch.bfloat16).transpose(1, 2).contiguous()
+    qb = q.to(torch.bfloat16)[:, :, None, :]              # (B, H, 1, hd)
+    mb = torch.stack([mask[1]] * b)[:, None, None, :]     # no empty row
+    try:
+        def sdpa():
+            return F.scaled_dot_product_attention(qb, kd, vd, attn_mask=mb,
+                                                  enable_gqa=True)
+        sdpa()
+    except TypeError:                  # a torch without enable_gqa
+        kd, vd = (t.expand(b, h, s_len, hd) for t in (kd, vd))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qb, kd, vd, attn_mask=mb)
+    sdpa_ms = cuda_ms(torch, sdpa, reps=20)
+    for row in rows:
+        row["library_ms"] = sdpa_ms
+        log(f"[kernel] gemma  radix_decode_attn packed={row['packed']!s:5s}"
+            f" {row['method']:9s} B=8 H=8 Hkv=1 hd=256 S={s_len}: kernel "
+            f"{row['ms']:.4f} ms on the device ({row['call_ms']:.4f} ms a "
+            f"call by CUDA events; wrapper with prepass "
+            f"{row['wrapper_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, "
+            "bound "
+            f"{row['bound_ms']:.5f} ms ({row['bound_by']}), max |diff| "
+            f"{row['max_abs_err']:.3g}, bit for bit equal "
+            f"{row['bitwise_equal']}")
+    log(f"[kernel] yardstick: SDPA over the dequantized bf16 cache "
+        f"{sdpa_ms:.4f} ms (a float softmax, not the radix function)")
+    results["attn_rows"] = rows
+    results["max_abs_err"]["radix_decode_attn"] = err
+
+
+def encode_batch(torch):
+    """The seeded 8 x 224 x 224 x 3 batch of phases 2, 5 and 8 (CPU)."""
+    x = torch.rand((BATCH, 224, 224, 3),
+                   generator=torch.Generator().manual_seed(SEED + 3))
+    return x * 1.4 - 0.2
+
+
+def phase_encode_kernel(torch, results) -> None:
+    from repro_torch.kernels.spike_encode import (spike_encode_cuda,
+                                                  spike_encode_plain)
+
+    x = encode_batch(torch).to(DEV).reshape(-1, 3)   # as ops.radix_encode
+    rows = []
+    for steps in ENC_STEPS:
+        for scale in ENC_SCALES:
+            kw = dict(num_steps=steps, scale=scale)
+            got = spike_encode_cuda(x, **kw)
+            want = spike_encode_plain(x, **kw)
+            sync(torch)
+            check(torch.equal(got, want), f"spike_encode T={steps} "
+                  f"scale={scale}: {int((got != want).sum())} levels differ")
+            if steps == T and scale == 1.0:
+                row = dict(kernel="spike_encode", shape=tuple(x.shape),
+                           num_steps=steps, scale=scale)
+                row["call_ms"] = cuda_ms(
+                    torch, lambda: spike_encode_cuda(x, **kw), reps=20)
+                row["device_ms"] = device_ms(
+                    torch, lambda: spike_encode_cuda(x, **kw),
+                    "spike_encode_kernel")
+                row["ms"] = row["device_ms"] or row["call_ms"]
+                row["plain_ms"] = cuda_ms(
+                    torch, lambda: spike_encode_plain(x, **kw), reps=10)
+                nbytes = x.numel() * 5
+                row["bound_ms"], row["bound_by"] = (
+                    nbytes / HBM_BYTES_PER_S * 1e3, "bytes")
+                row["library_ms"] = None   # no single PyTorch call
+                rows.append(row)
+                log(f"[kernel] spike_encode {tuple(x.shape)} T={steps}: "
+                    f"{row['ms']:.4f} ms on the device ({row['call_ms']:.4f}"
+                    f" ms a call by CUDA events), plain "
+                    f"{row['plain_ms']:.4f} ms, "
+                    f"bound {row['bound_ms']:.4f} ms (bytes); no library "
+                    "call computes it")
+    log(f"[kernel] spike_encode equals its plain version at T in "
+        f"{ENC_STEPS} x scales {ENC_SCALES}")
+    results["encode_rows"] = rows
+    results["max_abs_err"]["spike_encode"] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -319,12 +694,25 @@ def int_mm_ms(torch, x, wq, kernel_fn, base):
 # ---------------------------------------------------------------------------
 
 
-def counters():
+def _wrappers() -> dict:
+    from repro_torch.kernels.radix_attn import radix_decode_attn_cuda
     from repro_torch.kernels.radix_conv import radix_conv2d_cuda
     from repro_torch.kernels.radix_matmul import radix_matmul_cuda
+    from repro_torch.kernels.spike_encode import spike_encode_cuda
 
-    return {"radix_conv2d": radix_conv2d_cuda.launches,
-            "radix_matmul": radix_matmul_cuda.launches}
+    return {"radix_conv2d": radix_conv2d_cuda,
+            "radix_matmul": radix_matmul_cuda,
+            "radix_decode_attn": radix_decode_attn_cuda,
+            "spike_encode": spike_encode_cuda}
+
+
+def counters() -> dict:
+    return {k: fn.launches for k, fn in _wrappers().items()}
+
+
+def reset_counters() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def phase_net(torch, name, static, params, hw, results) -> dict:
@@ -430,10 +818,6 @@ def phase_profile(torch, runs: dict, results: dict) -> None:
     events carry their kernels' time too)."""
     from torch.profiler import ProfilerActivity, profile
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
     out = {}
     for name, run in runs.items():
         for dataflow, exe in run["exes"].items():
@@ -450,9 +834,9 @@ def phase_profile(torch, runs: dict, results: dict) -> None:
                     wall_us = (time.perf_counter() - t0) * 1e6
                 kernels = [e for e in prof.key_averages()
                            if str(e.device_type).endswith("CUDA")
-                           and dev_us(e) > 0]
-                busy_us = sum(dev_us(e) for e in kernels)
-                radix_us = sum(dev_us(e) for e in kernels
+                           and _dev_us(e) > 0]
+                busy_us = sum(_dev_us(e) for e in kernels)
+                radix_us = sum(_dev_us(e) for e in kernels
                                if "radix_" in e.key)
                 key = f"{name}/{dataflow}/b{b}"
                 if busy_us == 0:
@@ -460,7 +844,7 @@ def phase_profile(torch, runs: dict, results: dict) -> None:
                         "(not measured)")
                     out[key] = None
                     continue
-                top = sorted(kernels, key=dev_us, reverse=True)[:5]
+                top = sorted(kernels, key=_dev_us, reverse=True)[:5]
                 wall_ms = results[name]["dataflows"][dataflow]["buckets"][b][
                     "ms"]
                 out[key] = dict(
@@ -469,7 +853,7 @@ def phase_profile(torch, runs: dict, results: dict) -> None:
                     radix_kernels_ms_per_call=radix_us / 3e3,
                     other_kernels_ms_per_call=(busy_us - radix_us) / 3e3,
                     busy_share=busy_us / 3e3 / wall_ms,
-                    top=[(e.key[:70], dev_us(e) / 3e3, e.count // 3)
+                    top=[(e.key[:70], _dev_us(e) / 3e3, e.count // 3)
                          for e in top])
                 log(f"[profile] {key}: device busy {busy_us / 3e3:.3f} ms/call"
                     f" = {100 * out[key]['busy_share']:.1f}% of the "
@@ -490,9 +874,7 @@ def phase_profile(torch, runs: dict, results: dict) -> None:
 def phase_quantize(torch, results) -> None:
     from repro_torch.core import encoding
 
-    x = torch.rand((BATCH, 224, 224, 3),
-                   generator=torch.Generator().manual_seed(SEED + 3))
-    x = x * 1.4 - 0.2
+    x = encode_batch(torch)
     out = {}
     for scale in (1.0, 0.37, 0.813):
         cpu = encoding.quantize(x, T, scale)
@@ -505,6 +887,261 @@ def phase_quantize(torch, results) -> None:
     log(f"[quantize] card == CPU for 8x224x224x3 at scales 1.0/0.37/0.813; "
         f"levels a host-scalar divide would move: {out}")
     results["quantize_host_scalar_mismatches"] = out
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the LM path (Gemma-2B serving).
+# ---------------------------------------------------------------------------
+
+
+def lm_prompts(torch, cfg, n: int, s0: int, seed: int):
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    return torch.randint(0, cfg.vocab, (n, s0), generator=gen, device=DEV)
+
+
+def serve_greedy(exe, prompts, new: int) -> dict:
+    """One request through ``exe.prefill`` / ``exe.decode``, greedy; keeps
+    every step's logits and the launches it made."""
+    import torch
+
+    before = counters()
+    state = exe.prefill(prompts)
+    logits, toks = [], []
+    for i in range(new):
+        lg = state["logits"]
+        nxt = lg.to(torch.float32).argmax(-1)
+        logits.append(lg)
+        toks.append(nxt)
+        if i + 1 < new:
+            state = exe.decode(state, nxt[:, None])
+    sync(torch)
+    after = counters()
+    return dict(logits=logits, tokens=torch.stack(toks, 1),
+                launches={k: after[k] - before[k] for k in after})
+
+
+def plain_logits(model, params, cfg, prompts, tokens, bucket: int) -> list:
+    """The same request through ``lm.model`` with ``cfg`` (``use_kernel``
+    off: the kernels' plain versions), fed the served tokens."""
+    import torch
+
+    n, s0 = prompts.shape
+    padded = torch.zeros((LM_BATCH, bucket + 1), dtype=torch.long,
+                         device=prompts.device)
+    padded[:n, :s0] = prompts
+    with torch.inference_mode():
+        lg, caches = model.prefill(params, {"tokens": padded}, cfg,
+                                   max_len=LM_MAX_LEN, true_len=s0)
+        out = [lg[:n]]
+        tok = torch.zeros((LM_BATCH, 1), dtype=torch.long,
+                          device=prompts.device)
+        for i in range(tokens.shape[1] - 1):
+            tok[:n, 0] = tokens[:, i]
+            lg, caches = model.decode_step(params, caches, tok, s0 + i, cfg)
+            out.append(lg[:n])
+    return out
+
+
+def compare_logits(torch, got: list, want: list) -> dict:
+    errs, agree, total = [], 0, 0
+    for a, b in zip(got, want):
+        a64, b64 = a.to(torch.float64), b.to(torch.float64)
+        errs.append(float((a64 - b64).norm() / b64.norm()))
+        agree += int((a.float().argmax(-1) == b.float().argmax(-1)).sum())
+        total += a.shape[0]
+    return dict(median_rel_l2=statistics.median(errs), max_rel_l2=max(errs),
+                greedy_agreement=agree / total,
+                equal=all(torch.equal(a, b) for a, b in zip(got, want)))
+
+
+def profile_lm(torch, exe, prompts) -> dict:
+    """Device time by kernel name over one prefill and three decode steps
+    (``torch.profiler``), and its share of the profiled wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    state = exe.prefill(prompts)
+    sync(torch)
+    for name, fn in (("prefill", lambda: exe.prefill(prompts)),
+                     ("decode", lambda: [exe.decode(state, state["logits"]
+                                                    .argmax(-1)[:, None])
+                                         for _ in range(3)])):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            sync(torch)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0]
+        busy_ms = sum(_dev_us(e) for e in kernels) / 1e3
+        if busy_ms == 0:
+            out[name] = None
+            continue
+        calls = 1 if name == "prefill" else 3
+        top = sorted(kernels, key=_dev_us, reverse=True)[:6]
+        out[name] = dict(
+            profiled_wall_ms=wall_ms / calls, device_ms=busy_ms / calls,
+            busy_share=busy_ms / wall_ms,
+            radix_ms=sum(_dev_us(e) for e in kernels if "radix_" in e.key)
+            / 1e3 / calls,
+            top=[(e.key[:60], _dev_us(e) / 1e3 / calls, e.count // calls)
+                 for e in top])
+    return out
+
+
+def phase_lm(torch, arch, results) -> None:
+    """``arch`` (Gemma-2B: full width and depth, bf16) served through
+    ``Accelerator.compile`` for both dataflows."""
+    from repro_torch import api
+    from repro_torch.lm import model
+
+    cfg = dataclasses.replace(arch, radix_steps=T, radix_kv_pack=True,
+                              packed_attn=True)
+    t0 = time.perf_counter()
+    params = model.init_params(
+        torch.Generator(device=DEV).manual_seed(SEED), cfg, device=DEV)
+    sync(torch)
+    init_s = time.perf_counter() - t0
+    sizes = []
+    model.tree_map(lambda t: sizes.append(t.numel()), params)
+    n_params = sum(sizes)
+    log(f"[lm] gemma-2b: {n_params / 1e9:.3f} B parameters in bf16, "
+        f"initialised on the card in {init_s:.1f} s")
+    per_prefill = 3 * cfg.n_layers          # w_gate, w_up, w_down
+    out = dict(params=n_params, init_s=init_s, dataflows={})
+    for dataflow in ("fused", "bitserial"):
+        row = out["dataflows"][dataflow] = {}
+        for packed_attn in (True, False):
+            pcfg = dataclasses.replace(cfg, packed_attn=packed_attn)
+            exe = api.Accelerator(dataflow=dataflow, device=DEV).compile(
+                (params, pcfg), (LM_BATCH, LM_MAX_LEN), buckets=LM_BUCKETS)
+            t0 = time.perf_counter()
+            exe.warmup()
+            warm_s = time.perf_counter() - t0
+            built = exe.stats()["compiles"]
+            check(built == len(LM_BUCKETS) + 1, f"warmup built {built} plans")
+            plain_cfg = dataclasses.replace(exe.cfg, use_kernel=False)
+            served, cmp = [], []
+            for i, (n, s0, new) in enumerate(LM_REQUESTS):
+                prompts = lm_prompts(torch, cfg, n, s0, SEED + 20 + i)
+                r = serve_greedy(exe, prompts, new)
+                per_step = 3 * cfg.n_layers
+                want = {"radix_matmul": per_prefill + (new - 1) * per_step,
+                        "radix_decode_attn": (new - 1) * cfg.n_layers
+                        if packed_attn else 0,
+                        "radix_conv2d": 0, "spike_encode": 0}
+                check(r["launches"] == want,
+                      f"{dataflow} packed_attn={packed_attn} request {i}: "
+                      f"launches {r['launches']} != {want}")
+                lg = r["logits"]
+                check(all(tuple(x.shape) == (n, cfg.vocab) and
+                          bool(torch.isfinite(x).all()) for x in lg),
+                      "LM logits shape / finiteness")
+                ref = plain_logits(model, exe.params, plain_cfg, prompts,
+                                   r["tokens"], exe._cache.bucket_for(s0))
+                c = compare_logits(torch, lg, ref)
+                if packed_attn:
+                    check(c["median_rel_l2"] <= 1e-2
+                          and c["greedy_agreement"] >= 0.9,
+                          f"{dataflow} request {i}: kernel vs plain {c}")
+                else:
+                    check(c["equal"], f"{dataflow} packed_attn=False request"
+                          f" {i}: logits differ from the plain path {c}")
+                cmp.append(c)
+                served.append((prompts, r["tokens"]))
+            # second round through generate: same tokens, no plan built
+            for (prompts, toks), (_, _, new) in zip(served, LM_REQUESTS):
+                check(torch.equal(exe.generate(prompts, new), toks),
+                      f"{dataflow}: generate differs from round 1")
+            check(exe.stats()["compiles"] == built,
+                  f"{dataflow}: plans built in steady state")
+            tag = "packed_attn" if packed_attn else "dequant_attn"
+            row[tag] = dict(comparisons=cmp, stats=exe.stats(),
+                            warmup_s=warm_s)
+            log(f"[lm] {dataflow:9s} packed_attn={packed_attn!s:5s}: "
+                f"warmup {warm_s:.1f} s; "
+                + "; ".join(f"request {i} vs plain: median rel L2 "
+                            f"{c['median_rel_l2']:.3g} (max "
+                            f"{c['max_rel_l2']:.3g}), greedy agreement "
+                            f"{c['greedy_agreement']:.3f}, equal "
+                            f"{c['equal']}" for i, c in enumerate(cmp))
+                + f"; stats {exe.stats()['compiles']} plans, "
+                f"{exe.stats()['executions']} executions")
+            if packed_attn:
+                lm_timings(torch, cfg, exe, row)
+                row["profile"] = profile_lm(
+                    torch, exe, lm_prompts(torch, cfg, LM_BATCH,
+                                           LM_BUCKETS[-1], SEED + 30))
+                for name, pr in row["profile"].items():
+                    if pr is None:
+                        log(f"[lm] {dataflow} {name} profile: no device time"
+                            " recorded (not measured)")
+                        continue
+                    log(f"[lm] {dataflow} {name} profile: device "
+                        f"{pr['device_ms']:.3f} ms per call of "
+                        f"{pr['profiled_wall_ms']:.3f} ms profiled wall "
+                        f"({100 * pr['busy_share']:.1f}% busy), radix "
+                        f"kernels {pr['radix_ms']:.3f} ms; top: "
+                        + "; ".join(f"{k} {v:.3f} ms x{c}"
+                                    for k, v, c in pr["top"]))
+            del exe
+    if DEV == "cuda":
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    results["lm"] = out
+
+
+def lm_timings(torch, cfg, exe, row) -> None:
+    """Prefill ms per bucket (full batch, prompts filling the bucket),
+    decode ms per step and tokens/s; host clock ending in synchronize."""
+    for bucket in LM_BUCKETS:
+        prompts = lm_prompts(torch, cfg, LM_BATCH, bucket, SEED + 40)
+        ms = host_ms(torch, lambda: exe.prefill(prompts), reps=3, warmup=1)
+        row[f"prefill_{bucket}_ms"] = ms
+        row[f"prefill_{bucket}_tokens_per_s"] = LM_BATCH * bucket / ms * 1e3
+    state = exe.prefill(lm_prompts(torch, cfg, LM_BATCH, LM_BUCKETS[-1],
+                                   SEED + 41))
+    tok = state["logits"].argmax(-1)[:, None]
+    ms = host_ms(torch, lambda: exe.decode(state, tok), reps=10)
+    row["decode_ms"] = ms
+    row["decode_tokens_per_s"] = LM_BATCH / ms * 1e3
+    n, s0, new = LM_REQUESTS[0]
+    prompts = lm_prompts(torch, cfg, n, s0, SEED + 20)
+    t0 = time.perf_counter()
+    exe.generate(prompts, new)
+    sync(torch)
+    req_s = time.perf_counter() - t0
+    row["request_s"] = req_s
+    row["request_tokens_per_s"] = n * new / req_s
+    top = LM_BUCKETS[-1]
+    log(f"[lm] {exe.dataflow:9s} prefill "
+        + ", ".join(f"bucket {b}: {row[f'prefill_{b}_ms']:.2f} ms"
+                    for b in LM_BUCKETS)
+        + f" ({row[f'prefill_{top}_tokens_per_s']:.0f} prompt tokens/s at "
+        f"bucket {top}); decode "
+        f"{ms:.3f} ms per step ({row['decode_tokens_per_s']:.1f} tokens/s "
+        f"at batch 8); request of {n} x {s0} tokens + {new} new: "
+        f"{req_s:.3f} s ({row['request_tokens_per_s']:.1f} new tokens/s)")
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the encoder path.
+# ---------------------------------------------------------------------------
+
+
+def phase_encode(torch, results) -> None:
+    from repro_torch.kernels import ops
+
+    x = encode_batch(torch)
+    xd = x.to(DEV)
+    for steps in ENC_STEPS:
+        for scale in ENC_SCALES:
+            got = ops.radix_encode(xd, steps, scale)
+            check(torch.equal(got.cpu(), ops.radix_encode(x, steps, scale)),
+                  f"radix_encode T={steps} scale={scale}: card != CPU")
+    sync(torch)
+    log(f"[encode] ops.radix_encode of {tuple(x.shape)}: card == CPU at T "
+        f"in {ENC_STEPS} x scales {ENC_SCALES}")
 
 
 def main() -> int:
@@ -523,6 +1160,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
+    from repro_torch.configs import gemma_2b
     from repro_torch.kernels import _build
     from repro_torch.models import lenet, vgg
 
@@ -554,53 +1192,84 @@ def main() -> int:
     }
     t0 = time.perf_counter()
     phase_kernels(torch, nets, results)
+    phase_lm_matmul(torch, gemma_2b.ARCH, results)
+    phase_attn(torch, gemma_2b.ARCH, results)
+    phase_encode_kernel(torch, results)
     log(f"[kernel] phase 2: {time.perf_counter() - t0:.1f} s")
 
-    # the main path: counts from here to the end of phase 4
-    from repro_torch.kernels.radix_conv import radix_conv2d_cuda
-    from repro_torch.kernels.radix_matmul import radix_matmul_cuda
-
-    radix_conv2d_cuda.launches = 0
-    radix_matmul_cuda.launches = 0
+    # each path: counters at 0 just before it, read just after
+    paths = {}
+    reset_counters()
     runs = {
         "lenet5": phase_net(torch, "lenet5", lenet_static, lenet_params,
                             lenet_hw, results),
         "vgg11": phase_net(torch, "vgg11", vgg_static, vgg_params, vgg_hw,
                            results),
     }
-    main_launches = counters()
-    check(all(v > 0 for v in main_launches.values()),
-          f"a kernel was not launched on the main path: {main_launches}")
-
+    paths["cnn"] = counters()
     phase_quantize(torch, results)
     phase_profile(torch, runs, results)
+    del runs
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    reset_counters()
+    phase_lm(torch, gemma_2b.ARCH, results)
+    paths["lm"] = counters()
+    log(f"[lm] phase 7: {time.perf_counter() - t0:.1f} s")
+
+    reset_counters()
+    phase_encode(torch, results)
+    paths["encode"] = counters()
+    results["path_launches"] = paths
+    for path, names in (("cnn", ("radix_conv2d", "radix_matmul")),
+                        ("lm", ("radix_matmul", "radix_decode_attn")),
+                        ("encode", ("spike_encode",))):
+        check(all(paths[path][k] > 0 for k in names),
+              f"a kernel of the {path} path was not launched: "
+              f"{paths[path]}")
+    log(f"[paths] launches per path: {paths}")
 
     seen = results.pop("seen")
     vgg_calls = nets["vgg11"]
     kernels = []
-    for kname, (source, replaces) in sorted(KERNEL_INFO.items()):
+    for kname in ("radix_conv2d", "radix_matmul"):
+        source, replaces = KERNEL_INFO[kname]
         mine = [seen[_shape_key(c)] for c in vgg_calls if c["kernel"] == kname]
-        libs = [r["library_ms"] for r in mine]
         bound_ms = sum(r["bound_ms"] for r in mine)
         bytes_ms = sum(r["bound_ms"] for r in mine if r["bound_by"] == "bytes")
         kernels.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
-            launches=main_launches[kname],
+            launches=sum(p[kname] for p in paths.values()),
             max_abs_err=results["max_abs_err"][kname],
             ms=sum(r["fused_ms"] for r in mine),
             plain_ms=sum(r["plain_fused_ms"] for r in mine),
             bound_ms=bound_ms,
             bound_by="bytes" if bytes_ms * 2 >= bound_ms else "operations",
-            library_ms=(None if any(v is None for v in libs)
-                        else sum(libs))))
+            library_ms=(None if any(r["library_ms"] is None for r in mine)
+                        else sum(r["library_ms"] for r in mine))))
+    attn = next(r for r in results["attn_rows"]
+                if r["packed"] and r["method"] == "fused")
+    enc = results["encode_rows"][0]
+    for kname, row in (("radix_decode_attn", attn), ("spike_encode", enc)):
+        source, replaces = KERNEL_INFO[kname]
+        kernels.append(dict(
+            name=kname, route="cuda", source=source, replaces=replaces,
+            launches=paths["lm" if kname == "radix_decode_attn"
+                           else "encode"][kname],
+            max_abs_err=results["max_abs_err"][kname], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"]))
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1,
                                                         default=str))
-    log(f"[done] {results['total_s']:.1f} s; kernel line: times summed over "
-        "one VGG-11 batch-8 fused execution's launches")
+    log(f"[done] {results['total_s']:.1f} s; kernel line: conv and matmul "
+        "times summed over one VGG-11 batch-8 fused execution's launches "
+        "(matmul launches: CNN + LM paths); decode attention at the LM "
+        "decode shape (packed, fused); encoder at 8x224x224x3, T=4")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,16 +10,22 @@
     logits = exe(images)                       # any batch size, on the card
     exe.traffic(), exe.stats()
 
+    lm = api.Accelerator(dataflow="fused").compile(
+        (params, cfg), (batch, max_len), buckets=(64, 256))
+    tokens = lm.generate(prompts, max_new=32)  # or lm.prefill / lm.decode
+
 :class:`Accelerator` owns the *where/how* (device, in-kernel dataflow);
 the spec owns the *what*.  ``compile`` returns an :class:`Executable`, a
-batch-polymorphic callable over a bucketed plan cache.  :func:`oracle` is
-the reference forward (``mode="snn"`` spike planes or ``mode="packed"``)
-every plan is bit-exact against.
+batch-polymorphic callable over a bucketed plan cache, or for a
+``(params, ArchConfig)`` pair an :class:`LMExecutable`, bucketed prefill
+plus one decode-step plan over the radix KV cache.  :func:`oracle` is the
+reference forward (``mode="snn"`` spike planes or ``mode="packed"``)
+every CNN plan is bit-exact against.
 
 Entry points run on the CUDA device unless the caller passes
-``device="cpu"`` (where the kernels' plain versions run).  Not ported in
-this slice: ``backend="jnp"``, ``parallel > 1``, ``autotune=True``,
-``memory()``, the PPA stats provider and the LM path (ROADMAP.md).
+``device="cpu"`` (where the kernels' plain versions run).  Not ported:
+``backend="jnp"``, ``parallel > 1``, ``autotune=True``, ``auto=``,
+``memory()``, ``attach_stats`` and the PPA stats provider (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from repro_torch.core.encoding import (
     KernelSchedule,
     RadixEncoding,
 )
+from repro_torch.lm.config import ArchConfig
 
 __all__ = [
     "EncodingSpec",
@@ -44,6 +51,7 @@ __all__ = [
     "QuantizedNet",
     "Accelerator",
     "Executable",
+    "LMExecutable",
     "convert",
     "oracle",
 ]
@@ -60,6 +68,12 @@ def _resolve_device(device) -> torch.device:
             "no CUDA device available; pass device='cpu' to run the "
             "kernels' plain versions on the CPU")
     return device
+
+
+def _is_lm_net(qnet) -> bool:
+    """True for the LM compile form: a ``(params, ArchConfig)`` pair."""
+    return (isinstance(qnet, tuple) and len(qnet) == 2
+            and isinstance(qnet[1], ArchConfig))
 
 
 def _resolve_spec(qnet: conversion.QuantizedNet,
@@ -183,19 +197,29 @@ class Accelerator:
                 f"backend must be one of {BACKENDS}, got {self.backend!r} "
                 "(the jnp backend is not ported)")
 
-    def compile(self, qnet: conversion.QuantizedNet,
-                input_spec: Sequence[int], *,
+    def compile(self, qnet, input_spec: Sequence[int], *,
                 encoding: Optional[EncodingSpec] = None,
                 parallel: Optional[int] = None,
                 buckets: Optional[Sequence[int]] = None,
-                autotune: bool = False) -> Executable:
+                autotune: bool = False, auto: Optional[dict] = None):
         """Compile ``qnet`` for the per-item input shape ``input_spec``;
         ``buckets`` is the batch ladder (default ``engine.DEFAULT_BUCKETS``).
+        A ``(params, ArchConfig)`` pair compiles the LM serving path
+        instead (:meth:`_compile_lm`).
 
         Raises ``RuntimeError`` when the device is CUDA and none exists,
         ``ValueError`` for an encoding/dataflow/pool mismatch, and
-        ``NotImplementedError`` for ``parallel > 1`` or ``autotune=True``.
+        ``NotImplementedError`` for ``parallel > 1``, ``autotune=True`` or
+        ``auto=``.
         """
+        if _is_lm_net(qnet):
+            return self._compile_lm(qnet, input_spec, encoding=encoding,
+                                    parallel=parallel, buckets=buckets,
+                                    autotune=autotune, auto=auto)
+        if auto is not None:
+            raise NotImplementedError(
+                "auto= (the PPA planner) is not ported yet (ROADMAP.md, "
+                "queue 1 item 13)")
         if parallel not in (None, 1):
             raise NotImplementedError(
                 "parallel > 1 (multi-GPU bucket plans) is not ported yet "
@@ -215,3 +239,247 @@ class Accelerator:
         return Executable(qnet, input_spec, spec, dataflow,
                           engine.DEFAULT_BUCKETS if buckets is None
                           else buckets, device)
+
+    def _compile_lm(self, qnet, input_spec, *, encoding, parallel, buckets,
+                    autotune, auto) -> "LMExecutable":
+        """The LM leg of :meth:`compile`: ``qnet`` is ``(params, cfg)``.
+
+        ``input_spec`` is ``(max_len,)`` or ``(batch, max_len)``: the
+        compiled decode batch and the KV-cache capacity.  ``buckets`` is the
+        **sequence-length** ladder (default: powers of two from 8 up to
+        ``max_len - 1``); every bucket must stay below ``max_len`` so decode
+        has cache room.  The paper-technique knobs live on the ArchConfig
+        (``radix_steps`` = T, ``radix_kv`` / ``radix_kv_pack``,
+        ``packed_attn``, ``radix_attn``)."""
+        params, cfg = qnet
+        if auto is not None:
+            raise ValueError(
+                "auto= (the PPA planner) prices the paper's CNN lattice, "
+                "not LM archs; configure the ArchConfig directly")
+        if encoding is not None:
+            raise ValueError(
+                "LM serving always runs the radix encoding "
+                "(cfg.radix_steps sets T); drop the encoding= override")
+        if parallel not in (None, 1):
+            raise ValueError(
+                "parallel bucket sharding is a CNN-plan feature; LM "
+                "plans shard via the model's mesh instead")
+        if autotune:
+            raise NotImplementedError(
+                "autotune=True is not ported yet (ROADMAP.md, queue 1 "
+                "item 10)")
+        if self.dataflow is not None and self.dataflow not in (
+                "bitserial", "fused"):
+            raise ValueError(
+                f"LM radix matmuls support dataflow 'bitserial' or "
+                f"'fused', got {self.dataflow!r}")
+        device = _resolve_device(self.device)
+        spec = tuple(int(d) for d in input_spec)
+        if len(spec) == 1:
+            batch, max_len = 1, spec[0]
+        elif len(spec) == 2:
+            batch, max_len = spec
+        else:
+            raise ValueError(
+                f"LM input_spec is (max_len,) or (batch, max_len), "
+                f"got {input_spec}")
+        if buckets is None:
+            top = max(1, max_len - 1)
+            ladder = {top}
+            b = 8
+            while b < top:
+                ladder.add(b)
+                b *= 2
+            buckets = tuple(sorted(ladder))
+        return LMExecutable(params, cfg, batch=batch, max_len=max_len,
+                            seq_buckets=buckets, dataflow=self.dataflow,
+                            device=device)
+
+
+class LMExecutable:
+    """A compiled autoregressive LM serving deployment.
+
+    Produced by :meth:`Accelerator.compile` from a ``(params, ArchConfig)``
+    pair; do not construct directly.  The FFN matmuls (and the QKV/out
+    projections under ``cfg.radix_attn``) run as radix matmuls through the
+    CUDA kernel, the KV cache holds radix levels, and with
+    ``cfg.packed_attn`` every decode step's attention runs the
+    decode-attention kernel on those levels (``repro_torch.lm.radix``).
+    On ``device="cpu"`` the kernels' plain versions run.
+
+    Serving shape contract (an :class:`~repro_torch.core.engine.LMPlanCache`):
+    prompts right-pad to a fixed sequence-bucket ladder (one prefill plan
+    per bucket, last-token logits gathered at the true length) and every
+    generated token reuses ONE decode-step plan over the KV cache: zero
+    steady-state plan builds, as :meth:`stats` shows.  Right-padding is
+    exact only for a pure full-attention stack (the causal mask hides the
+    pads), so other block types are rejected at compile time.  ``decode``
+    writes into the state's caches in place.
+    """
+
+    def __init__(self, params, cfg: ArchConfig, *, batch: int, max_len: int,
+                 seq_buckets: Sequence[int], dataflow: Optional[str],
+                 device: torch.device):
+        from repro_torch.lm import model as lm_model
+
+        bad = sorted(set(cfg.layer_types) - {"attn"})
+        if bad:
+            raise ValueError(
+                "the LM compile path right-pads prompts to sequence "
+                "buckets, which is exact only for pure full-attention "
+                f"stacks (causal masking hides the pads); block types "
+                f"{bad} would absorb pad tokens into recurrent/ring state "
+                "(their unbucketed serving loop is not ported yet)")
+        if cfg.encoder_layers or cfg.embedding_inputs:
+            raise ValueError(
+                "the LM compile path serves token-in/token-out decoder "
+                "stacks; encoder-decoder and embedding-input archs are "
+                "not ported yet")
+        serve_cfg = dataclasses.replace(
+            cfg, quant="radix", use_kernel=True, kernel_autotune=False,
+            kernel_dataflow=dataflow or cfg.kernel_dataflow)
+        lm_model.check_supported(serve_cfg)
+        self.cfg = serve_cfg
+        self.arch = cfg.name
+        self.dataflow = serve_cfg.kernel_dataflow
+        self.device = device
+        self.batch = int(batch)
+        self.max_len = int(max_len)
+        if self.batch < 1 or self.max_len < 2:
+            raise ValueError(
+                f"need batch >= 1 and max_len >= 2, got ({batch}, {max_len})")
+        params = lm_model.tree_map(lambda t: t.to(device), params)
+        self.params = lm_model.radixify_params(params, serve_cfg)
+
+        mdl, mx, scfg = lm_model, self.max_len, serve_cfg
+
+        def prefill_builder(bucket):
+            def plan(p, tokens, true_len):
+                with torch.inference_mode():
+                    return mdl.prefill(p, {"tokens": tokens}, scfg,
+                                       max_len=mx, true_len=true_len)
+            return plan
+
+        def decode_builder():
+            def plan(p, caches, tok, pos):
+                with torch.inference_mode():
+                    return mdl.decode_step(p, caches, tok, pos, scfg)
+            return plan
+
+        self._cache = engine.LMPlanCache(
+            seq_buckets, prefill_builder=prefill_builder,
+            decode_builder=decode_builder)
+        self.buckets = self._cache.buckets
+        if self.buckets[-1] >= self.max_len:
+            raise ValueError(
+                f"top sequence bucket {self.buckets[-1]} must stay below "
+                f"max_len={self.max_len} (the KV cache needs at least one "
+                "free decode slot)")
+
+    def __repr__(self) -> str:
+        return (f"LMExecutable({self.arch!r}, T={self.cfg.radix_steps}, "
+                f"dataflow={self.dataflow!r}, batch={self.batch}, "
+                f"max_len={self.max_len}, seq_buckets={self.buckets}, "
+                f"device={self.device})")
+
+    @property
+    def num_steps(self) -> int:
+        return self.cfg.radix_steps
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(tokens, dtype=torch.long, device=self.device)
+
+    def prefill(self, prompts) -> dict:
+        """Prefill ``prompts`` ((n, S0) int tokens, n <= batch) through
+        the bucketed plan; returns the serving state dict
+        ``{"caches", "pos", "logits", "n"}``: ``logits`` (n, vocab)
+        predict the token at position S0."""
+        prompts = self._tokens(prompts)
+        if prompts.ndim != 2:
+            raise ValueError(
+                f"prompts must be (n, S0), got {tuple(prompts.shape)}")
+        n, s0 = int(prompts.shape[0]), int(prompts.shape[1])
+        if n > self.batch:
+            raise ValueError(
+                f"request batch {n} exceeds compiled batch {self.batch}")
+        bucket = self._cache.bucket_for(s0)
+        # +1 column: model._input_h consumes tokens[:, :-1]
+        tokens = torch.zeros((self.batch, bucket + 1), dtype=torch.long,
+                             device=self.device)
+        tokens[:n, :s0] = prompts
+        plan = self._cache.prefill_plan(bucket)
+        logits, caches = plan(self.params, tokens, s0)
+        self._cache.record_execution(
+            padded_rows=(self.batch - n) + (bucket - s0))
+        return {"caches": caches, "pos": s0, "logits": logits[:n], "n": n}
+
+    def decode(self, state: dict, tokens) -> dict:
+        """One decode step: write ``tokens`` ((n, 1) int) at
+        ``state["pos"]``, return the advanced state (``logits`` predict
+        position pos + 1).  The state's caches are updated in place."""
+        n = state["n"]
+        pos = int(state["pos"])
+        if pos >= self.max_len:
+            raise ValueError(
+                f"decode position {pos} out of cache range "
+                f"(max_len={self.max_len})")
+        tok = torch.zeros((self.batch, 1), dtype=torch.long,
+                          device=self.device)
+        tok[:n] = self._tokens(tokens).reshape(n, 1)
+        plan = self._cache.decode_plan()
+        logits, caches = plan(self.params, state["caches"], tok, pos)
+        self._cache.record_execution(padded_rows=self.batch - n)
+        return {"caches": caches, "pos": pos + 1, "logits": logits[:n],
+                "n": n}
+
+    def generate(self, prompts, max_new: int, *, greedy: bool = True,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+        """Autoregressive decode: (n, S0) prompts -> (n, max_new) tokens
+        (greedy argmax, or samples from the softmax drawn with the
+        explicit ``generator``)."""
+        prompts = self._tokens(prompts)
+        s0 = int(prompts.shape[1])
+        if s0 + max_new - 1 > self.max_len:
+            raise ValueError(
+                f"prompt ({s0}) + max_new ({max_new}) tokens exceed the "
+                f"compiled cache (max_len={self.max_len})")
+        if not greedy and generator is None:
+            raise ValueError("sampling (greedy=False) needs generator=")
+        state = self.prefill(prompts)
+        out = []
+        for i in range(int(max_new)):
+            logits = state["logits"].to(torch.float32)
+            if greedy:
+                nxt = torch.argmax(logits, dim=-1)
+            else:
+                nxt = torch.multinomial(torch.softmax(logits, dim=-1), 1,
+                                        generator=generator)[:, 0]
+            out.append(nxt)
+            if i + 1 < max_new:
+                state = self.decode(state, nxt[:, None])
+        return torch.stack(out, dim=1)
+
+    def warmup(self) -> "LMExecutable":
+        """Build and run every prefill bucket plan and the decode-step
+        plan once, so serving never builds a plan on the hot path."""
+        caches = None
+        for b in self.buckets:
+            tokens = torch.zeros((self.batch, b + 1), dtype=torch.long,
+                                 device=self.device)
+            _, caches = self._cache.prefill_plan(b)(self.params, tokens, b)
+        tok = torch.zeros((self.batch, 1), dtype=torch.long,
+                          device=self.device)
+        self._cache.decode_plan()(self.params, caches, tok, self.buckets[-1])
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
+    def stats(self) -> dict:
+        """LM plan-cache counters (``hits`` / ``compiles`` / ``executions``
+        / ``padded_rows`` / ``failures``: ``compiles`` stays flat in
+        steady state, one prefill plan per sequence bucket plus one decode
+        plan) and an ``autotune`` sub-dict (not ported: disabled)."""
+        d = self._cache.stats.as_dict()
+        d["autotune"] = {"enabled": False, "layers": []}
+        return d

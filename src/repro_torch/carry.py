@@ -1,8 +1,9 @@
-"""Carry float params and converted nets across from the JAX package.
+"""Carry float params, converted nets and LM params across from the JAX
+package.
 
-Both take plain numpy arrays (``np.asarray`` of the JAX arrays), so this
+All take plain numpy arrays (``np.asarray`` of the JAX arrays), so this
 module needs neither JAX nor ``repro``.  The parity tests run the two
-packages on the same converted net this way.
+packages on the same converted net or LM this way.
 """
 
 from __future__ import annotations
@@ -14,8 +15,12 @@ import torch
 
 from repro_torch.core.conversion import QuantizedNet
 from repro_torch.core.encoding import RadixEncoding
+from repro_torch.lm.config import ArchConfig
+from repro_torch.lm.model import check_supported
+from repro_torch.lm.radix import torch_dtype
 
-__all__ = ["float_params_from_numpy", "qnet_from_numpy", "qnet_to_numpy"]
+__all__ = ["float_params_from_numpy", "qnet_from_numpy", "qnet_to_numpy",
+           "lm_params_from_numpy"]
 
 
 def float_params_from_numpy(params) -> List[Optional[dict]]:
@@ -73,3 +78,30 @@ def qnet_to_numpy(qnet: QuantizedNet) -> dict:
         logit_scale=arr(ls) if torch.is_tensor(ls) else ls,
         encoding=qnet.spec.name,
     )
+
+
+def lm_params_from_numpy(tree, cfg: ArchConfig, *, device=None):
+    """The reference's LM ``init_params`` tree (dicts and tuples of numpy
+    arrays) -> the port's tree, leaf for leaf and dtype for dtype
+    (bfloat16 arrays, which numpy holds as ``ml_dtypes.bfloat16``, become
+    ``torch.bfloat16``)."""
+    check_supported(cfg)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.name in _FLOAT_NAMES:
+            t = torch.from_numpy(np.array(a, dtype=np.float32))
+            return t.to(device=device, dtype=torch_dtype(a.dtype.name))
+        return torch.from_numpy(a.copy()).to(device)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (tuple, list)):
+            return tuple(walk(v) for v in t)
+        return leaf(t)
+
+    return walk(tree)
+
+
+_FLOAT_NAMES = ("bfloat16", "float16", "float32")

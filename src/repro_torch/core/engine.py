@@ -1,5 +1,5 @@
 """Execution engine (port of ``repro/core/engine.py``: ``_forward``,
-``_compile_plan_impl``, ``CompiledPlan``, ``PlanCache``).
+``_compile_plan_impl``, ``CompiledPlan``, ``PlanCache``, ``LMPlanCache``).
 
 * :func:`_forward` — the reference forward: ``mode="packed"`` runs integer
   levels through the quantized twins, ``mode="snn"`` runs ``(T, ...)``
@@ -12,6 +12,8 @@
 * :class:`PlanCache` — the batch-bucket ladder: requests pad up to the
   smallest bucket or chunk by the top one, and the counters prove zero
   steady-state recompiles.
+* :class:`LMPlanCache` — the LM's sequence-bucket ladder: one prefill plan
+  per bucket and one decode-step plan.
 
 PyTorch runs eagerly, so a "compile" here builds the plan's closures and
 device-resident parameters; the CUDA kernels themselves are built once
@@ -31,7 +33,7 @@ import torch.nn.functional as F
 from repro_torch.core import conversion, encoding, layers
 
 __all__ = ["CompiledPlan", "PlanLayerInfo", "PlanCache", "PlanCacheStats",
-           "DEFAULT_BUCKETS"]
+           "LMPlanCache", "DEFAULT_BUCKETS"]
 
 
 # ---------------------------------------------------------------------------
@@ -67,258 +69,6 @@ def _forward(qnet: conversion.QuantizedNet, x: torch.Tensor,
             else:
                 acc = layers.q_linear(state, qp["w_q"], qp["b_int"])
             state = _requant_or_logits(acc, qp, qnet, spec, snn)
-        elif kind == "pool":
-            state = _pool(state, cfg, spec, snn)
-        elif kind == "flatten":
-            if snn:
-                state = state.reshape(state.shape[0], state.shape[1], -1)
-            else:
-                state = state.reshape(state.shape[0], -1)
-        else:
-            raise ValueError(kind)
-    return state
-
-
-def _logits(acc: torch.Tensor, logit_scale) -> torch.Tensor:
-    scale = torch.as_tensor(logit_scale, dtype=torch.float32,
-                            device=acc.device)
-    return acc.to(torch.float32) * scale
-
-
-def _requant_or_logits(acc, qp, qnet, spec, snn):
-    if qp["mult"] is None:
-        return _logits(acc, qnet.logit_scale)
-    q = spec.requantize(acc, qp["mult"])
-    return spec.encode(q) if snn else q
-
-
-def _pool(state, cfg, spec, snn):
-    w, pool_mode = cfg["window"], cfg.get("mode", "or")
-    if not spec.supports_pool(pool_mode):
-        raise ValueError(
-            f"{spec.name} encoding does not preserve pool mode "
-            f"{pool_mode!r} (supported: {spec.pool_modes})")
-    if snn:
-        if pool_mode == "or":
-            return layers.snn_or_pool(state, w)
-        if pool_mode == "avg":
-            return layers._per_plane(lambda p: layers.q_avg_pool(p, w), state)
-        if pool_mode == "max":
-            if spec.radix_planes:
-                packed = layers.snn_max_pool(state, w)
-            else:
-                packed = layers.q_max_pool(
-                    spec.decode(state).to(spec.packed_dtype), w)
-            return spec.encode(packed)
-        raise ValueError(pool_mode)
-    if pool_mode == "or":
-        return layers.q_or_pool(state, w)
-    if pool_mode == "avg":
-        return layers.q_avg_pool(state, w)
-    if pool_mode == "max":
-        return layers.q_max_pool(state, w)
-    raise ValueError(pool_mode)
-
-
-# ---------------------------------------------------------------------------
-# Compiled execution plans.
-# ---------------------------------------------------------------------------
-
-
-@dataclasses.dataclass
-class PlanLayerInfo:
-    """Per-layer summary + the activation-traffic model."""
-
-    name: str
-    out_shape: Tuple[int, ...]     # logical output, incl. batch
-    out_dtype: str                 # what the plan writes
-    act_write_bytes: int           # this plan (fused epilogue, packed uint8)
-    act_write_bytes_int32: int     # unfused baseline (raw int32 accumulator)
-
-
-@dataclasses.dataclass
-class CompiledPlan:
-    """A whole-network kernel pipeline over device-resident parameters.
-
-    ``plan(x)`` maps float input of ``input_shape`` (on the plan's device)
-    to float logits, bit-exact with ``_forward(..., mode="packed")``.  Each
-    call also runs the plane-occupancy prepass; the planes skipped
-    accumulate on the device (no sync until :meth:`plane_stats`) against
-    the static per-call budget ``plane_passes_per_call``.
-    """
-
-    input_shape: Tuple[int, ...]
-    num_steps: int
-    method: str
-    layers: List[PlanLayerInfo]
-    device: torch.device
-    _fn: Callable = dataclasses.field(repr=False)
-    plane_passes_per_call: int = 0
-    _skipped: Optional[torch.Tensor] = dataclasses.field(default=None,
-                                                         repr=False)
-    _calls: int = dataclasses.field(default=0, repr=False)
-    tuned_tiles: List[dict] = dataclasses.field(default_factory=list)
-    """Per kernel layer: the layer name and its ``KernelConfig`` fields."""
-
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        out, skipped = self._fn(x)
-        self._skipped = skipped if self._skipped is None \
-            else self._skipped + skipped
-        self._calls += 1
-        return out
-
-    def plane_stats(self) -> dict:
-        """Planes skipped (all-zero spike planes) vs the static schedule
-        total over every call so far.  Reading this syncs the device."""
-        skipped = 0 if self._skipped is None else int(self._skipped.sum())
-        return {"plane_passes_skipped": skipped,
-                "plane_passes_total": self._calls * self.plane_passes_per_call}
-
-    def reset_plane_stats(self) -> None:
-        self._skipped = None
-        self._calls = 0
-
-    def activation_traffic(self) -> dict:
-        """Modeled inter-layer activation bytes written: fused vs unfused."""
-        fused = sum(l.act_write_bytes for l in self.layers)
-        unfused = sum(l.act_write_bytes_int32 for l in self.layers)
-        return {
-            "layers": [dataclasses.asdict(l) for l in self.layers],
-            "fused_write_bytes": fused,
-            "int32_write_bytes": unfused,
-            "traffic_ratio": unfused / max(fused, 1),
-        }
-
-
-def _compile_plan_impl(
-    qnet: conversion.QuantizedNet,
-    input_shape: Tuple[int, ...],
-    *,
-    method: Optional[str] = "fused",
-    spec: Optional[encoding.EncodingSpec] = None,
-    device="cpu",
-) -> CompiledPlan:
-    """Compile ``qnet`` into a radix-kernel pipeline on ``device``.
-
-    One-time work: weights and epilogue rows (bias + multiplier) move to
-    the device; the avg-pool carry (activations wider than T bits, the
-    window division folded into the next multiplier) is tracked so the
-    bitserial extraction stays exact; the encoding's
-    :class:`~repro_torch.core.encoding.KernelSchedule` is threaded into
-    every kernel call.
-
-    Every layer runs the plane-occupancy prepass on its packed input; the
-    kernels skip (bitserial) or mask (fused) the empty planes and the skip
-    count accumulates on the device.
-
-    The reference pads channels to Pallas block multiples and scatters the
-    first linear layer's weight rows to the padded flatten layout, only
-    because Pallas blocks need aligned shapes.  The CUDA kernels mask their
-    own ragged edges, so this plan keeps logical channel counts and has
-    neither the padding nor the scatter.
-    """
-    from repro_torch.kernels import ops as kops
-    from repro_torch.kernels.autotune import KernelConfig
-    from repro_torch.kernels.radix_conv import radix_conv2d_cuda
-    from repro_torch.kernels.radix_matmul import radix_matmul_cuda
-
-    device = torch.device(device)
-    spec = spec if spec is not None else qnet.spec
-    method = spec.validate_dataflow(method)
-    sched = spec.kernel_schedule()
-    T = sched.packed_bits
-    periods = sched.periods
-    kernel_kw = dict(method=method, periods=periods)
-    epi_kw = dict(out_steps=T, out_level=sched.out_level,
-                  out_grid=sched.out_grid)
-
-    if len(input_shape) == 4:
-        batch, h, w, c = input_shape
-    elif len(input_shape) == 2:
-        batch, f = input_shape
-        h = w = c = None
-    else:
-        raise ValueError(f"input_shape must be NHWC or NF, got {input_shape}")
-
-    bits = T                       # integer bits carried by activations
-    steps: List[Callable] = []
-    infos: List[PlanLayerInfo] = []
-    tuned: List[dict] = []
-    total_passes = 0
-
-    def _elems(shape) -> int:
-        return int(np.prod(shape))
-
-    def _occ(state, in_bits):
-        """Plane-occupancy prepass: the kernels' occupancy row and the plane
-        passes they skip (bitserial) or mask (fused), on the device."""
-        row, occ_bits = kops.plane_occupancy(state, in_bits)
-        return row, (in_bits - occ_bits.sum()) * periods
-
-    def _record(name, out_shape, last):
-        infos.append(PlanLayerInfo(
-            name=name, out_shape=out_shape,
-            out_dtype="int32" if last else "uint8",
-            act_write_bytes=_elems(out_shape) * (4 if last else 1),
-            act_write_bytes_int32=_elems(out_shape) * 4))
-        tuned.append({"layer": name, "tuned": False,
-                      **KernelConfig().as_dict()})
-
-    def _kernel_step(kernel, w_q, in_bits, rows, b, pads=None, **kw):
-        """One conv/linear layer: pad, occupancy prepass, kernel (with the
-        fused epilogue ``rows``, or int32 + bias ``b`` on the last layer)."""
-        def apply(state):
-            if pads is not None:
-                state = F.pad(state, pads)
-            state = state.contiguous()
-            occ, skipped = _occ(state, in_bits)
-            out = kernel(state, w_q, num_steps=in_bits, occupancy=occ,
-                         **kernel_kw, **kw, **rows)
-            return (out if b is None else out + b), skipped
-        return apply
-
-    for (kind, cfg), qp in zip(qnet.static, qnet.qlayers):
-        if kind in ("conv", "linear"):
-            w_q = qp["w_q"].to(device=device, dtype=torch.int8).contiguous()
-            last = qp["mult"] is None
-            b, rows = None, {}
-            if last:
-                b = qp["b_int"].to(device=device, dtype=torch.int32)
-            else:
-                bias_row, mult_row = kops.epilogue_rows(
-                    qp["b_int"], qp["mult"], w_q.shape[-1], w_q.shape[-1],
-                    encoding=spec, device=device)
-                rows = dict(bias=bias_row, mult=mult_row, **epi_kw)
-            total_passes += bits * periods
-
-        if kind == "conv":
-            kh, kw, cin, cout = w_q.shape
-            assert cin == c, (cin, c)
-            stride = cfg.get("stride", 1)
-            pads = None
-            if cfg.get("padding", "VALID") == "SAME":
-                ph = kops.same_pads(h, kh, stride)
-                pw = kops.same_pads(w, kw, stride)
-                pads = (0, 0, pw[0], pw[1], ph[0], ph[1])
-                h, w = h + sum(ph), w + sum(pw)
-            h = (h - kh) // stride + 1
-            w = (w - kw) // stride + 1
-            c = cout
-            steps.append(_kernel_step(radix_conv2d_cuda, w_q, bits, rows, b,
-                                      pads, stride=stride))
-            _record(f"conv{kh}x{kw}x{cin}->{cout}" + (
-                f"/s{stride}" if stride > 1 else ""), (batch, h, w, cout),
-                last)
-            bits = T
-
-        elif kind == "linear":
-            fin, fout = w_q.shape
-            assert fin == f, (fin, f)
-            f = fout
-            steps.append(_kernel_step(radix_matmul_cuda, w_q, bits, rows, b))
-            _record(f"linear{fin}->{fout}", (batch, fout), last)
-            bits = T
-
         elif kind == "pool":
             state = _pool(state, cfg, spec, snn)
         elif kind == "flatten":
@@ -804,3 +554,68 @@ class PlanCache:
         outs.append(self.plan_for(qnet, bucket, item)(tail)[:rem])
         self.stats.executions += 1
         return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+class LMPlanCache:
+    """Sequence-bucketed plan cache for autoregressive LM serving (wrapped
+    by ``api.LMExecutable``).
+
+    Two plan families: one **prefill** plan per sequence bucket (prompts
+    right-pad to the smallest bucket ``>= S0``; the model gathers the
+    last-token logits at the true length) and ONE **decode-step** plan for
+    every generated token.  A plan is the eager closure the injected
+    builder returns, built once; ``compiles`` counts builds, so serving
+    tests assert zero steady-state builds as on the CNN path.
+    ``padded_rows`` counts padded prompt columns plus padded batch rows.
+    """
+
+    def __init__(self, seq_buckets: Sequence[int], *,
+                 prefill_builder: Callable, decode_builder: Callable):
+        bs = tuple(sorted({int(b) for b in seq_buckets}))
+        if not bs or bs[0] < 1:
+            raise ValueError(
+                f"sequence-bucket ladder must be positive, got {seq_buckets}")
+        self.buckets = bs
+        self._prefill_builder = prefill_builder
+        self._decode_builder = decode_builder
+        self.stats = PlanCacheStats()
+        self._prefill_plans: dict = {}
+        self._decode_plan = None
+
+    def bucket_for(self, s: int) -> int:
+        """Smallest sequence bucket >= s; longer prompts are an error (the
+        KV cache is sized by the compile-time ``max_len``)."""
+        if s < 1:
+            raise ValueError(f"prompt length must be >= 1, got {s}")
+        for b in self.buckets:
+            if b >= s:
+                return b
+        raise ValueError(
+            f"prompt length {s} exceeds the top sequence bucket "
+            f"{self.buckets[-1]}; recompile with a longer bucket ladder")
+
+    def prefill_plan(self, bucket: int):
+        """Cached prefill plan for one sequence bucket (built on first
+        use)."""
+        plan = self._prefill_plans.get(int(bucket))
+        if plan is not None:
+            self.stats.hits += 1
+            return plan
+        plan = self._prefill_builder(int(bucket))
+        self._prefill_plans[int(bucket)] = plan
+        self.stats.compiles += 1
+        return plan
+
+    def decode_plan(self):
+        """The one cached decode-step plan (built on first use)."""
+        if self._decode_plan is None:
+            self._decode_plan = self._decode_builder()
+            self.stats.compiles += 1
+        else:
+            self.stats.hits += 1
+        return self._decode_plan
+
+    def record_execution(self, *, padded_rows: int = 0) -> None:
+        """Count one plan call (and any pad rows/columns it carried)."""
+        self.stats.executions += 1
+        self.stats.padded_rows += int(padded_rows)

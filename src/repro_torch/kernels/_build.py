@@ -31,7 +31,9 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "function", "check_tensor",
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES: Dict[str, str] = {"radix_matmul": "radix_matmul.cu",
-                           "radix_conv": "radix_conv.cu"}
+                           "radix_conv": "radix_conv.cu",
+                           "radix_attn": "radix_attn.cu",
+                           "spike_encode": "spike_encode.cu"}
 HEADERS = ("radix_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

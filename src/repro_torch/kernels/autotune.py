@@ -10,7 +10,9 @@ from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["KernelConfig", "TILE"]
+__all__ = ["KernelConfig", "TILE", "IMPLS"]
+
+IMPLS = ("cuda", "plain")
 
 TILE = (64, 64, 32)
 """(bm, bn, bk) compiled into ``csrc/radix_common.cuh``."""
@@ -19,7 +21,9 @@ TILE = (64, 64, 32)
 @dataclasses.dataclass(frozen=True)
 class KernelConfig:
     """One layer's execution strategy: ``impl="cuda"`` is the hand-written
-    kernel (its plain version on CPU tensors) at the compiled tile shape."""
+    kernel (its plain version on CPU tensors) at the compiled tile shape;
+    ``impl="plain"`` pins the plain PyTorch version on any device (the
+    counterpart of the reference's ``impl="xla"`` twin)."""
 
     impl: str = "cuda"
     bm: int = TILE[0]
@@ -27,8 +31,9 @@ class KernelConfig:
     bk: int = TILE[2]
 
     def __post_init__(self):
-        if self.impl != "cuda":
-            raise ValueError(f"impl must be 'cuda', got {self.impl!r}")
+        if self.impl not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got "
+                             f"{self.impl!r}")
         if (self.bm, self.bn, self.bk) != TILE:
             raise ValueError(
                 f"tile {(self.bm, self.bn, self.bk)} is not the compiled "

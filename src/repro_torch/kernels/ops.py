@@ -1,17 +1,17 @@
-"""Public wrappers around the radix kernels (port of ``repro/kernels/ops.py``,
-main-path half).
+"""Public wrappers around the radix kernels (port of ``repro/kernels/ops.py``).
 
 Handles what the raw kernels omit: SAME pre-padding, strides, bias, the
-``(1, N)`` epilogue rows and the plane-occupancy prepass
-(``sparsity=True``): one pass finds the bit planes no activation spikes
-on, and the kernels skip (bitserial) or mask (fused) them, bit-exactly.
+``(1, N)`` epilogue rows, the plane-occupancy prepass (``sparsity=True``:
+one pass finds the bit planes no activation spikes on, and the kernels
+skip (bitserial) or mask (fused) them, bit-exactly), the decode query's
+quantization and ``(N = B*Hkv)`` row layout, and the encoder's reshape.
 
 The CUDA kernels mask their own ragged edges, so unlike the reference
 nothing is padded to block multiples.  The reference's XLA twins
-``_xla_matmul``/``_xla_conv2d`` are the kernels' plain versions,
-``radix_matmul.radix_matmul_plain``/``radix_conv.radix_conv2d_plain``.
-Autotuning and the decode-attention and spike-encode wrappers come with
-later slices (ROADMAP.md).
+``_xla_matmul``/``_xla_conv2d``/``_xla_decode_attn`` are the kernels'
+plain versions (``radix_matmul_plain``, ``radix_conv2d_plain``,
+``radix_decode_attn_plain``).  Autotuning comes with a later slice
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -23,12 +23,20 @@ import torch.nn.functional as F
 
 from repro_torch.core.encoding import EncodingSpec, KernelSchedule
 from repro_torch.core.layers import same_pads
+from repro_torch.kernels import radix_attn
+from repro_torch.kernels.autotune import KernelConfig
+from repro_torch.kernels.radix_attn import Q_BITS
 from repro_torch.kernels.radix_conv import radix_conv2d_cuda
 from repro_torch.kernels.radix_matmul import OCC_LANES, radix_matmul_cuda
+from repro_torch.kernels.spike_encode import spike_encode_cuda
 
 __all__ = [
+    "KernelConfig",
+    "Q_BITS",
     "radix_matmul",
     "radix_conv2d",
+    "radix_decode_attention",
+    "radix_encode",
     "epilogue_rows",
     "plane_occupancy",
     "same_pads",
@@ -152,3 +160,82 @@ def radix_conv2d(x_q: torch.Tensor, w_q: torch.Tensor,
     return radix_conv2d_cuda(x_q, w_q, bias=bias_row, mult=mult_row,
                              out_level=sched.out_level,
                              out_grid=sched.out_grid, **kw)
+
+
+def _nibble_union(levels: torch.Tensor) -> torch.Tensor:
+    """Per-byte OR of hi/lo nibbles: the occupancy view of a packed cache
+    (its planes' union equals the unpacked levels')."""
+    return (levels >> 4) | (levels & 0xF)
+
+
+def radix_decode_attention(
+    q: torch.Tensor,
+    k_q: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_q: torch.Tensor,
+    v_scale: torch.Tensor,
+    mask: torch.Tensor,
+    num_steps: int,
+    *,
+    packed: bool = False,
+    method: str = "bitserial",
+    q_bits: int = Q_BITS,
+    sparsity: bool = True,
+    autotune: bool = False,
+    config: Optional[KernelConfig] = None,
+) -> torch.Tensor:
+    """One decode step of attention directly over the radix KV cache.
+
+    ``q`` (B, H, hd) float decode queries (post-RoPE); ``k_q``/``v_q``
+    (B, S, Hkv, hd) uint8 levels, or (B, S, Hkv, hd // 2) when ``packed``;
+    ``k_scale``/``v_scale`` (B, S, Hkv) f32; ``mask`` (B, S) boolean slot
+    validity.  Returns (B, H, hd) f32 (pre out-projection).  The query is
+    radix-quantized here (``q_bits``), laid out as ``N = B * Hkv`` rows of
+    ``g = H / Hkv`` heads, and handed with the cache to the kernel
+    (``config.impl == "plain"``: its plain version).  ``sparsity`` runs
+    the plane-occupancy prepass over the cache (over ``_nibble_union``
+    when packed)."""
+    if autotune:
+        raise NotImplementedError(_AUTOTUNE_LATER)
+    b, h, hd = q.shape
+    s_len, hkv = k_q.shape[1], k_q.shape[2]
+    g = h // hkv
+    if g * hkv != h:
+        raise ValueError(f"{h} query heads do not group over {hkv} kv heads")
+    n = b * hkv
+    qq, qscale = radix_attn.quantize_q(q, q_bits)
+    qq = qq.reshape(n, g, hd)
+    qs = qscale.reshape(n, g)
+
+    def seq_major(a):                     # (B, S, Hkv, ...) -> (N, S, ...)
+        moved = a.movedim(2, 1)
+        return moved.reshape((n,) + tuple(moved.shape[2:])).contiguous()
+
+    maskn = mask.reshape(b, 1, s_len).expand(b, hkv, s_len)
+    maskn = maskn.reshape(n, s_len).to(torch.int32).contiguous()
+    if sparsity:
+        occ_k = plane_occupancy(_nibble_union(k_q) if packed else k_q,
+                                num_steps)[0]
+        occ_v = plane_occupancy(_nibble_union(v_q) if packed else v_q,
+                                num_steps)[0]
+    else:
+        occ_k = occ_v = torch.ones((1, OCC_LANES), dtype=torch.int32,
+                                   device=q.device)
+    impl = "cuda" if config is None else config.impl
+    fn = (radix_attn.radix_decode_attn_cuda if impl == "cuda"
+          else radix_attn.radix_decode_attn_plain)
+    out = fn(qq, qs, seq_major(k_q), seq_major(k_scale), seq_major(v_q),
+             seq_major(v_scale), maskn, occ_k, occ_v, num_steps=num_steps,
+             q_bits=q_bits, hd=hd, method=method, packed=packed,
+             sparsity=sparsity)
+    return out.reshape(b, h, hd)
+
+
+def radix_encode(x: torch.Tensor, num_steps: Union[int, EncodingSpec],
+                 scale: float = 1.0) -> torch.Tensor:
+    """float -> packed radix levels (uint8), any shape: the spike encoder
+    kernel over the elements in memory order (float32; other float types
+    are widened first)."""
+    steps = _schedule(num_steps).packed_bits
+    x = x.to(torch.float32).contiguous()
+    return spike_encode_cuda(x, num_steps=steps, scale=float(scale))

@@ -2,8 +2,8 @@
 
 Each oracle spells out the radix bit-serial math plane by plane, so the
 kernels and their plain versions are checked against a second
-derivation.  All accumulators are int32; products go through the exact
-float64 primitives of ``core.layers``.
+derivation.  All integer accumulators are int32; products go through the
+exact float64 primitives of ``core.layers``.
 """
 
 from __future__ import annotations
@@ -19,6 +19,8 @@ __all__ = [
     "requantize_ref",
     "radix_matmul_epilogue_ref",
     "radix_conv2d_epilogue_ref",
+    "decode_mask_ref",
+    "decode_attn_ref",
 ]
 
 
@@ -82,3 +84,73 @@ def radix_conv2d_epilogue_ref(x_q, w_q, bias, mult, num_steps: int, *,
                            periods=periods)
     return requantize_ref(acc + bias.to(torch.int32), num_steps, mult,
                           grid=grid)
+
+
+# ---------------------------------------------------------------------------
+# Decode-attention oracles (kernels/radix_attn.py), plane-level spelling.
+# ---------------------------------------------------------------------------
+
+
+def decode_mask_ref(pos: int, s_len: int, window: int = 0) -> torch.Tensor:
+    """Valid-slot mask for one decode step, derived by simulation: replay
+    every write the cache performed (token p lands in slot p % window, or
+    p without a window) and mark the slots tokens 0..pos wrote."""
+    valid = torch.zeros(s_len, dtype=torch.bool)
+    for p in range(int(pos) + 1):
+        valid[p % window if window else p] = True
+    return valid
+
+
+def decode_attn_ref(q, k_q, k_scale, v_q, v_scale, mask, num_steps: int, *,
+                    q_bits: int = 7) -> torch.Tensor:
+    """Plane-level decode-attention oracle.
+
+    q (B, H, hd) float; k_q/v_q (B, S, Hkv, hd) uint8 levels (unpacked);
+    scales (B, S, Hkv) f32; mask (B, S) bool -> (B, H, hd) f32.  The
+    integer dot accumulates bit-serially over k's planes, masked slots
+    score -inf before the max (their probability is exactly 0), and the
+    PV sum runs plane by plane over v's levels in f32 with the dequant
+    affine folded out through the probability row-sum."""
+    b, h, hd = q.shape
+    hkv = k_q.shape[2]
+    g = h // hkv
+    lvl = (1 << num_steps) - 1
+    qlvl = (1 << q_bits) - 1
+
+    qs = q.abs().amax(dim=-1, keepdim=True).to(torch.float32) + 1e-9
+    qu = (q.to(torch.float32) / qs + 1.0) * 0.5
+    qq = torch.clamp(torch.round(qu * qlvl), 0, qlvl).to(torch.int32)
+
+    qg = qq.reshape(b, hkv, g, hd).to(torch.float64)
+    kq = k_q.to(torch.int32)
+    sint = torch.zeros((b, hkv, g, kq.shape[1]), dtype=torch.int32,
+                       device=q.device)
+    for t in range(num_steps):                           # bit-serial QK^T
+        plane = ((kq >> t) & 1).to(torch.float64)
+        sint = sint + (torch.einsum("bhgd,bshd->bhgs", qg, plane).to(
+            torch.int32) << t)
+
+    qsum = qg.sum(dim=-1, keepdim=True).to(torch.float32)
+    ksum = kq.sum(dim=-1).to(torch.float32)              # (B, S, Hkv)
+    raw = (4.0 / (qlvl * lvl)) * sint.to(torch.float32) \
+        - (2.0 / qlvl) * qsum \
+        - (2.0 / lvl) * ksum.movedim(1, 2)[:, :, None, :] + float(hd)
+    qsg = qs.reshape(b, hkv, g)[..., None]
+    skg = k_scale.movedim(1, 2)[:, :, None, :]           # (B, Hkv, 1, S)
+    scores = (hd ** -0.5) * qsg * skg * raw              # (B, Hkv, g, S)
+
+    valid = mask[:, None, None, :]
+    scores = torch.where(valid, scores, -torch.inf)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(scores - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    p = p / torch.where(l > 0.0, l, torch.ones_like(l))
+
+    pw = p * v_scale.movedim(1, 2)[:, :, None, :]        # fold v scales
+    vq = v_q.to(torch.int32)
+    vint = torch.zeros((b, hkv, g, hd), dtype=torch.float32, device=q.device)
+    for t in range(num_steps):                           # bit-serial PV
+        plane = ((vq >> t) & 1).to(torch.float32)
+        vint = vint + torch.einsum("bhgs,bshd->bhgd", pw, plane) * float(1 << t)
+    out = (2.0 / lvl) * vint - pw.sum(dim=-1, keepdim=True)
+    return out.reshape(b, h, hd)

@@ -5,9 +5,9 @@
 * ``import repro_torch`` (every module) in a fresh interpreter leaves
   ``jax`` out of ``sys.modules``.
 * ``Accelerator().compile(...)`` raises when CUDA is absent instead of
-  running on the CPU.
-* The kernel modules import, and their CPU path runs, with no ``nvcc``
-  on the PATH.
+  running on the CPU, for a converted CNN and for an LM.
+* The kernel modules import, and their CPU path runs (all four kernels'
+  wrappers and the LM serving path), with no ``nvcc`` on the PATH.
 """
 
 import ast
@@ -21,7 +21,9 @@ import pytest
 import torch
 
 from repro_torch import api
+from repro_torch.configs import get_config
 from repro_torch.core import conversion
+from repro_torch.lm import model as lm_model
 from repro_torch.models import lenet
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -82,6 +84,17 @@ def test_compile_raises_without_cuda(monkeypatch):
         api.Accelerator(device="cuda").compile(net, hw)
 
 
+def test_lm_compile_raises_without_cuda(monkeypatch):
+    cfg = get_config("gemma_2b", smoke=True)
+    params = lm_model.init_params(torch.Generator().manual_seed(0), cfg)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.Accelerator().compile((params, cfg), (2, 24), buckets=(8, 16))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.Accelerator(dataflow="fused", device="cuda").compile(
+            (params, cfg), (2, 24))
+
+
 def test_cpu_path_runs_without_nvcc(tmp_path):
     env = {"PATH": str(tmp_path), "HOME": str(tmp_path),
            "CUDA_HOME": str(tmp_path / "no-cuda")}
@@ -94,8 +107,26 @@ def test_cpu_path_runs_without_nvcc(tmp_path):
         "y = ops.radix_conv2d(x, w, None, 4, padding='SAME', sparsity=True)\n"
         "z = ops.radix_matmul(y.reshape(5, -1).clamp(0, 15).to(torch.uint8),\n"
         "                     torch.ones((324, 2), dtype=torch.int8), None, 4)\n"
-        "print(tuple(y.shape), tuple(z.shape))\n")
-    assert _run(code, env).strip() == "(5, 9, 9, 4) (5, 2)"
+        "e = ops.radix_encode(torch.rand(2, 3, 5), 4, 0.5)\n"
+        "kv = torch.randint(0, 256, (2, 7, 1, 4), dtype=torch.uint8)\n"
+        "sc = torch.ones((2, 7, 1))\n"
+        "a = ops.radix_decode_attention(torch.randn(2, 2, 8), kv, sc, kv, sc,\n"
+        "                               torch.ones((2, 7), dtype=torch.bool),\n"
+        "                               4, packed=True)\n"
+        "from repro_torch import api\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.lm import model\n"
+        "import dataclasses\n"
+        "cfg = dataclasses.replace(get_config('gemma_2b', smoke=True),\n"
+        "                          radix_kv_pack=True, packed_attn=True)\n"
+        "p = model.init_params(torch.Generator().manual_seed(0), cfg)\n"
+        "exe = api.Accelerator(device='cpu').compile((p, cfg), (2, 24),\n"
+        "                                            buckets=(8, 16))\n"
+        "g = exe.generate(torch.zeros((2, 5), dtype=torch.long), 2)\n"
+        "print(tuple(y.shape), tuple(z.shape), tuple(e.shape), e.dtype,\n"
+        "      tuple(a.shape), tuple(g.shape))\n")
+    assert _run(code, env).strip() == (
+        "(5, 9, 9, 4) (5, 2) (2, 3, 5) torch.uint8 (2, 2, 8) (2, 2)")
 
 
 def test_cuda_build_reports_missing_nvcc(monkeypatch, tmp_path):
