@@ -12,11 +12,16 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` and runs:
    - ``radix_conv2d`` / ``radix_matmul`` at every distinct conv/linear
      shape of VGG-11 (224 x 224, batch 8) and LeNet-5 (full width), both
      dataflows, epilogue on and off, with an empty plane in the occupancy
-     row, plus ``periods=2`` and ``out_grid="pow2"`` at one shape each and
-     int32 (10-bit) levels at one small shape each;
+     row, plus ``periods=2`` and ``out_grid="pow2"`` at one shape each;
    - ``radix_matmul`` at Gemma-2B's four FFN shapes (decode M = 8 and
      prefill M = 2048, K and N up to 16384, int8 weights up to +-127);
-   all ``torch.equal``;
+   - the edge cases of ``EDGES``: T = 8 levels reaching 255, int32
+     (10-bit) carry levels, M = 1, ragged M, K and N, Cin = 3 and 1,
+     stride 2, the small tile's split-K at decode shapes; each with both
+     dataflows, epilogue on and off, with and without an occupancy row
+     with an empty plane, ``periods=2`` and ``out_grid="pow2"``;
+   all ``torch.equal``, the weights in the K-major layout the kernels
+   read (``kernels.gemm``);
    - ``radix_decode_attn`` at B = 8, H = 8, Hkv = 1, hd = 256, S = 512,
      T = 4, packed and unpacked, both dataflows, an occupancy row with an
      empty plane and a mask set with causal prefixes, ring windows and an
@@ -61,7 +66,9 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` and runs:
    {1, 4, 8} and three scales, on the card and on the CPU: equal.
 
 Launch counters are set to 0 just before each path (phases 3-4, 7, 8)
-and read just after.  Every failure raises, so the script exits non-zero.
+and read just after; so are the GEMM wrappers' per-call weight-transpose
+counters, which must stay 0 on the CNN and LM paths (their plans hold
+K-major weights).  Every failure raises, so the script exits non-zero.
 It prints the card's name and power limit (``nvidia-smi``), a
 ``{"kernels": [...]}`` JSON line, and last ``{"ok": true, "device":
 {...}}``; the full results go to ``build/chip_smoke.json``.  It exits 1
@@ -172,11 +179,12 @@ def _dev_us(event) -> float:
                    getattr(event, "self_cuda_time_total", 0))
 
 
-def device_ms(torch, fn, kernel: str, reps: int = 20):
-    """Device time per call of the kernels named ``kernel``, from a
-    ``torch.profiler`` trace of ``reps`` calls: the kernel alone, without
-    the host's launch latency that CUDA events around one short call also
-    catch.  None when the trace holds no device time for it."""
+def device_ms(torch, fn, kernel, reps: int = 20):
+    """Device time per call of the kernels named ``kernel`` (every device
+    kernel and fill of the call when None), from a ``torch.profiler``
+    trace of ``reps`` calls: without the host's launch latency that CUDA
+    events around one short call also catch.  None when the trace holds
+    no device time for it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -185,7 +193,8 @@ def device_ms(torch, fn, kernel: str, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(_dev_us(e) for e in prof.key_averages() if kernel in e.key)
+    us = sum(_dev_us(e) for e in prof.key_averages()
+             if kernel is None or kernel in e.key)
     return us / reps / 1e3 if us else None
 
 
@@ -259,15 +268,25 @@ def _shape_key(call) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def phase_kernels(torch, nets: dict, results: dict) -> None:
-    from repro_torch.kernels import ops
+def _kernel_fns() -> dict:
+    """kernel name -> (kernel wrapper, plain version, K-major weight
+    preparation), both called with ``kmajor=True`` on prepared weights."""
+    from repro_torch.kernels import gemm
     from repro_torch.kernels.radix_conv import (radix_conv2d_cuda,
                                                 radix_conv2d_plain)
     from repro_torch.kernels.radix_matmul import (radix_matmul_cuda,
                                                   radix_matmul_plain)
 
-    fns = {"radix_conv2d": (radix_conv2d_cuda, radix_conv2d_plain),
-           "radix_matmul": (radix_matmul_cuda, radix_matmul_plain)}
+    return {"radix_conv2d": (radix_conv2d_cuda, radix_conv2d_plain,
+                             gemm.conv_kmajor),
+            "radix_matmul": (radix_matmul_cuda, radix_matmul_plain,
+                             gemm.matmul_kmajor)}
+
+
+def phase_kernels(torch, nets: dict, results: dict) -> None:
+    from repro_torch.kernels import ops
+
+    fns = _kernel_fns()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     dev = torch.device("cuda")
     seen = {}
@@ -279,14 +298,15 @@ def phase_kernels(torch, nets: dict, results: dict) -> None:
             key = _shape_key(call)
             if key in seen:
                 continue
-            kernel_fn, plain_fn = fns[call["kernel"]]
+            kernel_fn, plain_fn, prep = fns[call["kernel"]]
             bits = call["bits"]
             # the top plane stays empty: the occupancy row gates a plane
             x = torch.randint(0, 1 << (bits - 1), call["x"], generator=gen,
                               device=dev).to(
                 torch.uint8 if bits <= 8 else torch.int32)
-            wq = torch.randint(-3, 4, call["w"], generator=gen,
-                               device=dev).to(torch.int8)
+            w_raw = torch.randint(-3, 4, call["w"], generator=gen,
+                                  device=dev).to(torch.int8)
+            wq = prep(w_raw)
             n = call["w"][-1]
             bias = torch.randint(-64, 64, (1, n), generator=gen, device=dev,
                                  dtype=torch.int32)
@@ -294,7 +314,8 @@ def phase_kernels(torch, nets: dict, results: dict) -> None:
             occ = ops.plane_occupancy(x, bits)[0]
             check(int(occ[0, bits - 1]) == 0 and int(occ[0, :bits].sum())
                   == bits - 1, f"{key}: occupancy row {occ[0, :bits]}")
-            base = dict(num_steps=bits, occupancy=occ, out_steps=T)
+            base = dict(num_steps=bits, occupancy=occ, out_steps=T,
+                        kmajor=True)
             if call["kernel"] == "radix_conv2d":
                 base["stride"] = call["stride"]
             variants = [dict(method=m, **e) for m in ("fused", "bitserial")
@@ -323,6 +344,7 @@ def phase_kernels(torch, nets: dict, results: dict) -> None:
                        epi=call["epi"], mkn=call["mkn"],
                        variants_checked=len(variants))
             row["bound_ms"], row["bound_by"] = bound(call)
+            row["split"] = split_of(call)
             for m in ("fused", "bitserial"):
                 row[f"{m}_ms"] = cuda_ms(
                     torch, lambda: kernel_fn(x, wq, **base, method=m, **epi),
@@ -330,54 +352,142 @@ def phase_kernels(torch, nets: dict, results: dict) -> None:
                 row[f"plain_{m}_ms"] = cuda_ms(
                     torch, lambda: plain_fn(x, wq, **base, method=m, **epi),
                     reps=3, warmup=1)
-            row["library_ms"] = float_library_ms(torch, call, x, wq,
-                                                 kernel_fn, base, row)
+            row["fused_device_ms"] = device_ms(
+                torch, lambda: kernel_fn(x, wq, **base, method="fused",
+                                         **epi), None)
+            row["ms"] = row["fused_device_ms"] or row["fused_ms"]
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            row["library_ms"] = float_library_ms(torch, call, x, w_raw,
+                                                 kernel_fn(
+                                                     x, wq, **dict(
+                                                         base,
+                                                         occupancy=None),
+                                                     method="fused"), row)
             seen[key] = row
             rows.append(row)
             log(f"[kernel] {net_name:6s} {call['kernel']:12s} x={call['x']} "
                 f"w={call['w']} s={call['stride']} bits={bits} "
-                f"epi={call['epi']}: fused {row['fused_ms']:.4f} ms, "
+                f"epi={call['epi']}: fused {row['fused_ms']:.4f} ms "
+                f"({row['ms']:.4f} on the device), "
                 f"bitserial {row['bitserial_ms']:.4f} ms, plain "
                 f"{row['plain_fused_ms']:.4f}/{row['plain_bitserial_ms']:.4f}"
-                f" ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
-                f"library {row['library_ms']} ms"
+                f" ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+                f"{100 * row['bound_share']:.1f}% of it), split "
+                f"{row['split']}, library {row['library_ms']} ms "
+                f"({row.get('library_device_ms')} on the device)"
                 + (f" (cuDNN fp32 {row['cudnn_f32_ms']:.4f} ms, "
                    f"{row['cudnn_f32_mismatch']} values off by up to "
                    f"{row['cudnn_f32_max_diff']})"
                    if "cudnn_f32_ms" in row else ""))
     check({"radix_conv2d", "radix_matmul"} <= extra_done,
           "periods=2 / pow2 not covered for both kernels")
-    # int32 levels: the avg-pool carry outgrows a byte at T >= 7 (10 bits
-    # at T = 8), off this main path but shipped in both kernels
-    wide = {"radix_conv2d": ((8, 14, 14, 6), (5, 5, 6, 16)),
-            "radix_matmul": ((8, 400), (400, 120))}
-    for kname, (xs, ws) in wide.items():
-        kernel_fn, plain_fn = fns[kname]
-        x = torch.randint(0, 1 << 10, xs, generator=gen, device=dev,
-                          dtype=torch.int32)
-        wq = torch.randint(-3, 4, ws, generator=gen, device=dev).to(
-            torch.int8)
-        n = ws[-1]
-        bias = torch.randint(-64, 64, (1, n), generator=gen, device=dev,
-                             dtype=torch.int32)
-        mult = torch.rand((1, n), generator=gen, device=dev) * 0.002
-        base = dict(num_steps=10, occupancy=ops.plane_occupancy(x, 10)[0],
-                    out_steps=8)
-        for v in [dict(method=m, periods=p, **e)
-                  for m in ("fused", "bitserial") for p in (1, 2)
-                  for e in ({}, dict(bias=bias, mult=mult))]:
-            got, want = kernel_fn(x, wq, **base, **v), plain_fn(x, wq, **base,
-                                                                **v)
-            torch.cuda.synchronize()
-            check(torch.equal(got, want), f"{kname} int32 levels {v}")
-    log("[kernel] int32 (10-bit) levels: both kernels equal their plain "
-        "versions")
+    results["edge_cases"] = phase_edges(torch, gen, err)
     results["kernel_rows"] = rows
     results["max_abs_err"] = err
     results["seen"] = seen
 
 
-def float_library_ms(torch, call, x, wq, kernel_fn, base, row) -> float:
+# Edge cases off (or at the rim of) the main path's shapes: (kernel, input
+# shape, weight shape, stride, bits, level dtype, what it covers).  bits > 8
+# are int32 levels (the avg-pool carry outgrows a byte at T >= 7: 10 bits
+# at T = 8); levels are drawn over all 2^bits values, so T = 8 reaches 255.
+EDGES = (
+    ("radix_matmul", (1, 25088), (25088, 4096), 1, 8,
+     "M = 1, VGG-11 fc1 at bucket 1: small tile, split-K, T = 8"),
+    ("radix_matmul", (8, 16384), (16384, 2048), 1, 8,
+     "Gemma-2B w_down at decode: split-K, T = 8 levels to 255"),
+    ("radix_matmul", (13, 333), (333, 70), 1, 6,
+     "ragged K and N, small tile, byte loader (K % 16 != 0)"),
+    ("radix_matmul", (77, 1000), (1000, 300), 1, 8,
+     "ragged M, K and N on the large tile"),
+    ("radix_matmul", (8, 400), (400, 120), 1, 10,
+     "int32 10-bit carry levels, byte groups"),
+    ("radix_matmul", (40, 333), (333, 70), 1, 10,
+     "int32 levels, ragged, large tile"),
+    ("radix_matmul", (100, 500), (500, 40), 1, 8,
+     "N <= 64: the 64-column tile, byte loader (K % 16 != 0)"),
+    ("radix_conv2d", (8, 34, 34, 3), (3, 3, 3, 64), 1, 8,
+     "Cin = 3 (byte gather), T = 8"),
+    ("radix_conv2d", (8, 32, 32, 1), (5, 5, 1, 6), 1, 4,
+     "Cin = 1, LeNet conv1"),
+    ("radix_conv2d", (8, 14, 14, 6), (5, 5, 6, 16), 1, 10,
+     "int32 10-bit carry levels"),
+    ("radix_conv2d", (2, 17, 19, 32), (3, 3, 32, 48), 2, 8,
+     "stride 2, ragged M and N, cp.async gather (Cin % 16 == 0), T = 8"),
+    ("radix_conv2d", (1, 6, 6, 16), (3, 3, 16, 24), 1, 4,
+     "M = 16 output pixels: small tile, split-K"),
+)
+
+
+def split_of(call) -> int:
+    """K splits of the launch at this call's GEMM shape."""
+    from repro_torch.kernels import gemm
+
+    m, k, n = call["mkn"]
+    return gemm.plan(m, n, k, gemm.sm_count(0)).split
+
+
+def phase_edges(torch, gen, err: dict) -> list:
+    """Each edge case against the plain version, ``torch.equal``: both
+    dataflows, epilogue on and off, an occupancy row with an empty plane
+    and none, ``periods=2`` and ``out_grid="pow2"``."""
+    from repro_torch.kernels import ops
+
+    fns = _kernel_fns()
+    dev = torch.device("cuda")
+    done = []
+    for kname, xs, ws, stride, bits, what in EDGES:
+        kernel_fn, plain_fn, prep = fns[kname]
+        x = torch.randint(0, 1 << bits, xs, generator=gen, device=dev,
+                          dtype=torch.int32)
+        x &= ~(1 << (bits // 2))                   # plane bits // 2 empty
+        x = x.to(torch.uint8 if bits <= 8 else torch.int32)
+        wq = prep(torch.randint(-127, 128, ws, generator=gen, device=dev,
+                                dtype=torch.int32).to(torch.int8))
+        n = ws[-1]
+        bias = torch.randint(-64, 64, (1, n), generator=gen, device=dev,
+                             dtype=torch.int32)
+        mult = torch.rand((1, n), generator=gen, device=dev) * 4e-5
+        occ = ops.plane_occupancy(x, bits)[0]
+        check(int(occ[0, bits // 2]) == 0, f"{kname} {what}: occupancy")
+        base = dict(num_steps=bits, out_steps=min(bits, 8), kmajor=True)
+        if kname == "radix_conv2d":
+            base["stride"] = stride
+        epi = dict(bias=bias, mult=mult)
+        variants = [dict(method=m, occupancy=o, **e)
+                    for m in ("fused", "bitserial") for o in (None, occ)
+                    for e in ({}, epi)]
+        variants += [dict(method="bitserial", periods=2, occupancy=occ),
+                     dict(method="bitserial", periods=2, occupancy=occ, **epi),
+                     dict(method="fused", out_grid="pow2", occupancy=occ,
+                          **epi),
+                     dict(method="bitserial", out_grid="pow2", occupancy=occ,
+                          **epi)]
+        levels = set()
+        for v in variants:
+            got = kernel_fn(x, wq, **base, **v)
+            want = plain_fn(x, wq, **base, **v)
+            torch.cuda.synchronize()
+            diff = int((got.long() - want.long()).abs().max())
+            err[kname] = max(err[kname], diff)
+            check(torch.equal(got, want),
+                  f"{kname} edge '{what}' {v.get('method')} "
+                  f"epi={'mult' in v} periods={v.get('periods', 1)} "
+                  f"grid={v.get('out_grid', 'dense')} occ="
+                  f"{v['occupancy'] is not None}: max |diff| {diff}")
+            if "mult" in v:
+                levels |= set(torch.unique(got).tolist())
+        done.append(dict(kernel=kname, x=xs, w=ws, stride=stride, bits=bits,
+                         what=what, variants=len(variants),
+                         epilogue_levels=len(levels),
+                         max_level=int(x.max())))
+        log(f"[edge] {kname} {xs} x {ws} s{stride} bits={bits} ({what}): "
+            f"{len(variants)} variants equal; max level {int(x.max())}, "
+            f"{len(levels)} distinct epilogue levels")
+    return done
+
+
+def float_library_ms(torch, call, x, wq, want, row) -> float:
     """The library yardstick: one fp32 PyTorch call (TF32 off) computing
     the same integer product, exact while every sum stays below 2^24
     (VGG-11: at most 3*3*512 taps x level 63 x |w| 3 = 870,912) and the
@@ -385,14 +495,13 @@ def float_library_ms(torch, call, x, wq, kernel_fn, base, row) -> float:
     ``F.conv2d`` with cuDNN disabled (PyTorch's im2col + cuBLAS GEMM) for
     a conv, because cuDNN's own fp32 choice may be a Winograd/FFT
     transform, which is not exact: its time and mismatch count are kept
-    beside (``cudnn_f32_*``).  Checked equal to the kernel's raw int32
-    accumulator and timed without the epilogue; None where it is not
-    equal."""
+    beside (``cudnn_f32_*``).  ``wq`` is the reference-layout weight and
+    ``want`` the kernel's raw int32 accumulator; timed without the
+    epilogue; None where the library's result is not equal."""
     import torch.nn.functional as F
 
     check(not (torch.backends.cuda.matmul.allow_tf32
                or torch.backends.cudnn.allow_tf32), "TF32 is on")
-    want = kernel_fn(x, wq, **dict(base, occupancy=None), method="fused")
     if call["kernel"] == "radix_matmul":
         a, b = x.float(), wq.float()
 
@@ -425,19 +534,23 @@ def float_library_ms(torch, call, x, wq, kernel_fn, base, row) -> float:
             f"{int((got != want).sum())} values differ from the kernel; "
             "no exact library yardstick at this shape")
         return None
+    row["library_device_ms"] = device_ms(torch, fn, None)
     return cuda_ms(torch, fn, reps=10)
 
 
-def int_mm_ms(torch, x, wq, kernel_fn) -> float:
+def int_mm_ms(torch, x, wq, want, row) -> float:
     """``torch._int_mm`` (int8 x int8 -> int32) on the same product, M
-    padded to 32 rows (it refuses M <= 16); checked equal to the kernel."""
+    padded to 32 rows (it refuses M <= 16), on the reference-layout
+    weight ``wq``; checked equal to the kernel's accumulator ``want``.
+    Its device time goes to ``row["library_device_ms"]``."""
     m, k = x.shape
     a = torch.zeros((max(m, 32), k), dtype=torch.int8, device=x.device)
     a[:m] = x.to(torch.int8)
-    want = kernel_fn(x, wq, num_steps=T, method="fused")
     check(torch.equal(torch._int_mm(a, wq)[:m], want),
           f"torch._int_mm disagrees with the kernel at {tuple(x.shape)} x "
           f"{tuple(wq.shape)}")
+    row["library_device_ms"] = device_ms(torch, lambda: torch._int_mm(a, wq),
+                                         None)
     return cuda_ms(torch, lambda: torch._int_mm(a, wq), reps=10)
 
 
@@ -460,6 +573,7 @@ def lm_matmul_calls(cfg) -> list:
 
 
 def phase_lm_matmul(torch, cfg, results) -> None:
+    from repro_torch.kernels import gemm
     from repro_torch.kernels.radix_matmul import (radix_matmul_cuda,
                                                   radix_matmul_plain)
 
@@ -469,33 +583,45 @@ def phase_lm_matmul(torch, cfg, results) -> None:
     for call in lm_matmul_calls(cfg):
         x = torch.randint(0, 1 << T, call["x"], generator=gen, device=dev,
                           dtype=torch.int32).to(torch.uint8)
-        wq = torch.randint(-127, 128, call["w"], generator=gen, device=dev,
-                           dtype=torch.int32).to(torch.int8)
+        w_raw = torch.randint(-127, 128, call["w"], generator=gen,
+                              device=dev, dtype=torch.int32).to(torch.int8)
+        wq = gemm.matmul_kmajor(w_raw)
+        kw = dict(num_steps=T, kmajor=True)
         row = dict(net="gemma-2b", kernel="radix_matmul", x=call["x"],
-                   w=call["w"], bits=T, epi=False, mkn=call["mkn"])
+                   w=call["w"], bits=T, epi=False, mkn=call["mkn"],
+                   split=split_of(call))
         for m in ("fused", "bitserial"):
-            got = radix_matmul_cuda(x, wq, num_steps=T, method=m)
-            want = radix_matmul_plain(x, wq, num_steps=T, method=m)
+            got = radix_matmul_cuda(x, wq, method=m, **kw)
+            want = radix_matmul_plain(x, wq, method=m, **kw)
             sync(torch)
             check(torch.equal(got, want), f"radix_matmul {call['x']} x "
                   f"{call['w']} {m}: max |diff| "
                   f"{int((got.long() - want.long()).abs().max())}")
             row[f"{m}_ms"] = cuda_ms(
-                torch, lambda: radix_matmul_cuda(x, wq, num_steps=T,
-                                                 method=m), reps=10)
+                torch, lambda: radix_matmul_cuda(x, wq, method=m, **kw),
+                reps=10)
             row[f"plain_{m}_ms"] = cuda_ms(
-                torch, lambda: radix_matmul_plain(x, wq, num_steps=T,
-                                                  method=m), reps=3,
-                warmup=1)
+                torch, lambda: radix_matmul_plain(x, wq, method=m, **kw),
+                reps=3, warmup=1)
+            if m == "fused":
+                fused_out = got
         row["bound_ms"], row["bound_by"] = bound(call)
-        row["library_ms"] = int_mm_ms(torch, x, wq, radix_matmul_cuda)
+        row["fused_device_ms"] = device_ms(
+            torch, lambda: radix_matmul_cuda(x, wq, method="fused", **kw),
+            None)
+        row["ms"] = row["fused_device_ms"] or row["fused_ms"]
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["library_ms"] = int_mm_ms(torch, x, w_raw, fused_out, row)
         rows.append(row)
         log(f"[kernel] gemma  radix_matmul x={call['x']} w={call['w']}: "
-            f"fused {row['fused_ms']:.4f} ms, bitserial "
+            f"fused {row['fused_ms']:.4f} ms ({row['ms']:.4f} on the "
+            f"device), bitserial "
             f"{row['bitserial_ms']:.4f} ms, plain "
             f"{row['plain_fused_ms']:.4f}/{row['plain_bitserial_ms']:.4f} "
-            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
-            f"torch._int_mm {row['library_ms']:.4f} ms")
+            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+            f"{100 * row['bound_share']:.1f}% of it), split {row['split']}, "
+            f"torch._int_mm {row['library_ms']:.4f} ms "
+            f"({row['library_device_ms']} on the device)")
     results["lm_matmul_rows"] = rows
 
 
@@ -710,9 +836,18 @@ def counters() -> dict:
     return {k: fn.launches for k, fn in _wrappers().items()}
 
 
+def transposes() -> dict:
+    """Per-call K-major weight copies the GEMM wrappers made (given
+    reference-layout weights on the card); the main paths make none."""
+    w = _wrappers()
+    return {k: w[k].transposes for k in ("radix_conv2d", "radix_matmul")}
+
+
 def reset_counters() -> None:
-    for fn in _wrappers().values():
+    for name, fn in _wrappers().items():
         fn.launches = 0
+        if name in ("radix_conv2d", "radix_matmul"):
+            fn.transposes = 0
 
 
 def phase_net(torch, name, static, params, hw, results) -> dict:
@@ -1207,6 +1342,7 @@ def main() -> int:
                            results),
     }
     paths["cnn"] = counters()
+    copies = {"cnn": transposes()}
     phase_quantize(torch, results)
     phase_profile(torch, runs, results)
     del runs
@@ -1216,6 +1352,7 @@ def main() -> int:
     reset_counters()
     phase_lm(torch, gemma_2b.ARCH, results)
     paths["lm"] = counters()
+    copies["lm"] = transposes()
     log(f"[lm] phase 7: {time.perf_counter() - t0:.1f} s")
 
     reset_counters()
@@ -1228,7 +1365,11 @@ def main() -> int:
         check(all(paths[path][k] > 0 for k in names),
               f"a kernel of the {path} path was not launched: "
               f"{paths[path]}")
-    log(f"[paths] launches per path: {paths}")
+    check(all(v == 0 for c in copies.values() for v in c.values()),
+          f"per-call weight transposes on the main path: {copies}")
+    results["path_weight_transposes"] = copies
+    log(f"[paths] launches per path: {paths}; per-call weight transposes "
+        f"{copies}")
 
     seen = results.pop("seen")
     vgg_calls = nets["vgg11"]
@@ -1242,12 +1383,13 @@ def main() -> int:
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=sum(p[kname] for p in paths.values()),
             max_abs_err=results["max_abs_err"][kname],
-            ms=sum(r["fused_ms"] for r in mine),
+            ms=sum(r["ms"] for r in mine),
             plain_ms=sum(r["plain_fused_ms"] for r in mine),
             bound_ms=bound_ms,
             bound_by="bytes" if bytes_ms * 2 >= bound_ms else "operations",
-            library_ms=(None if any(r["library_ms"] is None for r in mine)
-                        else sum(r["library_ms"] for r in mine))))
+            library_ms=(None if any(r.get("library_device_ms") is None
+                                    for r in mine)
+                        else sum(r["library_device_ms"] for r in mine))))
     attn = next(r for r in results["attn_rows"]
                 if r["packed"] and r["method"] == "fused")
     enc = results["encode_rows"][0]
@@ -1267,7 +1409,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1,
                                                         default=str))
     log(f"[done] {results['total_s']:.1f} s; kernel line: conv and matmul "
-        "times summed over one VGG-11 batch-8 fused execution's launches "
+        "device times summed over one VGG-11 batch-8 fused execution's "
+        "launches "
         "(matmul launches: CNN + LM paths); decode attention at the LM "
         "decode shape (packed, fused); encoder at 8x224x224x3, T=4")
     print(smi)

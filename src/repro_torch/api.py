@@ -349,7 +349,8 @@ class LMExecutable:
             raise ValueError(
                 f"need batch >= 1 and max_len >= 2, got ({batch}, {max_len})")
         params = lm_model.tree_map(lambda t: t.to(device), params)
-        self.params = lm_model.radixify_params(params, serve_cfg)
+        self.params = lm_model.kmajor_params(
+            lm_model.radixify_params(params, serve_cfg))
 
         mdl, mx, scfg = lm_model, self.max_len, serve_cfg
 

@@ -217,9 +217,12 @@ def _compile_plan_impl(
     first linear layer's weight rows to the padded flatten layout, only
     because Pallas blocks need aligned shapes.  The CUDA kernels mask their
     own ragged edges, so this plan keeps logical channel counts and has
-    neither the padding nor the scatter.
+    neither the padding nor the scatter.  What it does prepare once, in
+    their place, is the K-major copy of every weight the int8 tensor cores
+    read (``kernels.gemm.matmul_kmajor`` / ``conv_kmajor``); the plan holds
+    no other copy.
     """
-    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import gemm, ops as kops
     from repro_torch.kernels.autotune import KernelConfig
     from repro_torch.kernels.radix_conv import radix_conv2d_cuda
     from repro_torch.kernels.radix_matmul import radix_matmul_cuda
@@ -263,12 +266,14 @@ def _compile_plan_impl(
             out_dtype="int32" if last else "uint8",
             act_write_bytes=_elems(out_shape) * (4 if last else 1),
             act_write_bytes_int32=_elems(out_shape) * 4))
+        tile = gemm.tile_for(_elems(out_shape[:-1]), out_shape[-1])
         tuned.append({"layer": name, "tuned": False,
-                      **KernelConfig().as_dict()})
+                      **KernelConfig(bm=tile.act, bn=tile.w,
+                                     bk=tile.bk).as_dict()})
 
     for (kind, cfg), qp in zip(qnet.static, qnet.qlayers):
         if kind in ("conv", "linear"):
-            w_q = qp["w_q"].to(device=device, dtype=torch.int8).contiguous()
+            w_q = qp["w_q"].to(device=device, dtype=torch.int8)
             last = qp["mult"] is None
             in_bits = bits
             if last:
@@ -284,6 +289,7 @@ def _compile_plan_impl(
         if kind == "conv":
             kh, kw, cin, cout = w_q.shape
             assert cin == c, (cin, c)
+            w_k = gemm.conv_kmajor(w_q)
             stride = cfg.get("stride", 1)
             pads = None
             if cfg.get("padding", "VALID") == "SAME":
@@ -295,16 +301,16 @@ def _compile_plan_impl(
             w = (w - kw) // stride + 1
             c = cout
 
-            def apply(state, *, pads=pads, w_q=w_q, in_bits=in_bits,
+            def apply(state, *, pads=pads, w_k=w_k, in_bits=in_bits,
                       stride=stride, rows=rows, last=last,
                       b=b if last else None):
                 if pads is not None:
                     state = F.pad(state, pads)
                 state = state.contiguous()
                 occ, skipped = _occ(state, in_bits)
-                out = radix_conv2d_cuda(state, w_q, num_steps=in_bits,
+                out = radix_conv2d_cuda(state, w_k, num_steps=in_bits,
                                         stride=stride, occupancy=occ,
-                                        **kernel_kw, **rows)
+                                        kmajor=True, **kernel_kw, **rows)
                 return (out + b if last else out), skipped
 
             name = f"conv{kh}x{kw}x{cin}->{cout}" + (
@@ -317,13 +323,15 @@ def _compile_plan_impl(
             fin, fout = w_q.shape
             assert fin == f, (fin, f)
             f = fout
+            w_k = gemm.matmul_kmajor(w_q)
 
-            def apply(state, *, w_q=w_q, in_bits=in_bits, rows=rows,
+            def apply(state, *, w_k=w_k, in_bits=in_bits, rows=rows,
                       last=last, b=b if last else None):
                 state = state.contiguous()
                 occ, skipped = _occ(state, in_bits)
-                out = radix_matmul_cuda(state, w_q, num_steps=in_bits,
-                                        occupancy=occ, **kernel_kw, **rows)
+                out = radix_matmul_cuda(state, w_k, num_steps=in_bits,
+                                        occupancy=occ, kmajor=True,
+                                        **kernel_kw, **rows)
                 return (out + b if last else out), skipped
 
             _record(f"linear{fin}->{fout}", (batch, fout), last)

@@ -2,82 +2,107 @@
 //
 // Replaces repro/kernels/radix_matmul.py:radix_matmul_pallas, the TPU
 // kernel behind every linear layer and the logits layer of a compiled
-// plan: (M, K) packed levels (uint8, or int32 once an avg-pool carry
-// outgrows a byte) times (K, N) int8 weights, in the "fused" or
-// "bitserial" dataflow, with the plane-occupancy gate and, when `mult` is
-// given, the fused output-logic epilogue storing uint8 levels (else raw
-// int32 accumulators).  The tile loop lives in radix_common.cuh.
+// plan and behind the LM's radix FFN products: (M, K) packed levels (uint8,
+// or int32 once an avg-pool carry outgrows a byte) times int8 weights held
+// K-major as (N, K), in the "fused" or "bitserial" dataflow, with the
+// plane-occupancy gate and, when `mult` is given, the fused output-logic
+// epilogue storing uint8 levels (else raw int32 accumulators).  The
+// mainloop is the int8 tensor-core GEMM of radix_common.cuh.
 //
-// What bounds it on the card: at batch 8 the linear layers read their int8
-// weights once per call (25088 x 4096 = 103 MB for VGG-11's fc1) for
-// 2*M*K*N = 1.6 GOP, so they are memory-bound (~31 us at 3.35 TB/s).
-// This first version tiles 64 x 64 outputs per block and streams each
-// weight tile through shared memory once per row tile; at M <= 64 that is
-// one read of the weights, but the loads are not pipelined and the
-// products run on the int32 CUDA-core path, not the int8 tensor cores.
+// What bounds it on the card, and what the design does about it:
+//   * M <= 32 (LM decode at M = 8, the CNN's linear layers at buckets 1
+//     and 8): the weight stream, e.g. 33.5 MB for Gemma-2B's w_down, 10 us
+//     at 3.35 TB/s.  SmallTile puts 128 weight rows on the MMA's A side and
+//     the tokens on its B side, streams the K-major weights with 16-byte
+//     cp.async through a 4-stage ring, and splits K until some 2 x 132
+//     blocks stream them (w_down alone has 16 weight tiles).
+//   * M > 32 (LM prefill, M = 2048): operations, 137 GOP per FFN product,
+//     69 us at the int8 tensor-core peak.  128 x 128 outputs per block with
+//     the levels and weights both streamed by cp.async: the fused dataflow
+//     on wgmma u8 x s8 (WgTile), bitserial on mma.sync u8 x s8 (LargeTile),
+//     which multiplies the MMA work by the T plane passes.
+// The A rows come by 16-byte cp.async when K % 16 == 0 (uint8 levels),
+// else by a masked byte loader; int32 levels load one byte group a sweep.
 //
 // C interface (bound with ctypes): pointers are device addresses, the
-// stream is PyTorch's current stream; returns cudaGetLastError().
+// stream is PyTorch's current stream; returns a CUDA error code.
+
+#include <type_traits>
 
 #include "radix_common.cuh"
 
 namespace {
 
-template <typename TA>
-struct MatrixA {
-  const TA* __restrict__ x;
-  int M, K;
-  __device__ __forceinline__ void load(int m, int k0, int vals[8]) const {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int k = k0 + j;
-      vals[j] = (m < M && k < K) ? static_cast<int>(x[(size_t)m * K + k]) : 0;
-    }
-  }
-};
-
-template <typename TA, bool EPI>
-__global__ void __launch_bounds__(radix::THREADS)
-    radix_matmul_kernel(MatrixA<TA> la, const int8_t* __restrict__ w, int M,
-                        int K, int N, radix::Schedule s,
-                        const int* __restrict__ occ,
-                        const int* __restrict__ bias,
-                        const float* __restrict__ mult, void* out) {
-  radix::gemm_block<MatrixA<TA>, EPI>(la, w, M, K, N, s, occ, bias, mult, out);
+template <class Cfg, bool WIDE, bool EPI, typename TA>
+__global__ void __launch_bounds__(radix::THREADS, WIDE ? 1 : 2)
+    radix_matmul_kernel(radix::RowMatrix<TA> la, radix::Problem p) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  radix::Gemm<Cfg, WIDE, EPI, radix::RowMatrix<TA>> gemm(la, p, smem);
+  gemm.run();
 }
 
+template <typename TA, class Cfg, bool EPI>
+cudaError_t run(const radix::RowMatrix<TA>& la, const radix::Problem& p,
+                cudaStream_t stream) {
+  constexpr bool WIDE = std::is_same<TA, int32_t>::value;
+  return radix::launch_gemm<radix_matmul_kernel<Cfg, WIDE, EPI, TA>, Cfg>(
+      la, p, stream);
+}
+
+// tile: the index of kernels/gemm.py TILES (0 large, 1 small, 2 mid);
+// the large tile's fused dataflow runs on wgmma.
 template <typename TA>
-void launch(const void* x, const int8_t* w, void* out, const int* bias,
-            const float* mult, const int* occ, int M, int K, int N,
-            radix::Schedule s, cudaStream_t stream) {
-  const dim3 grid((M + radix::BM - 1) / radix::BM,
-                  (N + radix::BN - 1) / radix::BN);
-  const MatrixA<TA> la{static_cast<const TA*>(x), M, K};
-  if (mult != nullptr)
-    radix_matmul_kernel<TA, true><<<grid, radix::THREADS, 0, stream>>>(
-        la, w, M, K, N, s, occ, bias, mult, out);
-  else
-    radix_matmul_kernel<TA, false><<<grid, radix::THREADS, 0, stream>>>(
-        la, w, M, K, N, s, occ, bias, mult, out);
+cudaError_t dispatch(const radix::RowMatrix<TA>& la, const radix::Problem& p,
+                     int tile, cudaStream_t stream) {
+  const bool epi = p.mult != nullptr;
+  if (tile == 1)
+    return epi ? run<TA, radix::SmallTile, true>(la, p, stream)
+               : run<TA, radix::SmallTile, false>(la, p, stream);
+  if (tile == 2)
+    return epi ? run<TA, radix::MidTile, true>(la, p, stream)
+               : run<TA, radix::MidTile, false>(la, p, stream);
+  if (p.s.fused)
+    return epi ? run<TA, radix::WgTile, true>(la, p, stream)
+               : run<TA, radix::WgTile, false>(la, p, stream);
+  return epi ? run<TA, radix::LargeTile, true>(la, p, stream)
+             : run<TA, radix::LargeTile, false>(la, p, stream);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
 }  // namespace
 
 extern "C" int radix_matmul_launch(const void* x, int x_int32, const void* w,
-                                   void* out, const void* bias,
+                                   void* out, void* work, const void* bias,
                                    const void* mult, const void* occ, int M,
                                    int K, int N, int num_steps, int fused,
                                    int periods, int out_level, int pow2,
-                                   void* stream) {
-  const radix::Schedule s{num_steps, fused, periods, out_level, pow2};
-  const auto* wq = static_cast<const int8_t*>(w);
-  const auto* b = static_cast<const int*>(bias);
-  const auto* mu = static_cast<const float*>(mult);
-  const auto* oc = static_cast<const int*>(occ);
+                                   int tile, int k_chunk, void* stream) {
+  radix::Problem p;
+  p.w = static_cast<const int8_t*>(w);
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.k_chunk = k_chunk;
+  p.w_vec = K % 16 == 0 && aligned16(w);
+  p.s = radix::Schedule{num_steps, fused, periods, out_level, pow2};
+  p.occ = static_cast<const int*>(occ);
+  p.bias = static_cast<const int*>(bias);
+  p.mult = static_cast<const float*>(mult);
+  p.out = out;
+  p.work = static_cast<int*>(work);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (x_int32)
-    launch<int32_t>(x, wq, out, b, mu, oc, M, K, N, s, st);
-  else
-    launch<uint8_t>(x, wq, out, b, mu, oc, M, K, N, s, st);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err;
+  if (x_int32) {
+    const radix::RowMatrix<int32_t> la{static_cast<const int32_t*>(x), M, K,
+                                       0};
+    err = dispatch(la, p, tile, st);
+  } else {
+    const radix::RowMatrix<uint8_t> la{static_cast<const uint8_t*>(x), M, K,
+                                       K % 16 == 0 && aligned16(x)};
+    err = dispatch(la, p, tile, st);
+  }
+  return static_cast<int>(err);
 }

@@ -26,7 +26,7 @@ from typing import Dict, Iterable, Optional, Sequence
 import torch
 
 __all__ = ["SOURCES", "BUILD_DIR", "build", "function", "check_tensor",
-           "launch_error"]
+           "device_index", "launch_error"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -129,6 +129,12 @@ def check_tensor(t: torch.Tensor, name: str, dtypes, device: torch.device,
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def device_index(device: torch.device) -> int:
+    """The CUDA ordinal of ``device`` (the current device when unset)."""
+    return torch.cuda.current_device() if device.index is None \
+        else device.index
 
 
 def launch_error(kernel: str, code: int) -> RuntimeError:

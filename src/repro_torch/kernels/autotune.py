@@ -10,18 +10,24 @@ from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["KernelConfig", "TILE", "IMPLS"]
+from repro_torch.kernels import gemm
+
+__all__ = ["KernelConfig", "TILE", "TILES", "IMPLS"]
 
 IMPLS = ("cuda", "plain")
 
-TILE = (64, 64, 32)
-"""(bm, bn, bk) compiled into ``csrc/radix_common.cuh``."""
+TILES = tuple((t.act, t.w, t.bk) for t in gemm.TILES)
+"""The (bm, bn, bk) tiles compiled into ``csrc/radix_common.cuh``: bm level
+rows (M), bn weight rows (N), bk K bytes; the launch picks one by M
+(``gemm.tile_for``)."""
+TILE = TILES[0]
+"""The large-M tile, the record's default."""
 
 
 @dataclasses.dataclass(frozen=True)
 class KernelConfig:
     """One layer's execution strategy: ``impl="cuda"`` is the hand-written
-    kernel (its plain version on CPU tensors) at the compiled tile shape;
+    kernel (its plain version on CPU tensors) at one of the compiled tiles;
     ``impl="plain"`` pins the plain PyTorch version on any device (the
     counterpart of the reference's ``impl="xla"`` twin)."""
 
@@ -34,10 +40,10 @@ class KernelConfig:
         if self.impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got "
                              f"{self.impl!r}")
-        if (self.bm, self.bn, self.bk) != TILE:
+        if (self.bm, self.bn, self.bk) not in TILES:
             raise ValueError(
-                f"tile {(self.bm, self.bn, self.bk)} is not the compiled "
-                f"tile {TILE}; tile choice comes with the autotune slice")
+                f"tile {(self.bm, self.bn, self.bk)} is not a compiled "
+                f"tile {TILES}; tile choice comes with the autotune slice")
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)

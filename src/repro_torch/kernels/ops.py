@@ -94,25 +94,27 @@ def radix_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
                  b_int: Optional[torch.Tensor],
                  num_steps: Union[int, EncodingSpec], *,
                  method: str = "bitserial", mult=None,
-                 sparsity: bool = False,
-                 autotune: bool = False) -> torch.Tensor:
+                 sparsity: bool = False, autotune: bool = False,
+                 kmajor: bool = False) -> torch.Tensor:
     """(..., K) packed levels @ (K, N) int8 (+bias) -> (..., N).
 
     ``mult=None``: raw int32 accumulator (+bias outside the kernel);
     ``mult`` given: the fused epilogue, packed uint8 levels.  ``num_steps``
     may be a bare T or a kernels-capable spec.  ``sparsity=True`` runs
-    the plane-occupancy prepass."""
+    the plane-occupancy prepass.  ``kmajor``: ``w_q`` is the (N, K) layout
+    the kernel reads (``gemm.matmul_kmajor``); (K, N) weights on CUDA are
+    copied K-major per call."""
     if autotune:
         raise NotImplementedError(_AUTOTUNE_LATER)
     sched = _schedule(num_steps)
     spec = num_steps if isinstance(num_steps, EncodingSpec) else None
     lead = tuple(x_q.shape[:-1])
     k = x_q.shape[-1]
-    n = w_q.shape[-1]
+    n = w_q.shape[0 if kmajor else -1]
     x2 = x_q.reshape(-1, k).contiguous()
     occ = plane_occupancy(x2, sched.packed_bits)[0] if sparsity else None
     kw = dict(num_steps=sched.packed_bits, method=method,
-              periods=sched.periods, occupancy=occ)
+              periods=sched.periods, occupancy=occ, kmajor=kmajor)
     if mult is None:
         out = radix_matmul_cuda(x2, w_q, **kw)
         if b_int is not None:
@@ -130,18 +132,22 @@ def radix_conv2d(x_q: torch.Tensor, w_q: torch.Tensor,
                  b_int: Optional[torch.Tensor],
                  num_steps: Union[int, EncodingSpec], *, stride: int = 1,
                  padding: str = "VALID", method: str = "bitserial",
-                 mult=None, sparsity: bool = False,
-                 autotune: bool = False) -> torch.Tensor:
+                 mult=None, sparsity: bool = False, autotune: bool = False,
+                 kmajor: bool = False) -> torch.Tensor:
     """NHWC packed levels * HWIO int8 -> NHWC conv (+bias).
 
     SAME is pre-padded here (XLA-exact pads for any stride); the stride
     subsamples in-kernel.  ``mult``, ``sparsity`` and ``num_steps`` as in
-    :func:`radix_matmul`."""
+    :func:`radix_matmul`; ``kmajor``: ``w_q`` is the (Cout, KH, KW, Cin)
+    layout the kernel reads (``gemm.conv_kmajor``)."""
     if autotune:
         raise NotImplementedError(_AUTOTUNE_LATER)
     sched = _schedule(num_steps)
     spec = num_steps if isinstance(num_steps, EncodingSpec) else None
-    kh, kw_, _, cout = w_q.shape
+    if kmajor:
+        cout, kh, kw_, _ = w_q.shape
+    else:
+        kh, kw_, _, cout = w_q.shape
     if padding == "SAME":
         ph = same_pads(x_q.shape[1], kh, stride)
         pw = same_pads(x_q.shape[2], kw_, stride)
@@ -151,7 +157,7 @@ def radix_conv2d(x_q: torch.Tensor, w_q: torch.Tensor,
     x_q = x_q.contiguous()
     occ = plane_occupancy(x_q, sched.packed_bits)[0] if sparsity else None
     kw = dict(num_steps=sched.packed_bits, method=method, stride=stride,
-              periods=sched.periods, occupancy=occ)
+              periods=sched.periods, occupancy=occ, kmajor=kmajor)
     if mult is None:
         out = radix_conv2d_cuda(x_q, w_q, **kw)
         return out if b_int is None else out + b_int.to(out.device)

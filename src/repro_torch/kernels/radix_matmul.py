@@ -1,15 +1,20 @@
 """Radix (bit-serial) matmul: the CUDA kernel wrapper and its plain version.
 
 Port of ``repro/kernels/radix_matmul.py:radix_matmul_pallas``.  The kernel
-is hand-written CUDA C++ for sm_90a (``csrc/radix_matmul.cu`` on the tile
-loop of ``csrc/radix_common.cuh``); :func:`radix_matmul_plain` computes the
-same function in plain PyTorch (the reference's XLA twin,
+is hand-written CUDA C++ for sm_90a (``csrc/radix_matmul.cu`` on the int8
+tensor-core GEMM of ``csrc/radix_common.cuh``); :func:`radix_matmul_plain`
+computes the same function in plain PyTorch (the reference's XLA twin,
 ``ops._xla_matmul``).
 
+Both take the weights in the reference's (K, N) layout or, with
+``kmajor=True``, in the (N, K) layout the kernel reads
+(``gemm.matmul_kmajor``, made once where a plan takes its weights).
 :func:`radix_matmul_cuda` dispatches on the device of its input: a CPU
 tensor runs the plain version, a CUDA tensor launches the kernel on the
 current stream (and counts the launch in ``radix_matmul_cuda.launches``)
-or raises.  There is no fallback from a failed build or launch.
+or raises.  Given (K, N) weights on CUDA it makes the K-major copy for
+that call and counts it in ``radix_matmul_cuda.transposes``.  There is no
+fallback from a failed build or launch.
 
 What bounds it on the card, and what the design does about it, is in the
 source note of ``csrc/radix_matmul.cu``.
@@ -24,7 +29,7 @@ import torch
 
 from repro_torch.core.encoding import pow2_floor
 from repro_torch.core.layers import _int_matmul
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, gemm
 
 __all__ = ["OCC_LANES", "occ_mask", "gated", "radix_matmul_plain",
            "radix_matmul_cuda"]
@@ -38,8 +43,9 @@ MAX_STEPS = 31
 
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
-_ARGTYPES = [_VOID, _INT, _VOID, _VOID, _VOID, _VOID, _VOID,
-             _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VOID]
+_ARGTYPES = [_VOID, _INT, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
+             _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+             _VOID]
 
 
 def occ_mask(occ: torch.Tensor, num_steps: int) -> torch.Tensor:
@@ -108,12 +114,14 @@ def radix_matmul_plain(x_q: torch.Tensor, w_q: torch.Tensor, *,
                        out_steps: Optional[int] = None, periods: int = 1,
                        out_level: Optional[int] = None,
                        out_grid: str = "dense",
-                       occupancy: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
+                       occupancy: Optional[torch.Tensor] = None,
+                       kmajor: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the kernel (same arguments as
     :func:`radix_matmul_cuda`), on any device."""
     occ = occupancy[0] if occupancy is not None else None
     x = x_q.to(torch.int32)
+    if kmajor:
+        w_q = gemm.matmul_logical(w_q)
     if method == "fused":
         if occ is not None:
             x = x & occ_mask(occ, num_steps)
@@ -174,9 +182,10 @@ def radix_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor, *,
                       out_steps: Optional[int] = None, periods: int = 1,
                       out_level: Optional[int] = None,
                       out_grid: str = "dense",
-                      occupancy: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
-    """(M, K) packed levels (uint8 or int32) @ (K, N) int8 -> (M, N).
+                      occupancy: Optional[torch.Tensor] = None,
+                      kmajor: bool = False) -> torch.Tensor:
+    """(M, K) packed levels (uint8 or int32) @ (K, N) int8 -> (M, N)
+    (``kmajor``: the weights given as (N, K)).
 
     Without ``mult``: raw int32 accumulators.  With ``mult`` (float32,
     ``N`` entries) and optional ``bias`` (int32): the fused epilogue,
@@ -193,36 +202,41 @@ def radix_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor, *,
               out_steps=out_steps, periods=periods, out_level=out_level,
               out_grid=out_grid, occupancy=occupancy)
     if x_q.device.type == "cpu":
-        return radix_matmul_plain(x_q, w_q, **kw)
+        return radix_matmul_plain(x_q, w_q, kmajor=kmajor, **kw)
     if x_q.device.type != "cuda":
         raise ValueError(f"radix_matmul runs on CPU or CUDA, got {x_q.device}")
     dev = x_q.device
     _build.check_tensor(x_q, "x_q", (torch.uint8, torch.int32), dev, 2)
     _build.check_tensor(w_q, "w_q", (torch.int8,), dev, 2)
+    if not kmajor:
+        w_q = gemm.matmul_kmajor(w_q)
+        radix_matmul_cuda.transposes += 1
     m, k = x_q.shape
-    if w_q.shape[0] != k:
-        raise ValueError(f"x_q {tuple(x_q.shape)} and w_q "
+    n = w_q.shape[0]
+    if w_q.shape[1] != k:
+        raise ValueError(f"x_q {tuple(x_q.shape)} and (N, K) weights "
                          f"{tuple(w_q.shape)} do not contract")
-    n = w_q.shape[1]
     out_steps = num_steps if out_steps is None else out_steps
     out_level = (1 << out_steps) - 1 if out_level is None else out_level
     check_schedule(method, num_steps, periods, out_level, out_grid)
     if mult is not None:
         epilogue_args(bias, mult, n, dev)
     occ_ptr = occupancy_arg(occupancy, dev)
-    out = torch.empty((m, n), dtype=torch.int32 if mult is None
-                      else torch.uint8, device=dev)
+    fused = method == "fused"
+    launch = gemm.plan(m, n, k, gemm.sm_count(_build.device_index(dev)))
+    out, work = gemm.buffers(m, n, launch, epilogue=mult is not None,
+                             div=1 if fused else periods, device=dev)
     if m == 0 or n == 0:
         return out
     fn = _build.function("radix_matmul", "radix_matmul_launch", _ARGTYPES)
     with torch.cuda.device(dev):
         code = fn(x_q.data_ptr(), int(x_q.dtype == torch.int32), w_q.data_ptr(),
-                  out.data_ptr(),
+                  out.data_ptr(), None if work is None else work.data_ptr(),
                   None if mult is None or bias is None else bias.data_ptr(),
                   None if mult is None else mult.data_ptr(), occ_ptr,
-                  m, k, n, num_steps, int(method == "fused"), periods,
-                  out_level, int(out_grid == "pow2"),
-                  torch.cuda.current_stream(dev).cuda_stream)
+                  m, k, n, num_steps, int(fused), periods,
+                  out_level, int(out_grid == "pow2"), launch.index,
+                  launch.k_chunk, torch.cuda.current_stream(dev).cuda_stream)
     if code != 0:
         raise _build.launch_error("radix_matmul", code)
     radix_matmul_cuda.launches += 1
@@ -230,3 +244,4 @@ def radix_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor, *,
 
 
 radix_matmul_cuda.launches = 0
+radix_matmul_cuda.transposes = 0

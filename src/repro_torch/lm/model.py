@@ -5,6 +5,7 @@ Public surface (functions of param and cache trees):
 
     init_params(generator, cfg, device=)   real parameters, seeded
     radixify_params(params, cfg)           paper-technique serving weights
+    kmajor_params(params)                  their levels in the kernel's layout
     init_cache(cfg, batch, max_len, device=)
     prefill(params, batch, cfg, max_len=, true_len=) -> last_logits, caches
     decode_step(params, caches, tokens, pos, cfg)    -> logits, caches
@@ -32,8 +33,8 @@ from repro_torch.lm import blocks, radix as radix_lib
 from repro_torch.lm.config import ArchConfig, segments_for
 from repro_torch.lm.radix import torch_dtype
 
-__all__ = ["init_params", "radixify_params", "init_cache", "prefill",
-           "decode_step", "tree_map"]
+__all__ = ["init_params", "radixify_params", "kmajor_params", "init_cache",
+           "prefill", "decode_step", "tree_map"]
 
 
 def tree_map(fn: Callable, tree):
@@ -185,6 +186,20 @@ def radixify_params(params: dict, cfg: ArchConfig) -> dict:
     if not cfg.tie_embeddings and cfg.family != "moe":
         out["unembed"] = radix_lib.quantize_weight(params["unembed"])
     return out
+
+
+def kmajor_params(params):
+    """Every :func:`radixify_params` weight dict with its int8 levels
+    K-major (``radix.kmajor_weight``), the radix matmul kernel's layout:
+    made once, where a deployment takes its weights, and in place of the
+    (d_in, d_out) levels.  Other leaves are shared."""
+    if isinstance(params, dict):
+        if set(params) == {"q", "scale"}:
+            return radix_lib.kmajor_weight(params)
+        return {k: kmajor_params(v) for k, v in params.items()}
+    if isinstance(params, tuple):
+        return tuple(kmajor_params(v) for v in params)
+    return params
 
 
 # ---------------------------------------------------------------------------

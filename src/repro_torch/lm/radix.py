@@ -10,7 +10,9 @@ dominant memory movers of LM inference:
   value against a per-token scale.  The integer product runs through the
   radix matmul kernel (``use_kernel=True``: ``kernels.ops.radix_matmul``,
   the CUDA kernel on the card) or its plain integer product, and one
-  rank-1 correction folds the shift back out.
+  rank-1 correction folds the shift back out.  A serving deployment keeps
+  the levels K-major, ``{"qt": (..., d_out, d_in)}`` (``kmajor_weight``,
+  made once at compile time), the layout the kernel reads.
 * **Radix KV cache** (``cache_update`` / ``cache_read``): K/V stored as
   T-bit levels (uint8, two per byte when ``radix_kv_pack`` and T <= 4)
   with one f32 scale per (token, kv-head); ``packed_decode_attention``
@@ -35,7 +37,8 @@ import torch
 from repro_torch.core import encoding
 from repro_torch.lm.config import ArchConfig
 
-__all__ = ["torch_dtype", "quantize_weight", "maybe_radix_matmul",
+__all__ = ["torch_dtype", "quantize_weight", "kmajor_weight",
+           "maybe_radix_matmul",
            "init_cache_entry", "cache_update", "cache_read",
            "packed_attn_enabled", "packed_decode_attention",
            "encode_cache_bulk"]
@@ -75,6 +78,14 @@ def quantize_weight(w: torch.Tensor, weight_bits: int = 8) -> dict:
     return {"q": q.to(torch.int8), "scale": scale.to(torch.float32)}
 
 
+def kmajor_weight(w: dict) -> dict:
+    """A :func:`quantize_weight` dict with its levels K-major:
+    ``{"qt": (..., d_out, d_in) int8, "scale"}`` — the radix matmul
+    kernel's layout, in place of (not beside) ``"q"``."""
+    return {"qt": w["q"].transpose(-1, -2).contiguous(),
+            "scale": w["scale"]}
+
+
 def _radix_activation(x: torch.Tensor, num_steps: int):
     """Signed activation -> (uint8 radix levels, per-token f32 scale):
     levels of the affine-shifted value ``(x / s + 1) / 2`` in [0, 1]."""
@@ -96,8 +107,8 @@ def maybe_radix_matmul(x: torch.Tensor, w, *, cfg: ArchConfig,
                        use_kernel=None) -> torch.Tensor:
     """x (..., d_in) @ w -> (..., d_out).
 
-    ``w`` is a plain tensor (exact mode) or a :func:`quantize_weight` dict
-    (radix serving), where
+    ``w`` is a plain tensor (exact mode) or a :func:`quantize_weight` /
+    :func:`kmajor_weight` dict (radix serving), where
 
         y = (2/lvl * q_x - 1) s_x  @  q_w s_w
           = s_x * s_w * (2/lvl * (q_x @ q_w) - colsum(q_w))
@@ -118,13 +129,15 @@ def maybe_radix_matmul(x: torch.Tensor, w, *, cfg: ArchConfig,
     t = cfg.radix_steps
     lvl = encoding.max_level(t)
     qx, sx = _radix_activation(x, t)
-    qw, sw = w["q"], w["scale"]
+    kmajor = "qt" in w
+    qw, sw = (w["qt"] if kmajor else w["q"]), w["scale"]
     if use_kernel:
         from repro_torch.kernels import ops as kops
-        acc = kops.radix_matmul(qx, qw, None, t, method=cfg.kernel_dataflow)
+        acc = kops.radix_matmul(qx, qw, None, t, method=cfg.kernel_dataflow,
+                                kmajor=kmajor)
     else:
-        acc = _int_product(qx, qw)
-    colsum = qw.sum(dim=-2, dtype=torch.int32)
+        acc = _int_product(qx, qw.transpose(-1, -2) if kmajor else qw)
+    colsum = qw.sum(dim=-1 if kmajor else -2, dtype=torch.int32)
     y = (2.0 / lvl) * acc.to(torch.float32) - colsum.to(torch.float32)
     y = y * sx * sw
     return y.to(x.dtype)
