@@ -22,12 +22,19 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` and runs:
      with an empty plane, ``periods=2`` and ``out_grid="pow2"``;
    all ``torch.equal``, the weights in the K-major layout the kernels
    read (``kernels.gemm``);
-   - ``radix_decode_attn`` at B = 8, H = 8, Hkv = 1, hd = 256, S = 512,
-     T = 4, packed and unpacked, both dataflows, an occupancy row with an
-     empty plane and a mask set with causal prefixes, ring windows and an
-     all-masked row: max |kernel - plain| <= 3e-5 * (1 + |plain|) (the
-     two follow one float order, so they are expected to agree bit for
-     bit; the JSON records whether they did);
+   - ``radix_decode_attn`` at the ``ATTN_EDGES`` cases: the LM's decode
+     shape (B = 8, H = 8, Hkv = 1, hd = 256, S = 512, T = 4 packed, bf16
+     query, a mask set with causal prefixes, ring windows and an
+     all-masked row, an empty plane in the whole cache), S in {1, 33,
+     300, 4096}, Hkv in {1, 2}, g in {1, 4, 8}, hd in {64, 256}, T = 1
+     and 8 unpacked and 4 packed, a plane empty in one tile only, ring
+     windows whose middle splits are fully masked, bf16 and f32 queries;
+     each with both dataflows and the occupancy gate on and off:
+     ``torch.equal``.  At the decode shape (packed and unpacked) and at
+     S = 8192 one ``ops.radix_decode_attention`` call must launch the
+     kernel once, run at most 2 device kernels (profiler; the same work
+     as separate PyTorch ops is counted beside it) and no occupancy
+     prepass;
    - ``spike_encode`` on a seeded 8 x 224 x 224 x 3 batch at T in
      {1, 4, 8} and three scales: ``torch.equal``;
    each row timed by CUDA events beside its bound, its plain version and a
@@ -36,8 +43,8 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` and runs:
    at VGG-11's shapes; cuDNN's own fp32 conv is timed beside it with the
    count of values it gets wrong; ``torch._int_mm`` on M padded to 32 at
    Gemma's shapes; ``F.scaled_dot_product_attention`` over the
-   dequantized bf16 cache, which is not the same function; none for the
-   encoder);
+   dequantized bf16 cache, which is not the same function, by profiler
+   device time; none for the encoder);
 3. LeNet-5 (full width, T=4, "or" pool) and 4. VGG-11 (full width, 224 x
    224 x 3, 100 classes, T=4, avg pool), each converted from seeded
    weights and calibration data, compiled for both dataflows with buckets
@@ -49,6 +56,9 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` and runs:
    the CPU: equal;
 6. a ``torch.profiler`` trace of three calls of every (net, dataflow,
    bucket) plan: device time by kernel name and the device's busy share;
+   then phase 2's decode-attention checks and times (run here, next to
+   the LM path, so that their profiler traces and long plain runs do
+   not share the process state in which phases 3-4 time the CNN walls);
 7. the LM path: Gemma-2B at full width and depth in bf16 (seeded weights
    on the card), T = 4, ``radix_kv_pack`` and ``packed_attn`` on,
    compiled for both dataflows at (batch, max_len) = (8, 512) with
@@ -58,10 +68,10 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` and runs:
    must launch exactly 54 ``radix_matmul`` and each decode step 54
    ``radix_matmul`` + 18 ``radix_decode_attn``.  Logits are held against
    the port's plain path (``use_kernel=False``) on the same tokens:
-   ``torch.equal`` with ``packed_attn=False``, median per-step relative L2
-   <= 1e-2 and greedy agreement >= 0.9 with ``packed_attn=True``.  Prefill
+   ``torch.equal`` at every step, ``packed_attn`` on and off.  Prefill
    ms per bucket, decode ms per step and tokens/s by host clock, and a
-   ``torch.profiler`` trace of one prefill and three decode steps;
+   ``torch.profiler`` trace of one prefill and three decode steps
+   (device time, busy share, device kernels a call, attention ms);
 8. the encoder path: ``ops.radix_encode`` of the phase-5 batch at T in
    {1, 4, 8} and three scales, on the card and on the CPU: equal.
 
@@ -111,6 +121,7 @@ LM_BATCH, LM_MAX_LEN, LM_BUCKETS = 8, 512, (64, 256)
 LM_REQUESTS = ((8, 200, 32), (3, 40, 16))   # (prompts, tokens, new tokens)
 ENC_STEPS, ENC_SCALES = (1, 4, 8), (1.0, 0.37, 0.813)
 DEV = "cuda"                   # the device every phase runs on
+PROFILE_TRIES = 3              # traces taken when one holds no device events
 
 
 class SmokeFailure(RuntimeError):
@@ -183,19 +194,23 @@ def device_ms(torch, fn, kernel, reps: int = 20):
     """Device time per call of the kernels named ``kernel`` (every device
     kernel and fill of the call when None), from a ``torch.profiler``
     trace of ``reps`` calls: without the host's launch latency that CUDA
-    events around one short call also catch.  None when the trace holds
-    no device time for it."""
+    events around one short call also catch.  A trace now and then holds
+    no device events at all; it is taken again, up to ``PROFILE_TRIES``
+    times, then None (not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(_dev_us(e) for e in prof.key_averages()
-             if kernel is None or kernel in e.key)
-    return us / reps / 1e3 if us else None
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(_dev_us(e) for e in prof.key_averages()
+                 if kernel is None or kernel in e.key)
+        if us:
+            return us / reps / 1e3
+    return None
 
 
 def bound(call: dict) -> tuple:
@@ -625,26 +640,87 @@ def phase_lm_matmul(torch, cfg, results) -> None:
     results["lm_matmul_rows"] = rows
 
 
-def attn_problem(torch, cfg, s_len: int, gen):
-    """A decode-attention problem at the LM's decode shape: queries, a
-    T-bit cache with plane 2 empty in K and V, per-token scales, and a
-    mask set (causal prefixes, ring windows, an all-masked row)."""
+# Attention cases, each the kernel against its plain version with
+# ``torch.equal``, both dataflows, the occupancy gate on and off: batch,
+# slots, kv heads, query heads per kv head, head dim, T, packed cache,
+# query dtype, mask set and an empty plane ("cache": plane 2 empty in the
+# whole cache; "tile": plane 1 empty in the second 32-slot tile only).
+ATTN_DECODE = dict(b=LM_BATCH, s=LM_MAX_LEN, hkv=1, g=8, hd=256, t=T,
+                   packed=True, q="bf16", mask="mixed", empty="cache")
+ATTN_EDGES = [
+    ATTN_DECODE,
+    dict(b=2, s=1, hkv=1, g=8, hd=256, t=4, packed=True, q="f32",
+         mask="full", empty=None),
+    dict(b=3, s=33, hkv=2, g=4, hd=64, t=4, packed=True, q="bf16",
+         mask="ring", empty="tile"),
+    dict(b=2, s=300, hkv=2, g=4, hd=256, t=8, packed=False, q="f32",
+         mask="ring", empty="tile"),
+    dict(b=3, s=300, hkv=1, g=1, hd=64, t=1, packed=False, q="bf16",
+         mask="mixed", empty=None),
+    dict(b=2, s=129, hkv=2, g=8, hd=64, t=4, packed=False, q="bf16",
+         mask="allmasked", empty="tile"),
+    dict(b=4, s=4096, hkv=1, g=8, hd=256, t=4, packed=True, q="bf16",
+         mask="mixed", empty="tile"),
+    dict(b=2, s=4096, hkv=2, g=4, hd=64, t=4, packed=True, q="f32",
+         mask="ring", empty="cache"),
+]
+ATTN_LONG = dict(ATTN_DECODE, s=8192)   # Gemma-2B's context
+# (SPLIT_SLOTS, MAX_SPLITS) candidates timed against each other
+SPLIT_CHOICES = ((32, 32), (64, 32), (32, 16), (64, 16))
+
+
+def attn_mask(torch, kind: str, b: int, s_len: int):
+    """(B, S) bool on the card.  "mixed": causal prefixes, ring windows and
+    an all-masked last row; "ring": a window of a ring buffer that wraps
+    (valid at both ends, middle splits fully masked) beside a causal row;
+    "allmasked": a prefix with row 0 fully masked; "full": all valid."""
     from repro_torch.lm import blocks
 
     dev = torch.device(DEV)
-    b, h, hkv, hd = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = torch.randn((b, h, hd), generator=gen, device=dev)
-    lv = [torch.randint(0, 1 << T, (b, s_len, hkv, hd), generator=gen,
-                        device=dev, dtype=torch.int32) & ~0b100
-          for _ in range(2)]
+    slots = torch.arange(s_len, device=dev)
+    if kind == "full":
+        return torch.ones((b, s_len), dtype=torch.bool, device=dev)
+    if kind == "mixed":
+        rows = [blocks.decode_mask(p, s_len, 0, device=dev)[0]
+                for p in (0, 199 * s_len // 512, 300 * s_len // 512,
+                          s_len - 1)]
+        rows += [blocks.decode_mask(p, s_len, s_len, device=dev)[0]
+                 for p in (100, s_len + 37, 3 * s_len - 5)]
+        rows = (rows * b)[:b - 1] + [torch.zeros_like(rows[0])]
+        return torch.stack(rows)
+    if kind == "ring":
+        last, window = min(39, s_len - 1), max(1, (3 * s_len) // 8)
+        ring = ((last - slots) % s_len) < window
+        causal = slots <= s_len // 3
+        return torch.stack([ring if i % 2 == 0 else causal
+                            for i in range(b)])
+    prefix = slots < max(1, (2 * s_len) // 3)
+    m = prefix[None].expand(b, s_len).clone()
+    m[0] = False
+    return m
+
+
+def attn_problem(torch, case: dict, gen):
+    """Queries, a T-bit cache (packed when asked), per-token scales and the
+    case's mask, all on the card from ``gen``."""
+    dev = torch.device(DEV)
+    b, s_len, hkv, g, hd, t = (case[k] for k in ("b", "s", "hkv", "g", "hd",
+                                                 "t"))
+    q = torch.randn((b, hkv * g, hd), generator=gen, device=dev)
+    q = q.to(torch.bfloat16 if case["q"] == "bf16" else torch.float32)
+    lv = [torch.randint(0, 1 << t, (b, s_len, hkv, hd), generator=gen,
+                        device=dev, dtype=torch.int32) for _ in range(2)]
+    if case["empty"] == "cache" and t > 2:
+        lv = [x & ~0b100 for x in lv]
+    elif case["empty"] == "tile" and t > 1:
+        for x in lv:
+            x[:, 32:64] &= ~0b10
     scales = [torch.rand((b, s_len, hkv), generator=gen, device=dev) + 0.25
               for _ in range(2)]
-    rows = [blocks.decode_mask(p, s_len, 0, device=dev)[0]
-            for p in (0, 199, 300, s_len - 1)]
-    rows += [blocks.decode_mask(p, s_len, s_len, device=dev)[0]
-             for p in (100, s_len + 37, 3 * s_len - 5)]
-    rows.append(torch.zeros(s_len, dtype=torch.bool, device=dev))
-    return q, lv, scales, torch.stack(rows[:b])
+    cache = [(_pack4(x) if case["packed"] else x).to(torch.uint8)
+             for x in lv]
+    mask = attn_mask(torch, case["mask"], b, s_len)
+    return q, cache[0], scales[0], cache[1], scales[1], mask, lv
 
 
 def _pack4(x):
@@ -652,58 +728,131 @@ def _pack4(x):
     return (x[..., 0::2] << 4) | x[..., 1::2]
 
 
-def phase_attn(torch, cfg, results) -> None:
-    """radix_decode_attn (through ``ops.radix_decode_attention``, as the
-    LM calls it) against its plain version; times of the kernel alone."""
+def attn_bound(case: dict, mask) -> tuple:
+    """(ms, "bytes" | "operations", bytes): the query, the valid slots'
+    levels and scales, the mask and the output over HBM bandwidth (the
+    kernel neither loads nor scores a tile without a valid slot), or
+    QK^T at the int8 peak plus PV at the float32 peak over those slots."""
+    b, s_len, hkv, g, hd = (case[k] for k in ("b", "s", "hkv", "g", "hd"))
+    valid = int(mask.sum()) * hkv                  # (row, slot) pairs
+    row_bytes = hd // 2 if case["packed"] else hd
+    nbytes = (b * hkv * g * hd * (2 if case["q"] == "bf16" else 4)
+              + valid * (2 * row_bytes + 8) + b * s_len
+              + b * hkv * g * hd * 4)
+    ops = 2.0 * valid * g * hd
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (ops / INT8_OPS_PER_S + ops / F32_OPS_PER_S) * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations")) + (nbytes,)
+
+
+def device_kernels(torch, fn, reps: int = 5):
+    """Device kernels (and memsets/copies) one call of ``fn`` runs, from a
+    ``torch.profiler`` trace of ``reps`` calls, taken again (as in
+    :func:`device_ms`) when it holds no device activity; None when no
+    trace did (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events()
+                if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0)
+        if n:
+            return n / reps
+    return None
+
+
+def separate_glue(torch, q, kq, vq, mask, packed: bool):
+    """The work the kernel does itself, as separate PyTorch ops around a
+    launch would do it, for the count: query quantize and row layout, the
+    mask as int32, and the whole-cache occupancy prepass of K and V."""
+    from repro_torch.kernels import radix_attn as ra
+
+    b, h, hd = q.shape
+    hkv = kq.shape[2]
+    qq, qs = ra.quantize_q(q)
+    qq.reshape(b * hkv, h // hkv, hd)
+    qs.reshape(b * hkv, h // hkv)
+    mask[:, None].expand(b, hkv, mask.shape[1]).reshape(b * hkv, -1).to(
+        torch.int32).contiguous()
+    ra.occupancy_rows(kq, vq, T, packed)
+
+
+def phase_attn(torch, results) -> None:
+    """radix_decode_attn against its plain version at the LM's decode
+    shape (through ``ops.radix_decode_attention``, as the LM calls it)
+    and at every ``ATTN_EDGES`` case; kernels per call; times at the
+    decode shape and at S = 8192."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
     from repro_torch.kernels import radix_attn as ra
+    from repro_torch.kernels import radix_matmul as rm
 
     gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
-    s_len, hd = LM_MAX_LEN, cfg.hd
-    q, (kl, vl), (ks, vs), mask = attn_problem(torch, cfg, s_len, gen)
-    check(not mask[-1].any() and bool(mask[0, 0]), "mask set")
-    occ = ops.plane_occupancy(kl, T)[1]
-    check(int(occ[2]) == 0 and int(occ.sum()) == T - 1,
-          f"occupancy row {occ.tolist()}: plane 2 should be empty")
-    rows, err = [], 0.0
-    for packed in (True, False):
-        kq = (_pack4(kl) if packed else kl).to(torch.uint8)
-        vq = (_pack4(vl) if packed else vl).to(torch.uint8)
+    edges = []
+    for case in ATTN_EDGES:
+        q, kq, ks, vq, vs, mask, lv = attn_problem(torch, case, gen)
+        if case["empty"] == "tile" and case["t"] > 1:
+            check(not bool(((lv[0][:, 32:64] >> 1) & 1).any())
+                  and bool(((lv[0] >> 1) & 1).any()),
+                  "plane 1 should be empty in tile 1 only")
         for method in ("fused", "bitserial"):
-            kw = dict(packed=packed, method=method)
-            got = ops.radix_decode_attention(q, kq, ks, vq, vs, mask, T, **kw)
+            for sparsity in (True, False):
+                kw = dict(num_steps=case["t"], method=method,
+                          packed=case["packed"], sparsity=sparsity)
+                got = ra.radix_decode_attn_cuda(q, kq, ks, vq, vs, mask, **kw)
+                want = ra.radix_decode_attn_plain(q, kq, ks, vq, vs, mask,
+                                                  **kw)
+                sync(torch)
+                tag = (f"{case} {method} sparsity={sparsity}")
+                check(bool(torch.isfinite(got).all()), f"non-finite {tag}")
+                check(torch.equal(got, want), f"radix_decode_attn {tag}: "
+                      f"max |diff| {float((got - want).abs().max())}")
+                dead = ~mask.any(dim=1)
+                check(not got[dead].any(), f"all-masked row is not 0: {tag}")
+        edges.append({k: case[k] for k in case})
+    log(f"[kernel] radix_decode_attn equals its plain version (torch.equal) "
+        f"at {len(edges)} cases x 2 dataflows x gate on/off: " + "; ".join(
+            f"B={c['b']} S={c['s']} Hkv={c['hkv']} g={c['g']} hd={c['hd']} "
+            f"T={c['t']}{' packed' if c['packed'] else ''} q={c['q']} "
+            f"{c['mask']}" + (f" empty plane ({c['empty']})"
+                              if c["empty"] else "") for c in edges))
+    results["attn_edges"] = edges
+
+    rows = []
+    for case in (ATTN_DECODE, dict(ATTN_DECODE, packed=False), ATTN_LONG):
+        q, kq, ks, vq, vs, mask, lv = attn_problem(torch, case, gen)
+        args = (q, kq, ks, vq, vs, mask)
+        for method in ("fused", "bitserial"):
+            kw = dict(packed=case["packed"], method=method)
+            akw = dict(kw, num_steps=T)
+            before = ra.radix_decode_attn_cuda.launches
+            occ_before = rm.plane_occupancy.calls
+            got = ops.radix_decode_attention(*args, T, **kw)
+            launched = ra.radix_decode_attn_cuda.launches - before
+            prepasses = rm.plane_occupancy.calls - occ_before
             want = ops.radix_decode_attention(
-                q, kq, ks, vq, vs, mask, T, **kw,
-                config=ops.KernelConfig(impl="plain"))
+                *args, T, **kw, config=ops.KernelConfig(impl="plain"))
             sync(torch)
-            diff = (got - want).abs()
-            err = max(err, float(diff.max()))
-            check(bool(torch.isfinite(got).all()), "non-finite attention")
-            check(bool((diff <= 3e-5 * (1 + want.abs())).all()),
-                  f"radix_decode_attn packed={packed} {method}: max |diff| "
-                  f"{float(diff.max())}")
-            check(not got[-1].any(), "all-masked row is not 0")
-            # the kernel alone, on the wrapper's prepared operands
-            n, g = LM_BATCH * cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-            qq, qs = ra.quantize_q(q)
-            args = (qq.reshape(n, g, hd), qs.reshape(n, g),
-                    kq.reshape(n, s_len, -1), ks.reshape(n, s_len),
-                    vq.reshape(n, s_len, -1), vs.reshape(n, s_len),
-                    mask.to(torch.int32),
-                    ops.plane_occupancy(ops._nibble_union(kq) if packed
-                                        else kq, T)[0],
-                    ops.plane_occupancy(ops._nibble_union(vq) if packed
-                                        else vq, T)[0])
-            akw = dict(num_steps=T, hd=hd, method=method, packed=packed)
-            check(torch.equal(ra.radix_decode_attn_cuda(*args, **akw), got),
-                  "kernel call differs from the wrapper's")
-            row = dict(kernel="radix_decode_attn", packed=packed,
-                       method=method, shape=(LM_BATCH, cfg.n_heads,
-                                             cfg.n_kv_heads, hd, s_len),
-                       max_abs_err=float(diff.max()),
-                       bitwise_equal=bool(torch.equal(got, want)))
+            check(launched == 1 and prepasses == 0,
+                  f"one ops.radix_decode_attention call: {launched} launches"
+                  f", {prepasses} occupancy prepasses")
+            check(torch.equal(got, want),
+                  f"radix_decode_attn {case['s']} {kw}: max |diff| "
+                  f"{float((got - want).abs().max())}")
+            row = dict(kernel="radix_decode_attn", packed=case["packed"],
+                       method=method, shape=(case["b"], case["g"],
+                                             case["hkv"], case["hd"],
+                                             case["s"]),
+                       split_slots=ra.split_slots(case["s"]),
+                       max_abs_err=float((got - want).abs().max()),
+                       bitwise_equal=True)
             row["call_ms"] = cuda_ms(
                 torch, lambda: ra.radix_decode_attn_cuda(*args, **akw),
                 reps=20)
@@ -715,26 +864,92 @@ def phase_attn(torch, cfg, results) -> None:
                 torch, lambda: ra.radix_decode_attn_plain(*args, **akw),
                 reps=3, warmup=1)
             row["wrapper_ms"] = cuda_ms(
-                torch, lambda: ops.radix_decode_attention(
-                    q, kq, ks, vq, vs, mask, T, **kw), reps=10)
-            nbytes = sum(a.numel() * a.element_size() for a in args)
-            nbytes += n * g * hd * 4                      # the output
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            # QK^T at the int8 peak, PV at the float32 peak
-            ops_qk = 2.0 * n * g * s_len * hd
-            t_ops = (ops_qk / INT8_OPS_PER_S + ops_qk / F32_OPS_PER_S) * 1e3
-            row["bound_ms"], row["bound_by"] = (
-                (t_bytes, "bytes") if t_bytes >= t_ops
-                else (t_ops, "operations"))
-            row["bytes"] = nbytes
+                torch, lambda: ops.radix_decode_attention(*args, T, **kw),
+                reps=20)
+            row["kernels_per_call"] = device_kernels(
+                torch, lambda: ops.radix_decode_attention(*args, T, **kw))
+            check((row["kernels_per_call"] or 0) <= 2, f"one ops.radix_"
+                  f"decode_attention call ran {row['kernels_per_call']} "
+                  f"device kernels")
+            row["glue_kernels_per_call"] = 1 + (device_kernels(
+                torch, lambda: separate_glue(torch, q, kq, vq, mask,
+                                             case["packed"])) or 0)
+            (row["bound_ms"], row["bound_by"],
+             row["bytes"]) = attn_bound(case, mask)
+            row["library_ms"] = sdpa_ms(torch, F, case, q, lv, args)
             rows.append(row)
-    # yardstick: SDPA over the dequantized bf16 cache (not the same
-    # function: the query is not quantized and the cache is float)
-    b, h, hkv = LM_BATCH, cfg.n_heads, cfg.n_kv_heads
-    lvl = (1 << T) - 1
-    kd = ((kl.float() * (2.0 / lvl) - 1.0) * ks[..., None]).to(
+            log(f"[kernel] gemma  radix_decode_attn packed={row['packed']!s:5s}"
+                f" {method:9s} B={case['b']} H={case['g'] * case['hkv']} "
+                f"Hkv={case['hkv']} hd={case['hd']} S={case['s']} (split "
+                f"{row['split_slots']}): kernel {row['ms']:.4f} ms on the "
+                f"device ({row['call_ms']:.4f} ms a call by CUDA events; "
+                f"ops.radix_decode_attention {row['wrapper_ms']:.4f} ms, "
+                f"{row['kernels_per_call']} device kernel(s) a call against "
+                f"{row['glue_kernels_per_call']:g} with the glue as separate "
+                f"ops), "
+                f"plain {row['plain_ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.5f} ms ({row['bound_by']}, "
+                f"{100 * row['bound_ms'] / row['ms']:.1f}% of it), SDPA "
+                f"yardstick {row['library_ms']:.4f} ms, bit for bit equal")
+    check(any(r["kernels_per_call"] for r in rows),
+          "no profiler trace counted the device kernels of one "
+          "ops.radix_decode_attention call (not measured)")
+    results["attn_rows"] = rows
+    results["max_abs_err"]["radix_decode_attn"] = 0.0
+    split_sweep(torch, gen, results)
+
+
+def split_sweep(torch, gen, results) -> None:
+    """Device time of the kernel (packed, both dataflows) at the decode
+    shape and at S = 8192 for each ``SPLIT_CHOICES`` pair: the measurement
+    behind ``kernels/radix_attn.py``'s constants.  At the decode shape each
+    pair is also held against the plain version, which splits alike."""
+    from repro_torch.kernels import radix_attn as ra
+
+    chosen = (ra.SPLIT_SLOTS, ra.MAX_SPLITS)
+    problems = [(case, attn_problem(torch, case, gen)[:6])
+                for case in (ATTN_DECODE, ATTN_LONG)]
+    rows = []
+    try:
+        for split, most in SPLIT_CHOICES:
+            ra.SPLIT_SLOTS, ra.MAX_SPLITS = split, most
+            for case, args in problems:
+                for method in ("fused", "bitserial"):
+                    kw = dict(num_steps=T, method=method, packed=True)
+                    if case is ATTN_DECODE:
+                        check(torch.equal(
+                            ra.radix_decode_attn_cuda(*args, **kw),
+                            ra.radix_decode_attn_plain(*args, **kw)),
+                            f"split {ra.SPLIT_SLOTS}/{ra.MAX_SPLITS}: "
+                            "kernel != plain")
+                    rows.append(dict(
+                        split_slots=ra.SPLIT_SLOTS, max_splits=ra.MAX_SPLITS,
+                        s=case["s"], method=method,
+                        splits=-(-case["s"] // ra.split_slots(case["s"])),
+                        device_ms=device_ms(
+                            torch, lambda: ra.radix_decode_attn_cuda(
+                                *args, **kw), "radix_decode_attn_kernel")))
+    finally:
+        ra.SPLIT_SLOTS, ra.MAX_SPLITS = chosen
+    log("[kernel] radix_decode_attn split sweep (SPLIT_SLOTS/MAX_SPLITS, S, "
+        "dataflow: splits a row, device ms; chosen "
+        f"{chosen[0]}/{chosen[1]}): " + "; ".join(
+            f"{r['split_slots']}/{r['max_splits']} S={r['s']} {r['method']}:"
+            f" {r['splits']}, {r['device_ms']}" for r in rows))
+    results["attn_split_sweep"] = rows
+
+
+def sdpa_ms(torch, F, case, q, lv, args) -> float:
+    """Yardstick: device time of SDPA over the dequantized bf16 cache (not
+    the same function: the query is not quantized and the cache is
+    float), with one causal-prefix mask row for every batch row."""
+    b, s_len, hkv, g, hd = (case[k] for k in ("b", "s", "hkv", "g", "hd"))
+    h = hkv * g
+    lvl = (1 << case["t"]) - 1
+    _, _, ks, _, vs, mask = args
+    kd = ((lv[0].float() * (2.0 / lvl) - 1.0) * ks[..., None]).to(
         torch.bfloat16).transpose(1, 2).contiguous()      # (B, Hkv, S, hd)
-    vd = ((vl.float() * (2.0 / lvl) - 1.0) * vs[..., None]).to(
+    vd = ((lv[1].float() * (2.0 / lvl) - 1.0) * vs[..., None]).to(
         torch.bfloat16).transpose(1, 2).contiguous()
     qb = q.to(torch.bfloat16)[:, :, None, :]              # (B, H, 1, hd)
     mb = torch.stack([mask[1]] * b)[:, None, None, :]     # no empty row
@@ -748,22 +963,7 @@ def phase_attn(torch, cfg, results) -> None:
 
         def sdpa():
             return F.scaled_dot_product_attention(qb, kd, vd, attn_mask=mb)
-    sdpa_ms = cuda_ms(torch, sdpa, reps=20)
-    for row in rows:
-        row["library_ms"] = sdpa_ms
-        log(f"[kernel] gemma  radix_decode_attn packed={row['packed']!s:5s}"
-            f" {row['method']:9s} B=8 H=8 Hkv=1 hd=256 S={s_len}: kernel "
-            f"{row['ms']:.4f} ms on the device ({row['call_ms']:.4f} ms a "
-            f"call by CUDA events; wrapper with prepass "
-            f"{row['wrapper_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, "
-            "bound "
-            f"{row['bound_ms']:.5f} ms ({row['bound_by']}), max |diff| "
-            f"{row['max_abs_err']:.3g}, bit for bit equal "
-            f"{row['bitwise_equal']}")
-    log(f"[kernel] yardstick: SDPA over the dequantized bf16 cache "
-        f"{sdpa_ms:.4f} ms (a float softmax, not the radix function)")
-    results["attn_rows"] = rows
-    results["max_abs_err"]["radix_decode_attn"] = err
+    return device_ms(torch, sdpa, None) or cuda_ms(torch, sdpa, reps=20)
 
 
 def encode_batch(torch):
@@ -1115,14 +1315,35 @@ def profile_lm(torch, exe, prompts) -> dict:
             continue
         calls = 1 if name == "prefill" else 3
         top = sorted(kernels, key=_dev_us, reverse=True)[:6]
+        launched = sum(1 for e in prof.events()
+                       if str(e.device_type).endswith("CUDA")
+                       and _dev_us(e) > 0)
         out[name] = dict(
             profiled_wall_ms=wall_ms / calls, device_ms=busy_ms / calls,
-            busy_share=busy_ms / wall_ms,
+            busy_share=busy_ms / wall_ms, device_kernels=launched / calls,
+            attn_ms=sum(_dev_us(e) for e in kernels
+                        if "radix_decode_attn" in e.key) / 1e3 / calls,
             radix_ms=sum(_dev_us(e) for e in kernels if "radix_" in e.key)
             / 1e3 / calls,
             top=[(e.key[:60], _dev_us(e) / 1e3 / calls, e.count // calls)
                  for e in top])
     return out
+
+
+def glue_kernels(results, cfg, dataflow: str, name: str, pr: dict) -> str:
+    """A decode step's device kernels with the attention glue as separate
+    ops: this run's count plus, for each of the step's attention calls,
+    the difference phase 2 counted per call."""
+    if name != "decode":
+        return ""
+    row = next(r for r in results["attn_rows"] if r["packed"]
+               and r["method"] == dataflow and r["shape"][4] == LM_MAX_LEN)
+    if not row["kernels_per_call"]:
+        return " (with the attention glue as separate ops: not measured)"
+    extra = row["glue_kernels_per_call"] - row["kernels_per_call"]
+    pr["glue_device_kernels"] = pr["device_kernels"] + cfg.n_layers * extra
+    return (f" (with the attention glue as separate ops: "
+            f"{pr['glue_device_kernels']:.0f})")
 
 
 def phase_lm(torch, arch, results) -> None:
@@ -1176,13 +1397,8 @@ def phase_lm(torch, arch, results) -> None:
                 ref = plain_logits(model, exe.params, plain_cfg, prompts,
                                    r["tokens"], exe._cache.bucket_for(s0))
                 c = compare_logits(torch, lg, ref)
-                if packed_attn:
-                    check(c["median_rel_l2"] <= 1e-2
-                          and c["greedy_agreement"] >= 0.9,
-                          f"{dataflow} request {i}: kernel vs plain {c}")
-                else:
-                    check(c["equal"], f"{dataflow} packed_attn=False request"
-                          f" {i}: logits differ from the plain path {c}")
+                check(c["equal"], f"{dataflow} packed_attn={packed_attn} "
+                      f"request {i}: logits differ from the plain path {c}")
                 cmp.append(c)
                 served.append((prompts, r["tokens"]))
             # second round through generate: same tokens, no plan built
@@ -1216,8 +1432,11 @@ def phase_lm(torch, arch, results) -> None:
                     log(f"[lm] {dataflow} {name} profile: device "
                         f"{pr['device_ms']:.3f} ms per call of "
                         f"{pr['profiled_wall_ms']:.3f} ms profiled wall "
-                        f"({100 * pr['busy_share']:.1f}% busy), radix "
-                        f"kernels {pr['radix_ms']:.3f} ms; top: "
+                        f"({100 * pr['busy_share']:.1f}% busy), "
+                        f"{pr['device_kernels']:.0f} device kernels a call"
+                        f"{glue_kernels(results, cfg, dataflow, name, pr)}, "
+                        f"radix kernels {pr['radix_ms']:.3f} ms, decode "
+                        f"attention {pr['attn_ms']:.3f} ms; top: "
                         + "; ".join(f"{k} {v:.3f} ms x{c}"
                                     for k, v, c in pr["top"]))
             del exe
@@ -1328,7 +1547,6 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_kernels(torch, nets, results)
     phase_lm_matmul(torch, gemma_2b.ARCH, results)
-    phase_attn(torch, gemma_2b.ARCH, results)
     phase_encode_kernel(torch, results)
     log(f"[kernel] phase 2: {time.perf_counter() - t0:.1f} s")
 
@@ -1346,6 +1564,14 @@ def main() -> int:
     phase_quantize(torch, results)
     phase_profile(torch, runs, results)
     del runs
+    torch.cuda.empty_cache()
+
+    # phase 2's attention part, beside the path that runs the kernel: its
+    # many profiler traces and plain runs at S = 8192 are kept out of the
+    # process state in which the CNN walls are timed
+    t0 = time.perf_counter()
+    phase_attn(torch, results)
+    log(f"[kernel] phase 2, attention: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()

@@ -1,10 +1,11 @@
 """Public wrappers around the radix kernels (port of ``repro/kernels/ops.py``).
 
 Handles what the raw kernels omit: SAME pre-padding, strides, bias, the
-``(1, N)`` epilogue rows, the plane-occupancy prepass (``sparsity=True``:
-one pass finds the bit planes no activation spikes on, and the kernels
-skip (bitserial) or mask (fused) them, bit-exactly), the decode query's
-quantization and ``(N = B*Hkv)`` row layout, and the encoder's reshape.
+``(1, N)`` epilogue rows, the GEMMs' plane-occupancy prepass
+(``sparsity=True``: one pass finds the bit planes no activation spikes
+on, and the kernels skip (bitserial) or mask (fused) them, bit-exactly)
+and the encoder's reshape.  Decode attention needs none of it: its
+kernel takes the caller's tensors as they are.
 
 The CUDA kernels mask their own ragged edges, so unlike the reference
 nothing is padded to block multiples.  The reference's XLA twins
@@ -27,7 +28,8 @@ from repro_torch.kernels import radix_attn
 from repro_torch.kernels.autotune import KernelConfig
 from repro_torch.kernels.radix_attn import Q_BITS
 from repro_torch.kernels.radix_conv import radix_conv2d_cuda
-from repro_torch.kernels.radix_matmul import OCC_LANES, radix_matmul_cuda
+from repro_torch.kernels.radix_matmul import (plane_occupancy,
+                                               radix_matmul_cuda)
 from repro_torch.kernels.spike_encode import spike_encode_cuda
 
 __all__ = [
@@ -53,23 +55,6 @@ def _schedule(num_steps: Union[int, EncodingSpec]) -> KernelSchedule:
         num_steps.validate_dataflow(None)
         return num_steps.kernel_schedule()
     return KernelSchedule(packed_bits=int(num_steps))
-
-
-def plane_occupancy(x_q: torch.Tensor,
-                    num_bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-bit-plane occupancy of packed levels.
-
-    Returns ``(row, bits)`` on ``x_q``'s device: ``row`` the ``(1,
-    OCC_LANES)`` int32 input the kernels read (entry ``[0, s]`` gates the
-    shift-``s`` plane), ``bits`` the ``(num_bits,)`` 0/1 int32 vector.
-    PyTorch has no bitwise-OR reduction, so each plane is an ``any`` over
-    its bit; nothing syncs with the host.
-    """
-    bits = torch.stack([((x_q >> s) & 1).any() for s in range(num_bits)])
-    bits = bits.to(torch.int32)
-    row = torch.zeros((1, OCC_LANES), dtype=torch.int32, device=x_q.device)
-    row[0, :num_bits] = bits
-    return row, bits
 
 
 def epilogue_rows(b_int: Optional[torch.Tensor], mult, n: int, n_pad: int,
@@ -168,12 +153,6 @@ def radix_conv2d(x_q: torch.Tensor, w_q: torch.Tensor,
                              out_grid=sched.out_grid, **kw)
 
 
-def _nibble_union(levels: torch.Tensor) -> torch.Tensor:
-    """Per-byte OR of hi/lo nibbles: the occupancy view of a packed cache
-    (its planes' union equals the unpacked levels')."""
-    return (levels >> 4) | (levels & 0xF)
-
-
 def radix_decode_attention(
     q: torch.Tensor,
     k_q: torch.Tensor,
@@ -195,46 +174,19 @@ def radix_decode_attention(
     ``q`` (B, H, hd) float decode queries (post-RoPE); ``k_q``/``v_q``
     (B, S, Hkv, hd) uint8 levels, or (B, S, Hkv, hd // 2) when ``packed``;
     ``k_scale``/``v_scale`` (B, S, Hkv) f32; ``mask`` (B, S) boolean slot
-    validity.  Returns (B, H, hd) f32 (pre out-projection).  The query is
-    radix-quantized here (``q_bits``), laid out as ``N = B * Hkv`` rows of
-    ``g = H / Hkv`` heads, and handed with the cache to the kernel
-    (``config.impl == "plain"``: its plain version).  ``sparsity`` runs
-    the plane-occupancy prepass over the cache (over ``_nibble_union``
-    when packed)."""
+    validity.  Returns (B, H, hd) f32 (pre out-projection).  Everything
+    goes to the kernel as the caller holds it (``config.impl ==
+    "plain"``: to its plain version): the kernel quantizes the query
+    (``q_bits``), reads the cache and the mask through their strides and
+    gates its plane passes on each tile's own occupancy (``sparsity``),
+    so on the card one call is one launch."""
     if autotune:
         raise NotImplementedError(_AUTOTUNE_LATER)
-    b, h, hd = q.shape
-    s_len, hkv = k_q.shape[1], k_q.shape[2]
-    g = h // hkv
-    if g * hkv != h:
-        raise ValueError(f"{h} query heads do not group over {hkv} kv heads")
-    n = b * hkv
-    qq, qscale = radix_attn.quantize_q(q, q_bits)
-    qq = qq.reshape(n, g, hd)
-    qs = qscale.reshape(n, g)
-
-    def seq_major(a):                     # (B, S, Hkv, ...) -> (N, S, ...)
-        moved = a.movedim(2, 1)
-        return moved.reshape((n,) + tuple(moved.shape[2:])).contiguous()
-
-    maskn = mask.reshape(b, 1, s_len).expand(b, hkv, s_len)
-    maskn = maskn.reshape(n, s_len).to(torch.int32).contiguous()
-    if sparsity:
-        occ_k = plane_occupancy(_nibble_union(k_q) if packed else k_q,
-                                num_steps)[0]
-        occ_v = plane_occupancy(_nibble_union(v_q) if packed else v_q,
-                                num_steps)[0]
-    else:
-        occ_k = occ_v = torch.ones((1, OCC_LANES), dtype=torch.int32,
-                                   device=q.device)
     impl = "cuda" if config is None else config.impl
     fn = (radix_attn.radix_decode_attn_cuda if impl == "cuda"
           else radix_attn.radix_decode_attn_plain)
-    out = fn(qq, qs, seq_major(k_q), seq_major(k_scale), seq_major(v_q),
-             seq_major(v_scale), maskn, occ_k, occ_v, num_steps=num_steps,
-             q_bits=q_bits, hd=hd, method=method, packed=packed,
-             sparsity=sparsity)
-    return out.reshape(b, h, hd)
+    return fn(q, k_q, k_scale, v_q, v_scale, mask, num_steps=num_steps,
+              q_bits=q_bits, method=method, packed=packed, sparsity=sparsity)
 
 
 def radix_encode(x: torch.Tensor, num_steps: Union[int, EncodingSpec],

@@ -23,7 +23,7 @@ source note of ``csrc/radix_matmul.cu``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -31,8 +31,8 @@ from repro_torch.core.encoding import pow2_floor
 from repro_torch.core.layers import _int_matmul
 from repro_torch.kernels import _build, gemm
 
-__all__ = ["OCC_LANES", "occ_mask", "gated", "radix_matmul_plain",
-           "radix_matmul_cuda"]
+__all__ = ["OCC_LANES", "plane_occupancy", "occ_mask", "gated",
+           "radix_matmul_plain", "radix_matmul_cuda"]
 
 OCC_LANES = 128
 """Width of the plane-occupancy row the kernels consume (entry ``s`` gates
@@ -46,6 +46,28 @@ _INT = ctypes.c_int
 _ARGTYPES = [_VOID, _INT, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
              _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
              _VOID]
+
+
+def plane_occupancy(x_q: torch.Tensor,
+                    num_bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-bit-plane occupancy of packed levels.
+
+    Returns ``(row, bits)`` on ``x_q``'s device: ``row`` the ``(1,
+    OCC_LANES)`` int32 input the kernels read (entry ``[0, s]`` gates the
+    shift-``s`` plane), ``bits`` the ``(num_bits,)`` 0/1 int32 vector.
+    PyTorch has no bitwise-OR reduction, so each plane is an ``any`` over
+    its bit; nothing syncs with the host.  Each call adds one to
+    ``plane_occupancy.calls``.
+    """
+    plane_occupancy.calls += 1
+    bits = torch.stack([((x_q >> s) & 1).any() for s in range(num_bits)])
+    bits = bits.to(torch.int32)
+    row = torch.zeros((1, OCC_LANES), dtype=torch.int32, device=x_q.device)
+    row[0, :num_bits] = bits
+    return row, bits
+
+
+plane_occupancy.calls = 0
 
 
 def occ_mask(occ: torch.Tensor, num_steps: int) -> torch.Tensor:
