@@ -73,12 +73,44 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` and runs:
    ``torch.profiler`` trace of one prefill and three decode steps
    (device time, busy share, device kernels a call, attention ms);
 8. the encoder path: ``ops.radix_encode`` of the phase-5 batch at T in
-   {1, 4, 8} and three scales, on the card and on the CPU: equal.
+   {1, 4, 8} and three scales, on the card and on the CPU: equal;
+9. the emerging encodings on the CNN path (``ENC_CASES``): VGG-11 (as in
+   phase 4, avg pool) and Fang CNN-2 (full width, 28 x 28 x 1) converted
+   for ``TTFSEncoding(4)``, ``PhaseEncoding(8, periods=2)`` and
+   ``RateEncoding(4)``, Fang also for TTFS with max pool and phase with
+   "or" pool.  A TTFS or rate net whose logits do not vary across images
+   is reported and converted again at T = 8.  TTFS and phase compile for
+   both dataflows on the kernels backend (``out_grid="pow2"`` and
+   ``periods=2`` on every layer), rate and radix (T = 4) on the ``jnp``
+   backend (the eager path), with buckets (1, 8), and serve requests of
+   1, 3, 8 and 11 images twice: logits ``torch.equal`` to both oracles,
+   the ``jnp`` radix logits to the kernels plan's, no plan built in the
+   second round, conv/matmul launches = layers x executions (0 on
+   ``jnp``), and the plane-skip counters of the timed plan equal to the
+   same plan's compiled for the CPU over the same requests (VGG-11: the
+   request of 8 images, bucket 8, as its plain versions take seconds a
+   batch there; Fang: every request size).  Images/s per bucket
+   by host clock (median of 10) and a profile of bucket 8;
+10. CNN serving: a ``launch.serve_cnn.CNNServer`` over VGG-11 phase
+   (8, 2), bitserial, buckets (1, 8), serves a seeded stream of 64
+   requests of 1-4 images through ``MicroBatchQueue`` (every ticket
+   ``torch.equal`` to the oracle rows of its images, no plan built;
+   requests/s, images/s, p50/p99 latency), then the same stream under a
+   straggler window that flags nothing (no degraded flush); then a chaos
+   drill on the same server (one NaN poison request, a transient fault
+   every 5th infer call): every ticket resolves with logits equal to the
+   oracle or a typed ``ServeError``, the poison alone is quarantined, and
+   every infer call is either an injected fault or a resolved flush;
+   conv/matmul launches over the streams and the drill = layers x the
+   server's executions; then ``serve_cnn.main`` once through its CLI
+   (Fang CNN-2, TTFS, avg pool, bitserial), its launches = layers x
+   (executions + the warmed buckets).
 
-Launch counters are set to 0 just before each path (phases 3-4, 7, 8)
-and read just after; so are the GEMM wrappers' per-call weight-transpose
-counters, which must stay 0 on the CNN and LM paths (their plans hold
-K-major weights).  Every failure raises, so the script exits non-zero.
+Launch counters are set to 0 just before each path (phases 3-4, 7, 8, 9,
+10) and read just after; so are the GEMM wrappers' per-call
+weight-transpose counters, which must stay 0 on the CNN and LM paths
+(their plans hold K-major weights).  Every failure raises, so the
+script exits non-zero.
 It prints the card's name and power limit (``nvidia-smi``), a
 ``{"kernels": [...]}`` JSON line, and last ``{"ok": true, "device":
 {...}}``; the full results go to ``build/chip_smoke.json``.  It exits 1
@@ -1089,21 +1121,8 @@ def phase_net(torch, name, static, params, hw, results) -> dict:
         exe = exes[dataflow] = api.Accelerator(dataflow=dataflow).compile(
             qnet, hw, buckets=BUCKETS)
         before = counters()
-        rounds = []
-        for _ in range(2):
-            for n in REQUESTS:
-                got = exe(x[:n])
-                check(tuple(got.shape) == (n, want_snn.shape[1]),
-                      f"{name}/{dataflow}: logits shape {tuple(got.shape)}")
-                check(torch.equal(got, want_snn[:n]),
-                      f"{name}/{dataflow}: request of {n} != oracle "
-                      f"(max |diff| {(got - want_snn[:n]).abs().max()})")
-            rounds.append(exe.stats())
-        torch.cuda.synchronize()
+        rounds = serve_rounds(torch, exe, x, want_snn, f"{name}/{dataflow}")
         after = counters()
-        check(rounds[1]["compiles"] == rounds[0]["compiles"] == len(BUCKETS),
-              f"{name}/{dataflow}: plans built in steady state: "
-              f"{rounds[0]['compiles']} -> {rounds[1]['compiles']}")
         execs = rounds[1]["executions"]
         check(after["radix_conv2d"] - before["radix_conv2d"]
               == n_conv * execs,
@@ -1149,56 +1168,66 @@ def phase_profile(torch, runs: dict, results: dict) -> None:
     """Device time by kernel name over three calls of each (net, dataflow,
     bucket) plan, and the device's busy share: that device time over the
     unprofiled median wall time of phases 3 and 4 (the profiler slows the
-    host).  Only device-side kernel events count (the CPU-side operator
-    events carry their kernels' time too)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    host)."""
     out = {}
     for name, run in runs.items():
         for dataflow, exe in run["exes"].items():
             for b in BUCKETS:
-                plan, xb = exe.plan_for(b), run["x"][:b].contiguous()
-                plan(xb)
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    t0 = time.perf_counter()
-                    for _ in range(3):
-                        plan(xb)
-                    torch.cuda.synchronize()
-                    wall_us = (time.perf_counter() - t0) * 1e6
-                kernels = [e for e in prof.key_averages()
-                           if str(e.device_type).endswith("CUDA")
-                           and _dev_us(e) > 0]
-                busy_us = sum(_dev_us(e) for e in kernels)
-                radix_us = sum(_dev_us(e) for e in kernels
-                               if "radix_" in e.key)
                 key = f"{name}/{dataflow}/b{b}"
-                if busy_us == 0:
-                    log(f"[profile] {key}: no device time recorded "
-                        "(not measured)")
-                    out[key] = None
-                    continue
-                top = sorted(kernels, key=_dev_us, reverse=True)[:5]
                 wall_ms = results[name]["dataflows"][dataflow]["buckets"][b][
                     "ms"]
-                out[key] = dict(
-                    profiled_wall_ms_per_call=wall_us / 3e3,
-                    device_ms_per_call=busy_us / 3e3,
-                    radix_kernels_ms_per_call=radix_us / 3e3,
-                    other_kernels_ms_per_call=(busy_us - radix_us) / 3e3,
-                    busy_share=busy_us / 3e3 / wall_ms,
-                    top=[(e.key[:70], _dev_us(e) / 3e3, e.count // 3)
-                         for e in top])
-                log(f"[profile] {key}: device busy {busy_us / 3e3:.3f} ms/call"
-                    f" = {100 * out[key]['busy_share']:.1f}% of the "
-                    f"unprofiled {wall_ms:.3f} ms ({wall_us / 3e3:.3f} ms "
+                prof = out[key] = profile_plan(
+                    torch, exe.plan_for(b), run["x"][:b].contiguous(),
+                    wall_ms)
+                if prof is None:
+                    log(f"[profile] {key}: no device time recorded "
+                        "(not measured)")
+                    continue
+                log(f"[profile] {key}: device busy "
+                    f"{prof['device_ms_per_call']:.3f} ms/call = "
+                    f"{100 * prof['busy_share']:.1f}% of the unprofiled "
+                    f"{wall_ms:.3f} ms "
+                    f"({prof['profiled_wall_ms_per_call']:.3f} ms "
                     f"profiled): radix kernels "
-                    f"{radix_us / 3e3:.3f} ms, other kernels "
-                    f"{(busy_us - radix_us) / 3e3:.3f} ms; top: "
-                    + "; ".join(f"{k} {v:.3f} ms x{c}" for k, v, c in
-                                out[key]["top"]))
+                    f"{prof['radix_kernels_ms_per_call']:.3f} ms, other "
+                    f"kernels {prof['other_kernels_ms_per_call']:.3f} ms; "
+                    "top: " + "; ".join(f"{k} {v:.3f} ms x{c}"
+                                        for k, v, c in prof["top"]))
     results["profile"] = out
+
+
+def profile_plan(torch, plan, xb, wall_ms: float, calls: int = 3):
+    """Device time of ``calls`` calls of ``plan`` by kernel name
+    (``torch.profiler``; only device-side kernel events count: the
+    CPU-side operator events carry their kernels' time too) against the
+    unprofiled median ``wall_ms``; None when the trace holds no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    plan(xb)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            plan(xb)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0]
+    busy_us = sum(_dev_us(e) for e in kernels)
+    if busy_us == 0:
+        return None
+    radix_us = sum(_dev_us(e) for e in kernels if "radix_" in e.key)
+    top = sorted(kernels, key=_dev_us, reverse=True)[:5]
+    return dict(
+        profiled_wall_ms_per_call=wall_us / calls / 1e3,
+        device_ms_per_call=busy_us / calls / 1e3,
+        radix_kernels_ms_per_call=radix_us / calls / 1e3,
+        other_kernels_ms_per_call=(busy_us - radix_us) / calls / 1e3,
+        busy_share=busy_us / calls / 1e3 / wall_ms,
+        top=[(e.key[:70], _dev_us(e) / calls / 1e3, e.count // calls)
+             for e in top])
 
 
 # ---------------------------------------------------------------------------
@@ -1498,6 +1527,409 @@ def phase_encode(torch, results) -> None:
         f"in {ENC_STEPS} x scales {ENC_SCALES}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the emerging encodings (TTFS, phase, rate) on the CNN path.
+# ---------------------------------------------------------------------------
+
+# (net, pool mode, encoding, T, periods).  TTFS and phase run on the kernels
+# backend (both dataflows), rate and radix on the jnp backend (the eager
+# PyTorch path); radix is also compiled on the kernels backend and its jnp
+# logits are held to that plan's.
+ENC_CASES = (
+    ("vgg11", "avg", "ttfs", 4, 1), ("vgg11", "avg", "phase", 8, 2),
+    ("vgg11", "avg", "rate", 4, 1), ("vgg11", "avg", "radix", 4, 1),
+    ("fang_cnn", "avg", "ttfs", 4, 1), ("fang_cnn", "avg", "phase", 8, 2),
+    ("fang_cnn", "avg", "rate", 4, 1), ("fang_cnn", "avg", "radix", 4, 1),
+    ("fang_cnn", "max", "ttfs", 4, 1), ("fang_cnn", "or", "phase", 8, 2),
+)
+# a TTFS or rate net whose logits do not vary across images at T = 4 is
+# reported and converted again at the next T the reference accepts
+RETRY_T = 8
+SERVE_REQUESTS, CHAOS_REQUESTS = 64, 32      # phase 10 streams
+CLI_ARGV = ["--arch", "fang_cnn", "--encoding", "ttfs", "--pool-mode", "avg",
+            "--dataflow", "bitserial"]
+
+
+def enc_spec(api, name: str, steps: int, periods: int):
+    if name == "phase":
+        return api.PhaseEncoding(steps, periods=periods)
+    return {"radix": api.RadixEncoding, "rate": api.RateEncoding,
+            "ttfs": api.TTFSEncoding}[name](steps)
+
+
+def enc_net(np, name: str, pool: str):
+    """(static, params, hw) of the phase-9 nets, numpy seed ``SEED``:
+    VGG-11 as phases 3-4 build it, Fang CNN-2 at full width."""
+    from repro_torch.models import fang, vgg
+
+    if name == "vgg11":
+        return vgg.make(np.random.default_rng(SEED), pool_mode=pool,
+                        input_hw=(224, 224, 3), width_mult=1.0,
+                        num_classes=100)
+    return fang.make(np.random.default_rng(SEED), pool_mode=pool)
+
+
+def gemm_layers(static) -> tuple:
+    """(conv, linear) layer counts: each execution of a kernels plan
+    launches the conv kernel once per conv layer and the matmul kernel
+    once per linear layer."""
+    kinds = [k for k, _ in static]
+    return kinds.count("conv"), kinds.count("linear")
+
+
+def serve_rounds(torch, exe, x, want, label: str) -> list:
+    """Requests of REQUESTS sizes twice, each ``torch.equal`` to ``want``;
+    returns the stats after each round and checks the second built no
+    plan."""
+    rounds = []
+    for _ in range(2):
+        for n in REQUESTS:
+            got = exe(x[:n])
+            check(tuple(got.shape) == (n, want.shape[1]),
+                  f"{label}: logits shape {tuple(got.shape)}")
+            check(torch.equal(got, want[:n]),
+                  f"{label}: request of {n} != oracle (max |diff| "
+                  f"{(got - want[:n]).abs().max()})")
+        rounds.append(exe.stats())
+    sync(torch)
+    check(rounds[1]["compiles"] == rounds[0]["compiles"] == len(exe.buckets),
+          f"{label}: plans built in steady state: {rounds[0]['compiles']} "
+          f"-> {rounds[1]['compiles']}")
+    return rounds
+
+
+def time_buckets(torch, exe, x, label: str) -> dict:
+    """Images/s per bucket by host clock (median of 10 plan calls, each
+    ended by a synchronize), and a profile of the top bucket."""
+    out = {}
+    for b in exe.buckets:
+        plan = exe.plan_for(b)
+        xb = x[:b].contiguous()
+        ms = host_ms(torch, lambda: plan(xb), reps=10)
+        out[b] = dict(ms=ms, images_per_s=b / ms * 1e3)
+        if b == exe.buckets[-1]:
+            out[b]["profile"] = profile_plan(torch, plan, xb, ms)
+        prof = out[b].get("profile")
+        log(f"[enc] {label} bucket {b}: {ms:.3f} ms, "
+            f"{b / ms * 1e3:.1f} images/s"
+            + ("" if prof is None else
+               f"; device {prof['device_ms_per_call']:.3f} ms/call "
+               f"({100 * prof['busy_share']:.1f}% busy), radix kernels "
+               f"{prof['radix_kernels_ms_per_call']:.3f} ms")
+            + ("; profile: no device time (not measured)"
+               if b == exe.buckets[-1] and prof is None else ""))
+    return out
+
+
+def cpu_plane_check(torch, api, exe, x, requests, label: str) -> dict:
+    """The timed card plan ``exe`` and the same plan compiled for the CPU
+    (the kernels' plain versions) over the same requests: logits and the
+    plane-skip counters of those requests must be equal."""
+    keys = ("plane_passes_skipped", "plane_passes_total")
+    cpu = api.Accelerator(dataflow=exe.dataflow, device="cpu").compile(
+        exe.qnet, exe.item_shape, buckets=exe.buckets)
+    before = exe.stats()
+    for n in requests:
+        got, want = exe(x[:n]).cpu(), cpu(x[:n].cpu())
+        check(torch.equal(got, want),
+              f"{label}: card != CPU plan for a request of {n}")
+    after, cs = exe.stats(), cpu.stats()
+    out = {k: (after[k] - before[k], cs[k]) for k in keys}
+    check(all(a == b for a, b in out.values()),
+          f"{label}: plane counters card/CPU {out}")
+    return dict(requests=list(requests), **{k: v[0] for k, v in out.items()})
+
+
+def phase_encodings(torch, np, results) -> dict:
+    """TTFS, phase and rate (and radix on the jnp backend) through
+    ``convert`` -> ``Accelerator.compile`` -> ``Executable`` at VGG-11's
+    full width and Fang CNN-2's; returns the converted nets by case."""
+    from repro_torch import api
+
+    dev = torch.device(DEV)
+    out, nets, qnets = {}, {}, {}
+    for net_name, pool, enc, steps, periods in ENC_CASES:
+        if (net_name, pool) not in nets:
+            static, params, hw = enc_net(np, net_name, pool)
+            params = [None if p is None else {k: v.to(dev)
+                                              for k, v in p.items()}
+                      for p in params]
+            calib = torch.rand((BATCH,) + hw, generator=torch.Generator()
+                               .manual_seed(SEED + 1)).to(dev)
+            x = torch.rand((max(REQUESTS),) + hw, generator=torch.Generator()
+                           .manual_seed(SEED + 2)).to(dev)
+            nets[(net_name, pool)] = (static, params, hw, calib, x)
+        static, params, hw, calib, x = nets[(net_name, pool)]
+        n_conv, n_lin = gemm_layers(static)
+        degenerate_at = []
+        while True:
+            spec = enc_spec(api, enc, steps, periods)
+            t0 = time.perf_counter()
+            qnet = api.convert(static, params, calib, encoding=spec)
+            want = api.oracle(qnet, x, mode="snn")
+            packed = api.oracle(qnet, x, mode="packed")
+            sync(torch)
+            oracle_s = time.perf_counter() - t0
+            check(torch.equal(want, packed), f"{net_name}/{spec}: snn != "
+                  "packed oracle")
+            check(bool(torch.isfinite(want).all()),
+                  f"{net_name}/{spec}: non-finite logits")
+            spread = float(want.std(dim=0).mean())
+            if spread > 0 or enc not in ("ttfs", "rate") or steps == RETRY_T:
+                break
+            log(f"[enc] {net_name}/{pool}/{spec}: logits do not vary "
+                f"across images (degenerate net); converting again at "
+                f"T = {RETRY_T}")
+            degenerate_at.append(steps)
+            steps = RETRY_T
+        check(spread > 0, f"{net_name}/{spec}: logits do not vary across "
+              "images (degenerate net)")
+        key = f"{net_name}/{pool}/{spec.name}{spec.num_steps}" + (
+            f"p{periods}" if enc == "phase" else "")
+        qnets[key] = (qnet, hw)
+        row = dict(net=net_name, pool=pool, encoding=repr(spec),
+                   degenerate_at_T=degenerate_at, logits_class_std=spread,
+                   argmax_classes=int(torch.unique(want.argmax(1)).numel()),
+                   convert_and_oracles_s=oracle_s, runs={})
+        backends = (("kernels", "fused"), ("kernels", "bitserial")) \
+            if enc in ("ttfs", "phase") else (("jnp", None),)
+        for backend, dataflow in backends:
+            label = f"{key}/{dataflow or 'jnp'}"
+            exe = api.Accelerator(backend=backend, dataflow=dataflow,
+                                  device=DEV).compile(qnet, hw,
+                                                      buckets=BUCKETS)
+            before = counters()
+            rounds = serve_rounds(torch, exe, x, want, label)
+            after = counters()
+            execs = rounds[1]["executions"]
+            launches = {k: after[k] - before[k] for k in after}
+            n_k = (n_conv, n_lin) if backend == "kernels" else (0, 0)
+            check(launches["radix_conv2d"] == n_k[0] * execs
+                  and launches["radix_matmul"] == n_k[1] * execs,
+                  f"{label}: launches {launches} != ({n_k[0]} conv, "
+                  f"{n_k[1]} matmul) x {execs} executions")
+            stats = exe.stats()
+            run = dict(executions=execs, launches=launches,
+                       plane_passes_skipped=stats["plane_passes_skipped"],
+                       plane_passes_total=stats["plane_passes_total"],
+                       buckets=time_buckets(torch, exe, x, label))
+            if backend == "kernels":
+                # VGG-11's plain versions take seconds a batch on the CPU:
+                # there the check is the request that fills the top bucket,
+                # the shape timed above
+                run["cpu_plane_check"] = cpu_plane_check(
+                    torch, api, exe, x, (BUCKETS[-1],)
+                    if net_name == "vgg11" else REQUESTS, label)
+            if enc == "radix":
+                kexe = api.Accelerator(dataflow="fused", device=DEV).compile(
+                    qnet, hw, buckets=BUCKETS)
+                for n in REQUESTS:
+                    check(torch.equal(exe(x[:n]), kexe(x[:n])),
+                          f"{label}: jnp logits != the kernels plan's for "
+                          f"a request of {n}")
+                run["kernels_fused_buckets"] = time_buckets(
+                    torch, kexe, x, f"{key}/fused (beside jnp)")
+            row["runs"][dataflow or "jnp"] = run
+            log(f"[enc] {label}: requests {REQUESTS} x 2 equal the oracles;"
+                f" {execs} executions, launches {launches}, planes skipped "
+                f"{stats['plane_passes_skipped']} of "
+                f"{stats['plane_passes_total']}"
+                + (f"; card == CPU plan ({run['cpu_plane_check']})"
+                   if "cpu_plane_check" in run else ""))
+        log(f"[enc] {key}: per-class std {spread:.4f}, "
+            f"{row['argmax_classes']} distinct argmax classes, convert + "
+            f"oracles {oracle_s:.2f} s"
+            + (f"; degenerate at T = {degenerate_at}" if degenerate_at
+               else ""))
+        out[key] = row
+    results["encodings"] = out
+    return qnets
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: CNN serving (launch/serve_cnn) with its resilience layer.
+# ---------------------------------------------------------------------------
+
+
+def oracle_rows(torch, np_, api, qnet, images):
+    """Packed-oracle logits of numpy image batches on the card (16 images
+    a call, to bound the float64 convolutions' memory)."""
+    x = torch.from_numpy(np_.concatenate(images)).to(DEV)
+    return torch.cat([api.oracle(qnet, x[i:i + 16], mode="packed")
+                      for i in range(0, x.shape[0], 16)])
+
+
+def serve_stream(torch, np_, server, queue, sizes, want, label: str) -> dict:
+    """``run_request_stream`` of ``sizes`` (seed ``SEED + 11``) through
+    ``queue``: every ticket equal to its rows of ``want``; returns the
+    stream's rates, latency percentiles and the server counters it
+    moved."""
+    from repro_torch.launch import serve_cnn
+
+    before = server.stats()
+    t0 = time.perf_counter()
+    tickets = serve_cnn.run_request_stream(queue, sizes, seed=SEED + 11)
+    wall = time.perf_counter() - t0
+    check(all(t.ok for t in tickets),
+          f"{label}: unresolved or failed tickets "
+          f"{[type(t.error).__name__ for t in tickets if not t.ok]}")
+    off = 0
+    for t in tickets:
+        check(torch.equal(t.result, want[off:off + t.size]),
+              f"{label}: a ticket of {t.size} images != the oracle rows")
+        off += t.size
+    after = server.stats()
+    lat = [t.latency_s * 1e3 for t in tickets]
+    n_img = int(sum(sizes))
+    out = dict(requests=len(tickets), images=n_img, wall_s=wall,
+               requests_per_s=len(tickets) / wall,
+               images_per_s=n_img / wall,
+               p50_ms=float(np_.percentile(lat, 50)),
+               p99_ms=float(np_.percentile(lat, 99)),
+               flushes=queue.flushes, health=queue.health.state,
+               **{k: after[k] - before[k] for k in (
+                   "executions", "padded_rows", "degraded_flushes")})
+    log(f"[serve] {label}: {len(tickets)} requests / {n_img} images in "
+        f"{wall:.3f} s: {out['requests_per_s']:.1f} requests/s, "
+        f"{out['images_per_s']:.1f} images/s, latency p50 "
+        f"{out['p50_ms']:.2f} ms p99 {out['p99_ms']:.2f} ms; "
+        f"{queue.flushes} flushes ({out['degraded_flushes']} degraded), "
+        f"{out['executions']} executions, {out['padded_rows']} padded rows,"
+        f" health {queue.health.state}; every ticket equals the oracle")
+    return out
+
+
+def phase_serving(torch, np_, qnet, hw, results) -> None:
+    """A ``CNNServer`` over VGG-11 phase (8, 2) bitserial: a clean stream,
+    the same stream under a straggler window that flags nothing, a chaos
+    drill on the same server, then the CLI once."""
+    from repro_torch import api
+    from repro_torch.launch import serve_cnn
+    from repro_torch.runtime import resilience as rz
+    from repro_torch.runtime.straggler import StragglerMonitor
+
+    server = serve_cnn.CNNServer(qnet, hw, buckets=BUCKETS,
+                                 dataflow="bitserial", device=DEV)
+    server.warmup()
+    built = server.stats()["compiles"]
+    launched, execs0 = counters(), server.stats()["executions"]
+    sizes = np_.random.default_rng(SEED + 10).integers(1, 5, SERVE_REQUESTS)
+    # run_request_stream's draws, timed: the stream makes them inside its
+    # wall
+    t0 = time.perf_counter()
+    rng = np_.random.default_rng(SEED + 11)
+    images = [rng.uniform(0, 1, (int(n),) + tuple(hw)).astype(np_.float32)
+              for n in sizes]
+    gen_s = time.perf_counter() - t0
+    log(f"[serve] the stream's {int(sum(sizes))} images take {gen_s:.3f} s "
+        "to draw on the host")
+    want = oracle_rows(torch, np_, api, qnet, images)
+    clean = serve_stream(torch, np_, server, serve_cnn.MicroBatchQueue(
+        server), sizes, want, "VGG-11 phase(8,2) bitserial")
+    # the same stream with no flush ever flagged as a straggler: the queue
+    # never degrades to smaller flush groups
+    steady = serve_stream(torch, np_, server, serve_cnn.MicroBatchQueue(
+        server, health=rz.HealthMonitor(StragglerMonitor(threshold=1e9))),
+        sizes, want, "the same stream, no straggler flags")
+    check(steady["degraded_flushes"] == 0,
+          f"serving: {steady['degraded_flushes']} degraded flushes with a "
+          "window that flags nothing")
+    check(server.stats()["compiles"] == built == len(BUCKETS),
+          f"serving: plans built in steady state: {built} -> "
+          f"{server.stats()['compiles']}")
+
+    # chaos drill: one poison request, a transient fault every 5th infer
+    before = server.stats()
+    plan = rz.FaultPlan(fail_every=5, poison_nan=True)
+    chaos = rz.ChaosServer(server, plan)
+    drill = serve_cnn.MicroBatchQueue(
+        chaos, retry=rz.RetryPolicy(max_retries=2, backoff_s=0.001))
+    rng = np_.random.default_rng(SEED + 12)
+    sizes = rng.integers(1, 5, CHAOS_REQUESTS)
+    reqs = [rng.uniform(0, 1, (int(n),) + tuple(hw)).astype(np_.float32)
+            for n in sizes]
+    poison_at = CHAOS_REQUESTS // 3
+    reqs[poison_at][:] = np_.nan
+    tickets = [drill.submit(r) for r in reqs]
+    drill.flush()
+    after = server.stats()
+    delta = {k: after[k] - before[k] for k in (
+        "rejected", "shed", "retried", "quarantined", "degraded_flushes",
+        "failures", "executions")}
+    errors = [type(t.error).__name__ for t in tickets if not t.ok]
+    check(all(t.done for t in tickets), "chaos: a ticket never resolved")
+    check(all(isinstance(t.error, rz.ServeError) for t in tickets
+              if not t.ok), f"chaos: untyped ticket errors {errors}")
+    check(isinstance(tickets[poison_at].error, rz.RequestPoisoned),
+          f"chaos: the poison ticket resolved as "
+          f"{type(tickets[poison_at].error).__name__}")
+    check(errors.count("RequestPoisoned") == delta["quarantined"] == 1,
+          f"chaos: quarantined {delta['quarantined']}, errors {errors}")
+    check(errors.count("AdmissionError") == delta["rejected"]
+          and errors.count("DeadlineExceeded") == delta["shed"] == 0,
+          f"chaos: rejected/shed {delta} vs errors {errors}")
+    # every infer call either took an injected fault or resolved a flush
+    check(plan.calls == drill.flushes + plan.total_injected
+          and delta["failures"] == 0,
+          f"chaos: {plan.calls} calls != {drill.flushes} flushes + "
+          f"{plan.injected}, real failures {delta['failures']}")
+    check(plan.injected["transient"] > 0 and plan.injected["poison"]
+          >= 1 + drill.retry.max_retries,
+          f"chaos: injected {plan.injected}")
+    ok = [i for i, t in enumerate(tickets) if t.ok]
+    want = oracle_rows(torch, np_, api, qnet, [reqs[i] for i in ok])
+    off = 0
+    for i in ok:
+        n = tickets[i].size
+        check(torch.equal(tickets[i].result, want[off:off + n]),
+              f"chaos: healthy ticket {i} != the oracle rows")
+        off += n
+    check(server.stats()["compiles"] == built,
+          "chaos: a plan was built during the drill")
+    n_conv, n_lin = gemm_layers(qnet.static)
+    execs = server.stats()["executions"] - execs0
+    launches = {k: v - launched[k] for k, v in counters().items()}
+    check(launches["radix_conv2d"] == n_conv * execs
+          and launches["radix_matmul"] == n_lin * execs,
+          f"serving: launches {launches} != ({n_conv} conv, {n_lin} "
+          f"matmul) x {execs} executions of the streams and the drill")
+    chaos_out = dict(requests=CHAOS_REQUESTS, injected=dict(plan.injected),
+                     calls=plan.calls, flushes=drill.flushes,
+                     ok=len(ok), health=drill.health.state, **delta)
+    log(f"[serve] chaos drill: {CHAOS_REQUESTS} requests, injected "
+        f"{plan.injected} over {plan.calls} infer calls; {len(ok)} "
+        f"resolved equal to the oracle, errors {errors}; counters {delta};"
+        f" health {drill.health.state}")
+
+    from repro_torch.models import fang
+
+    launched = counters()
+    t0 = time.perf_counter()
+    cli = serve_cnn.main(CLI_ARGV)
+    cli_s = time.perf_counter() - t0
+    check(cli["ok"] == cli["requests"] and cli["stats"]["failures"] == 0,
+          f"serve_cnn.main({CLI_ARGV}): {cli['ok']} of {cli['requests']} "
+          "requests served")
+    # the CLI's warmup runs each bucket's plan once besides the executions
+    n_conv, n_lin = gemm_layers(fang.static()[0])
+    runs = cli["stats"]["executions"] + len(
+        serve_cnn._parse_args(CLI_ARGV).bucket_ladder)
+    cli_launches = {k: v - launched[k] for k, v in counters().items()}
+    check(cli_launches["radix_conv2d"] == n_conv * runs
+          and cli_launches["radix_matmul"] == n_lin * runs,
+          f"serve_cnn.main: launches {cli_launches} != ({n_conv} conv, "
+          f"{n_lin} matmul) x {runs} plan runs")
+    log(f"[serve] serve_cnn.main {' '.join(CLI_ARGV)}: {cli['requests']} "
+        f"requests, {cli_s:.2f} s with conversion and warmup")
+    results["serving"] = dict(
+        clean=clean, no_straggler_flags=steady, image_draw_s=gen_s,
+        chaos=chaos_out,
+        launches=launches, cli_launches=cli_launches,
+        cli=dict(argv=CLI_ARGV, s=cli_s, **{k: cli[k] for k in (
+            "requests", "ok", "images", "wall_s", "p50_ms", "p95_ms",
+            "health")}))
+
+
 def main() -> int:
     try:
         import torch
@@ -1584,10 +2016,29 @@ def main() -> int:
     reset_counters()
     phase_encode(torch, results)
     paths["encode"] = counters()
+
+    t0 = time.perf_counter()
+    reset_counters()
+    qnets = phase_encodings(torch, np, results)
+    paths["cnn_encodings"] = counters()
+    copies["cnn_encodings"] = transposes()
+    log(f"[enc] phase 9: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    reset_counters()
+    qnet, hw = qnets["vgg11/avg/phase8p2"]
+    phase_serving(torch, np, qnet, hw, results)
+    paths["cnn_serving"] = counters()
+    copies["cnn_serving"] = transposes()
+    log(f"[serve] phase 10: {time.perf_counter() - t0:.1f} s")
+    del qnets, qnet
+
     results["path_launches"] = paths
-    for path, names in (("cnn", ("radix_conv2d", "radix_matmul")),
+    cnn_kernels = ("radix_conv2d", "radix_matmul")
+    for path, names in (("cnn", cnn_kernels),
                         ("lm", ("radix_matmul", "radix_decode_attn")),
-                        ("encode", ("spike_encode",))):
+                        ("encode", ("spike_encode",)),
+                        ("cnn_encodings", cnn_kernels),
+                        ("cnn_serving", cnn_kernels)):
         check(all(paths[path][k] > 0 for k in names),
               f"a kernel of the {path} path was not launched: "
               f"{paths[path]}")
@@ -1637,7 +2088,8 @@ def main() -> int:
     log(f"[done] {results['total_s']:.1f} s; kernel line: conv and matmul "
         "device times summed over one VGG-11 batch-8 fused execution's "
         "launches "
-        "(matmul launches: CNN + LM paths); decode attention at the LM "
+        "(conv and matmul launches: every path, phases 3-4, 7, 9 and 10); "
+        "decode attention at the LM "
         "decode shape (packed, fused); encoder at 8x224x224x3, T=4")
     print(smi)
     print(json.dumps({"kernels": kernels}))

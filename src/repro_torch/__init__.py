@@ -11,9 +11,14 @@ JAX nor ``repro``.  Each module names its counterpart:
 * ``repro_torch.kernels.radix_conv`` (``radix_conv2d_cuda``, CUDA source
   ``csrc/radix_conv.cu``) <-> ``repro/kernels/radix_conv.py:radix_conv2d_pallas``;
 * ``repro_torch.kernels.{ops,ref,autotune}`` <-> ``repro/kernels/{ops,ref,autotune}.py``;
-* ``repro_torch.models.{lenet,vgg}`` <-> ``repro/models/{lenet,vgg}.py``;
-* ``repro_torch.api`` <-> ``repro/api.py`` (``Accelerator``, ``Executable``,
-  ``oracle``, ``convert``);
+* ``repro_torch.models.{lenet,vgg,fang}`` <-> ``repro/models/{lenet,vgg,fang}.py``;
+* ``repro_torch.configs`` <-> ``repro/configs`` (Gemma-2B, the CNN registry);
+* ``repro_torch.api`` <-> ``repro/api.py`` (``Accelerator`` with the
+  ``kernels`` and ``jnp`` backends, ``Executable``, ``oracle``,
+  ``convert``, the four encoding specs and the support matrix);
+* ``repro_torch.runtime.{resilience,straggler,restart}`` <->
+  ``repro/runtime/*.py`` (the serving part);
+* ``repro_torch.launch.serve_cnn`` <-> ``repro/launch/serve_cnn.py``;
 * ``repro_torch.carry`` moves float params and converted nets across from
   the JAX package as numpy arrays (the parity tests use it).
 

@@ -10,27 +10,36 @@
     logits = exe(images)                       # any batch size, on the card
     exe.traffic(), exe.stats()
 
+    rate = api.convert(static, params, calib, encoding=api.RateEncoding(4))
+    exe = api.Accelerator(backend="jnp").compile(rate, item_shape)
+
     lm = api.Accelerator(dataflow="fused").compile(
         (params, cfg), (batch, max_len), buckets=(64, 256))
     tokens = lm.generate(prompts, max_new=32)  # or lm.prefill / lm.decode
 
-:class:`Accelerator` owns the *where/how* (device, in-kernel dataflow);
-the spec owns the *what*.  ``compile`` returns an :class:`Executable`, a
-batch-polymorphic callable over a bucketed plan cache, or for a
-``(params, ArchConfig)`` pair an :class:`LMExecutable`, bucketed prefill
-plus one decode-step plan over the radix KV cache.  :func:`oracle` is the
-reference forward (``mode="snn"`` spike planes or ``mode="packed"``)
-every CNN plan is bit-exact against.
+:class:`Accelerator` owns the *where/how* (device, backend, in-kernel
+dataflow); the spec (:class:`RadixEncoding`, :class:`RateEncoding`,
+:class:`TTFSEncoding`, :class:`PhaseEncoding`) owns the *what*.
+``backend="kernels"`` runs compiled plans through the CUDA radix kernels;
+``backend="jnp"`` (the reference's name, kept so its support matrix
+carries over) runs the eager PyTorch reference path per bucket, and is
+the only backend for rate coding.  ``compile`` returns an
+:class:`Executable`, a batch-polymorphic callable over a bucketed plan
+cache, or for a ``(params, ArchConfig)`` pair an :class:`LMExecutable`,
+bucketed prefill plus one decode-step plan over the radix KV cache.
+:func:`oracle` is the reference forward (``mode="snn"`` spike planes or
+``mode="packed"``) every CNN plan is bit-exact against.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (where the kernels' plain versions run).  Not ported:
-``backend="jnp"``, ``parallel > 1``, ``autotune=True``, ``auto=``,
-``memory()``, ``attach_stats`` and the PPA stats provider (ROADMAP.md).
+``parallel > 1``, ``autotune=True``, ``auto=``, ``memory()`` and the PPA
+stats provider (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -38,9 +47,15 @@ import torch
 from repro_torch.core import conversion, engine
 from repro_torch.core.conversion import QuantizedNet, convert
 from repro_torch.core.encoding import (
+    SPECS,
     EncodingSpec,
     KernelSchedule,
+    PhaseEncoding,
     RadixEncoding,
+    RateEncoding,
+    TTFSEncoding,
+    support_matrix,
+    support_matrix_markdown,
 )
 from repro_torch.lm.config import ArchConfig
 
@@ -48,6 +63,12 @@ __all__ = [
     "EncodingSpec",
     "KernelSchedule",
     "RadixEncoding",
+    "RateEncoding",
+    "TTFSEncoding",
+    "PhaseEncoding",
+    "SPECS",
+    "support_matrix",
+    "support_matrix_markdown",
     "QuantizedNet",
     "Accelerator",
     "Executable",
@@ -56,7 +77,7 @@ __all__ = [
     "oracle",
 ]
 
-BACKENDS = ("kernels",)
+BACKENDS = ("kernels", "jnp")
 
 
 def _resolve_device(device) -> torch.device:
@@ -112,32 +133,77 @@ def oracle(qnet: conversion.QuantizedNet, x, *, mode: str = "snn",
                                spec, mode)
 
 
+def _merge_stat_providers(d: dict, providers) -> dict:
+    """Merge ``attach_stats`` provider dicts into ``d``; a key that
+    collides with an existing one raises instead of shadowing it."""
+    for provider in providers:
+        extra = provider()
+        clash = sorted(set(extra) & set(d))
+        if clash:
+            raise ValueError(
+                f"attach_stats provider key(s) {clash} collide with "
+                "existing stats keys; namespace provider keys "
+                "instead of shadowing core counters")
+        d.update(extra)
+    return d
+
+
+class _EagerPlan:
+    """The ``jnp`` backend's per-bucket plan: the packed reference forward
+    on the input's device.  It holds the net by weakref, so the plan cache
+    entry still dies with the net; it has no sparsity prepass and no
+    kernel layers, so its counters are zeros and its tile list empty."""
+
+    tuned_tiles: tuple = ()
+
+    def __init__(self, qnet: conversion.QuantizedNet, spec: EncodingSpec):
+        self._net = weakref.ref(qnet)
+        self._spec = spec
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return engine._forward(self._net(), x, self._spec, "packed")
+
+    def plane_stats(self) -> dict:
+        return {"plane_passes_skipped": 0, "plane_passes_total": 0}
+
+    def reset_plane_stats(self) -> None:
+        pass
+
+
 class Executable:
     """A compiled, batch-polymorphic deployment of one converted net.
 
     Produced by :meth:`Accelerator.compile`.  ``exe(x)`` maps float images
     of any batch size to float logits on the executable's device: requests
     pad up to the smallest bucket or chunk by the top one, so no request
-    size builds a plan on the hot path.
+    size builds a plan on the hot path.  ``backend="kernels"`` plans run
+    the CUDA radix kernels; ``backend="jnp"`` plans run the eager packed
+    reference forward (``dataflow`` is then None).
     """
 
     def __init__(self, qnet: conversion.QuantizedNet,
                  item_shape: Tuple[int, ...], encoding: EncodingSpec,
-                 dataflow: str, buckets: Sequence[int],
-                 device: torch.device):
+                 backend: str, dataflow: Optional[str],
+                 buckets: Sequence[int], device: torch.device):
         self.qnet = qnet                     # strong ref: exe keeps net alive
         self.item_shape = tuple(int(d) for d in item_shape)
         self.encoding = encoding
+        self.backend = backend
         self.dataflow = dataflow
         self.device = device
-        self._cache = engine.PlanCache(buckets, method=dataflow,
-                                       encoding=encoding, device=device)
+        eager = backend == "jnp"
+        self._cache = engine.PlanCache(
+            buckets, method="jnp" if eager else dataflow, encoding=encoding,
+            device=device, compile_fn=(
+                lambda net, shape: _EagerPlan(net, encoding)) if eager
+            else None)
         self.buckets = self._cache.buckets
+        self._stat_providers: list = []
 
     def __repr__(self) -> str:
-        return (f"Executable({self.encoding}, dataflow={self.dataflow!r}, "
-                f"item={self.item_shape}, buckets={self.buckets}, "
-                f"device={self.device})")
+        return (f"Executable({self.encoding}, backend={self.backend!r}, "
+                f"dataflow={self.dataflow!r}, item={self.item_shape}, "
+                f"buckets={self.buckets}, device={self.device})")
 
     @property
     def num_steps(self) -> int:
@@ -160,32 +226,55 @@ class Executable:
             self._cache.warmup(self.qnet, self.item_shape)
         return self
 
-    def plan_for(self, bucket: int) -> engine.CompiledPlan:
-        """The per-bucket plan (built on first use)."""
+    def plan_for(self, bucket: int):
+        """The per-bucket plan (built on first use): a
+        :class:`~repro_torch.core.engine.CompiledPlan` on the kernels
+        backend, an eager packed forward on ``jnp``."""
         return self._cache.plan_for(self.qnet, bucket, self.item_shape)
+
+    def attach_stats(self, provider) -> "Executable":
+        """Register a zero-argument callable returning a dict that
+        :meth:`stats` merges in (the serving queue's resilience counters
+        use it).  A key that collides with a core counter or an earlier
+        provider's key makes :meth:`stats` raise ``ValueError``.  Returns
+        self."""
+        self._stat_providers.append(provider)
+        return self
 
     def stats(self) -> dict:
         """Plan-cache counters (``hits``/``compiles``/``executions``/
         ``padded_rows``/``pruned``/``failures``), the sparsity-prepass
-        counters ``plane_passes_skipped``/``plane_passes_total``, and an
-        ``autotune`` sub-dict with each (bucket, kernel layer)'s strategy."""
+        counters ``plane_passes_skipped``/``plane_passes_total`` (zeros on
+        the ``jnp`` backend), an ``autotune`` sub-dict with each (bucket,
+        kernel layer)'s strategy, and any :meth:`attach_stats` dicts."""
         d = self._cache.stats.as_dict()
         d.update(self._cache.plane_stats())
         d["autotune"] = {"enabled": False,
                          "layers": self._cache.tuned_tiles()}
-        return d
+        return _merge_stat_providers(d, self._stat_providers)
 
     def traffic(self) -> dict:
         """Modeled inter-layer activation bytes, fused packed-uint8 plan vs
-        the unfused int32 baseline, for one ``buckets[0]``-sized batch."""
+        the unfused int32 baseline, for one ``buckets[0]``-sized batch
+        (kernels backend only)."""
+        if self.backend != "kernels":
+            raise NotImplementedError(
+                "the activation-traffic model describes compiled kernel "
+                "plans; compile with Accelerator(backend='kernels')")
         return self.plan_for(self.buckets[0]).activation_traffic()
 
 
 @dataclasses.dataclass(frozen=True)
 class Accelerator:
-    """The execution target: the kernels backend on ``device`` (``None``
-    means CUDA) with the in-kernel ``dataflow`` ("fused" default,
-    "bitserial" the paper-faithful schedule)."""
+    """The execution target on ``device`` (``None`` means CUDA).
+
+    * ``backend="kernels"``: plans through the CUDA radix kernels, with
+      the in-kernel ``dataflow`` among the encoding's declared ones
+      ("fused" default, "bitserial" the paper-faithful schedule);
+    * ``backend="jnp"``: the eager packed reference forward per bucket,
+      the only backend for encodings without a kernel dataflow (rate).
+      It is a backend the caller names, never a fallback.
+    """
 
     backend: str = "kernels"
     dataflow: Optional[str] = None
@@ -194,8 +283,11 @@ class Accelerator:
     def __post_init__(self):
         if self.backend not in BACKENDS:
             raise ValueError(
-                f"backend must be one of {BACKENDS}, got {self.backend!r} "
-                "(the jnp backend is not ported)")
+                f"backend must be one of {BACKENDS}, got {self.backend!r}")
+        if self.dataflow is not None and self.backend != "kernels":
+            raise ValueError(
+                f"dataflow={self.dataflow!r} selects the in-kernel "
+                "schedule and requires backend='kernels'")
 
     def compile(self, qnet, input_spec: Sequence[int], *,
                 encoding: Optional[EncodingSpec] = None,
@@ -208,9 +300,11 @@ class Accelerator:
         instead (:meth:`_compile_lm`).
 
         Raises ``RuntimeError`` when the device is CUDA and none exists,
-        ``ValueError`` for an encoding/dataflow/pool mismatch, and
-        ``NotImplementedError`` for ``parallel > 1``, ``autotune=True`` or
-        ``auto=``.
+        ``ValueError`` for an encoding/backend/dataflow/pool mismatch (and
+        for ``parallel > 1`` or ``autotune=True`` off the kernels
+        backend, as the reference does), and ``NotImplementedError`` for
+        ``parallel > 1``, ``autotune=True`` or ``auto=`` on the kernels
+        backend.
         """
         if _is_lm_net(qnet):
             return self._compile_lm(qnet, input_spec, encoding=encoding,
@@ -220,23 +314,34 @@ class Accelerator:
             raise NotImplementedError(
                 "auto= (the PPA planner) is not ported yet (ROADMAP.md, "
                 "queue 1 item 13)")
-        if parallel not in (None, 1):
-            raise NotImplementedError(
-                "parallel > 1 (multi-GPU bucket plans) is not ported yet "
-                "(ROADMAP.md, queue 1 item 7)")
-        if autotune:
-            raise NotImplementedError(
-                "autotune=True is not ported yet (ROADMAP.md, queue 1 "
-                "item 10)")
-        device = _resolve_device(self.device)
         spec = _resolve_spec(qnet, encoding)
         if self.backend not in spec.backends:
             raise ValueError(
                 f"{spec.name} encoding does not run on the "
                 f"{self.backend!r} backend (supported: {spec.backends})")
-        dataflow = spec.validate_dataflow(self.dataflow)
+        dataflow = None
+        if self.backend == "kernels":
+            if parallel not in (None, 1):
+                raise NotImplementedError(
+                    "parallel > 1 (multi-GPU bucket plans) is not ported "
+                    "yet (ROADMAP.md, queue 1 item 7)")
+            if autotune:
+                raise NotImplementedError(
+                    "autotune=True is not ported yet (ROADMAP.md, queue 1 "
+                    "item 10)")
+            dataflow = spec.validate_dataflow(self.dataflow)
+        else:
+            if parallel not in (None, 1):
+                raise ValueError(
+                    "parallel (data-parallel bucket plans) requires "
+                    "backend='kernels'")
+            if autotune:
+                raise ValueError(
+                    "autotune sweeps kernel strategies and requires "
+                    "backend='kernels'")
         spec.validate_static(qnet.static)
-        return Executable(qnet, input_spec, spec, dataflow,
+        device = _resolve_device(self.device)
+        return Executable(qnet, input_spec, spec, self.backend, dataflow,
                           engine.DEFAULT_BUCKETS if buckets is None
                           else buckets, device)
 
@@ -252,6 +357,11 @@ class Accelerator:
         (``radix_steps`` = T, ``radix_kv`` / ``radix_kv_pack``,
         ``packed_attn``, ``radix_attn``)."""
         params, cfg = qnet
+        if self.backend != "kernels":
+            raise NotImplementedError(
+                "the LM path's jnp backend (the reference's int8 "
+                "dot_general twin) is not ported yet (ROADMAP.md, queue 1 "
+                "item 12); use backend='kernels'")
         if auto is not None:
             raise ValueError(
                 "auto= (the PPA planner) prices the paper's CNN lattice, "

@@ -8,13 +8,14 @@ packages on the same converted net or LM this way.
 
 from __future__ import annotations
 
-from typing import List, Optional
+import dataclasses
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core.conversion import QuantizedNet
-from repro_torch.core.encoding import RadixEncoding
+from repro_torch.core.encoding import SPECS, EncodingSpec
 from repro_torch.lm.config import ArchConfig
 from repro_torch.lm.model import check_supported
 from repro_torch.lm.radix import torch_dtype
@@ -36,15 +37,46 @@ def _tensor(a, dtype):
     return None if a is None else torch.from_numpy(np.array(a, dtype=dtype))
 
 
+_SPEC_BY_NAME = {cls.name: cls for cls in SPECS}
+
+
+def _spec(encoding: Union[str, EncodingSpec], num_steps: int,
+          fields: dict) -> EncodingSpec:
+    """A spec, or a spec name plus its fields (``periods`` for phase,
+    ``scale`` for rate) -> the port's spec at ``num_steps``."""
+    if isinstance(encoding, str):
+        if encoding not in _SPEC_BY_NAME:
+            raise ValueError(f"encoding must be a spec or one of "
+                             f"{sorted(_SPEC_BY_NAME)}, got {encoding!r}")
+        spec = _SPEC_BY_NAME[encoding](num_steps=int(num_steps), **fields)
+    else:
+        if fields:
+            raise ValueError(f"pass fields {sorted(fields)} in the spec, "
+                             "not beside it")
+        spec = _SPEC_BY_NAME[encoding.name](**_spec_fields(encoding))
+    if spec.num_steps != int(num_steps):
+        raise ValueError(f"num_steps={num_steps} contradicts "
+                         f"{spec}.num_steps={spec.num_steps}")
+    return spec
+
+
+def _spec_fields(spec) -> dict:
+    """A spec's dataclass fields (``num_steps`` and any of ``periods``,
+    ``scale``) as plain Python values; works on either package's spec."""
+    return {f.name: getattr(spec, f.name) for f in dataclasses.fields(spec)}
+
+
 def qnet_from_numpy(static, qlayers, *, num_steps: int, weight_bits: int,
                     input_scale: float, logit_scale,
-                    encoding: str = "radix") -> QuantizedNet:
+                    encoding: Union[str, EncodingSpec] = "radix",
+                    **fields) -> QuantizedNet:
     """A converted net's fields as numpy (``w_q``, ``b_int``, ``mult`` per
     conv/linear layer, ``None`` for the others) -> the port's
-    :class:`QuantizedNet` on the CPU."""
-    if encoding != "radix":
-        raise ValueError(f"encoding {encoding!r} is not ported yet; only "
-                         "'radix' carries across")
+    :class:`QuantizedNet` on the CPU.
+
+    ``encoding`` is a spec (either package's) or a spec name with its
+    fields as keywords (``periods=`` for phase, ``scale=`` for rate)."""
+    spec = _spec(encoding, num_steps, fields)
     layers = [None if qp is None else {
         "w_q": _tensor(qp["w_q"], np.int8),
         "b_int": _tensor(qp["b_int"], np.int32),
@@ -57,12 +89,12 @@ def qnet_from_numpy(static, qlayers, *, num_steps: int, weight_bits: int,
     return QuantizedNet(static=tuple(static), num_steps=int(num_steps),
                         weight_bits=int(weight_bits), qlayers=layers,
                         input_scale=float(input_scale),
-                        logit_scale=logit_scale,
-                        encoding=RadixEncoding(int(num_steps)))
+                        logit_scale=logit_scale, encoding=spec)
 
 
 def qnet_to_numpy(qnet: QuantizedNet) -> dict:
-    """The inverse of :func:`qnet_from_numpy`: keyword fields as numpy."""
+    """The inverse of :func:`qnet_from_numpy`: keyword fields as numpy,
+    the encoding as its name plus its fields beyond ``num_steps``."""
     def arr(t):
         return None if t is None else t.detach().cpu().numpy()
 
@@ -77,6 +109,8 @@ def qnet_to_numpy(qnet: QuantizedNet) -> dict:
         input_scale=qnet.input_scale,
         logit_scale=arr(ls) if torch.is_tensor(ls) else ls,
         encoding=qnet.spec.name,
+        **{k: v for k, v in _spec_fields(qnet.spec).items()
+           if k != "num_steps"},
     )
 
 

@@ -1,9 +1,11 @@
 """Architecture config registry (port of ``repro/configs/__init__.py``).
 
-Each ported architecture has a module exporting ``ARCH`` (the published
-configuration) and ``SMOKE`` (a reduced same-family config for CPU
-tests), equal field for field to the reference's.  Only ``gemma_2b`` is
-ported; the other LM archs are listed in ROADMAP.md.
+Each ported LM architecture has a module exporting ``ARCH`` (the
+published configuration) and ``SMOKE`` (a reduced same-family config for
+CPU tests), equal field for field to the reference's.  Only ``gemma_2b``
+is ported; the other LM archs are listed in ROADMAP.md.  The paper's own
+CNNs (``lenet5``, ``vgg11``, ``fang_cnn``) register their ``make``
+(``get_snn``).
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ import importlib
 from typing import List
 
 LM_ARCHS: List[str] = ["gemma_2b"]
+
+SNN_ARCHS: List[str] = ["lenet5", "vgg11", "fang_cnn"]
 
 
 def canon(name: str) -> str:
@@ -26,3 +30,12 @@ def get_config(name: str, smoke: bool = False):
                          f"{LM_ARCHS})")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.SMOKE if smoke else mod.ARCH
+
+
+def get_snn(name: str):
+    """The ``make`` of a CNN arch id (dashes or underscores accepted)."""
+    name = canon(name)
+    if name not in SNN_ARCHS:
+        raise ValueError(f"unknown CNN arch {name!r} (known: {SNN_ARCHS})")
+    mod = importlib.import_module(f"repro_torch.configs.{name}")
+    return mod.make

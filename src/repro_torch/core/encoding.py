@@ -1,11 +1,20 @@
-"""Radix neural encoding as a first-class spec (port of ``repro/core/encoding.py``).
+"""Neural encodings as first-class specs (port of ``repro/core/encoding.py``).
 
-A radix spike train of length ``T`` decodes to ``q = sum_t 2^(T-1-t) s_t``:
-the train *is* the T-bit binary expansion of an integer level in
-``[0, 2^T - 1]``, MSB first.  This module holds the encode/decode pairs,
-bit-plane packing, the :class:`KernelSchedule` the kernels execute, and
-the :class:`EncodingSpec` base with :class:`RadixEncoding`.  Rate, TTFS
-and phase specs are not ported yet.
+Every encoding is a plane-weight scheme: a spike train of length ``T``
+decodes to ``q = sum_t w_t s_t`` (divided by the number of repeated
+periods, if any):
+
+* **radix** — ``w_t = 2^(T-1-t)``: the train *is* the T-bit binary
+  expansion of an integer level in ``[0, 2^T - 1]``, MSB first;
+* **rate** — ``w_t = 1``: the spike count is the level (``T + 1`` levels);
+* **TTFS** — radix weights with at most one spike per activation, at
+  ``t = T - 1 - msb(q)``: the level grid is ``{0} | {2^k}``;
+* **phase** — radix weights over ``K = T / P`` phases tiled ``P`` times,
+  decode divides by ``P``.
+
+This module holds the encode/decode pairs, bit-plane packing, the
+:class:`KernelSchedule` the kernels execute, the :class:`EncodingSpec`
+hierarchy and the support matrix generated from the specs' declarations.
 
 Conventions match the reference: planes are time-major int8 in {0, 1}
 (``planes[t]`` is step t, t = 0 the MSB); packed levels are uint8 for
@@ -34,10 +43,18 @@ __all__ = [
     "pack_planes",
     "unpack_planes",
     "pow2_floor",
+    "rate_encode",
+    "rate_decode",
     "KernelSchedule",
     "KERNEL_OUT_GRIDS",
     "EncodingSpec",
     "RadixEncoding",
+    "RateEncoding",
+    "TTFSEncoding",
+    "PhaseEncoding",
+    "SPECS",
+    "support_matrix",
+    "support_matrix_markdown",
 ]
 
 
@@ -117,6 +134,37 @@ def pow2_floor(q: torch.Tensor, num_steps: int) -> torch.Tensor:
     return out
 
 
+def rate_encode(x: torch.Tensor, num_steps: int, scale=1.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Rate coding: spike probability proportional to ``clip(x / scale,
+    0, 1)``; returns ``(T,) + x.shape`` int8.
+
+    Without ``generator``: evenly spaced spikes by float32 error
+    accumulation (sigma-delta).  With one: Bernoulli spikes drawn from
+    it (on the generator's device, which must be ``x``'s).
+    """
+    p = torch.clamp(x / _scale_like(x, scale), 0.0, 1.0)
+    if generator is not None:
+        u = torch.rand((num_steps,) + tuple(p.shape), generator=generator,
+                       device=p.device)
+        return (u < p.unsqueeze(0)).to(torch.int8)
+    err = torch.zeros_like(p)
+    spikes = []
+    for _ in range(num_steps):
+        err = err + p
+        spike = (err >= 1.0).to(torch.int8)
+        err = err - spike
+        spikes.append(spike)
+    return torch.stack(spikes)
+
+
+def rate_decode(planes: torch.Tensor, scale=1.0) -> torch.Tensor:
+    """Spike-count decode for rate-coded trains (float32)."""
+    num_steps = planes.shape[0]
+    return planes.to(torch.float32).sum(0) * (
+        _scale_like(planes, scale) / float(num_steps))
+
+
 KERNEL_OUT_GRIDS: Tuple[str, ...] = ("dense", "pow2")
 """Level grids the kernel epilogue can project requantized outputs onto."""
 
@@ -160,7 +208,8 @@ class EncodingSpec:
     backends: ClassVar[Tuple[str, ...]] = ()
     kernel_dataflows: ClassVar[Tuple[str, ...]] = ()
     pool_modes: ClassVar[Tuple[str, ...]] = ()
-    periods: ClassVar[int] = 1
+    levels_doc: ClassVar[str] = "?"    # the level formula in the matrix
+    periods: ClassVar[int] = 1         # repeated-period count (phase: P)
 
     def __post_init__(self):
         if self.num_steps < 1:
@@ -195,6 +244,12 @@ class EncodingSpec:
     def plane_weights(self) -> np.ndarray:
         """Per-time-step decode weights ``w_t``, shape ``(num_steps,)``."""
         raise NotImplementedError
+
+    def representable_levels(self) -> np.ndarray:
+        """Every level ``encode`` represents exactly (the image of
+        ``quantize``/``requantize``): dense ``[0, max_level]`` except for
+        sparse grids (TTFS)."""
+        return np.arange(self.levels)
 
     @property
     def scale_factor(self) -> float:
@@ -288,9 +343,10 @@ class RadixEncoding(EncodingSpec):
     """The paper's radix encoding: ``planes[t]`` weighs ``2^(T-1-t)``."""
 
     name: ClassVar[str] = "radix"
-    backends: ClassVar[Tuple[str, ...]] = ("kernels",)
+    backends: ClassVar[Tuple[str, ...]] = ("kernels", "jnp")
     kernel_dataflows: ClassVar[Tuple[str, ...]] = ("fused", "bitserial")
     pool_modes: ClassVar[Tuple[str, ...]] = ("or", "avg", "max")
+    levels_doc: ClassVar[str] = "2^T"
 
     @property
     def levels(self) -> int:
@@ -318,3 +374,194 @@ class RadixEncoding(EncodingSpec):
     def reduce_planes(self, per_step):
         """Horner accumulation ``(acc << 1) + I_t`` over the time axis."""
         return decode(per_step)
+
+
+@dataclasses.dataclass(frozen=True)
+class RateEncoding(EncodingSpec):
+    """Rate coding: the spike count over T steps is the level (``T + 1``
+    levels).  Every step weighs 1, so only sum pooling commutes with the
+    per-plane path.  No kernel dataflow: it runs on the ``jnp`` backend
+    (the eager PyTorch path).  ``scale`` is a full-scale headroom factor
+    ``convert`` folds into every calibrated scale."""
+
+    scale: float = 1.0
+
+    name: ClassVar[str] = "rate"
+    backends: ClassVar[Tuple[str, ...]] = ("jnp",)
+    kernel_dataflows: ClassVar[Tuple[str, ...]] = ()
+    pool_modes: ClassVar[Tuple[str, ...]] = ("avg",)
+    levels_doc: ClassVar[str] = "T + 1"
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.scale <= 0:
+            raise ValueError(f"scale must be positive, got {self.scale}")
+
+    @property
+    def levels(self) -> int:
+        return self.num_steps + 1
+
+    @property
+    def scale_factor(self) -> float:
+        return self.scale
+
+    def plane_weights(self) -> np.ndarray:
+        return np.ones(self.num_steps, np.int64)
+
+    def encode(self, q):
+        """Integer sigma-delta: exactly ``q`` evenly spaced spikes."""
+        q = q.to(torch.int32)
+        T = self.num_steps
+        err = torch.zeros_like(q)
+        planes = []
+        for _ in range(T):
+            err = err + q
+            spike = (err >= T).to(torch.int8)
+            err = err - spike.to(torch.int32) * T
+            planes.append(spike)
+        return torch.stack(planes)
+
+    def decode(self, planes):
+        return planes.to(torch.int32).sum(0, dtype=torch.int32)
+
+    def reduce_planes(self, per_step):
+        return per_step.to(torch.int32).sum(0, dtype=torch.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class TTFSEncoding(EncodingSpec):
+    """Time-to-first-spike coding: one spike at ``t = T - 1 - msb(q)``,
+    decoded by the radix weights to ``2^msb(q)``; the level grid is
+    ``{0, 1, 2, ..., 2^(T-1)}`` out of a ``2^T``-unit full scale.
+    ``quantize``/``requantize`` floor onto that grid, and the kernels'
+    epilogue does the same (``out_grid="pow2"``).  "or" pooling would
+    merge one-hot trains into multi-spike ones, so only avg and max pool.
+    """
+
+    name: ClassVar[str] = "ttfs"
+    backends: ClassVar[Tuple[str, ...]] = ("kernels", "jnp")
+    kernel_dataflows: ClassVar[Tuple[str, ...]] = ("fused", "bitserial")
+    pool_modes: ClassVar[Tuple[str, ...]] = ("avg", "max")
+    levels_doc: ClassVar[str] = "T + 1 (log-spaced)"
+
+    @property
+    def levels(self) -> int:
+        return 1 << self.num_steps
+
+    @property
+    def radix_planes(self) -> bool:
+        return True
+
+    def plane_weights(self) -> np.ndarray:
+        return _np_radix_weights(self.num_steps)
+
+    def representable_levels(self) -> np.ndarray:
+        return np.concatenate(
+            ([0], 1 << np.arange(self.num_steps, dtype=np.int64)))
+
+    def kernel_schedule(self) -> KernelSchedule:
+        return dataclasses.replace(super().kernel_schedule(),
+                                   out_grid="pow2")
+
+    def quantize(self, x, scale=1.0):
+        """Radix quantize, then floor onto the power-of-two grid."""
+        q = quantize(x, self.num_steps, scale)
+        return pow2_floor(q, self.num_steps).to(self.packed_dtype)
+
+    def encode(self, q):
+        """One-hot planes: a single spike at the MSB of ``q``."""
+        q = q.to(torch.int32)
+        shifts = torch.arange(self.num_steps - 1, -1, -1, dtype=torch.int32,
+                              device=q.device)
+        shifts = shifts.reshape((self.num_steps,) + (1,) * q.ndim)
+        return ((q.unsqueeze(0) >> shifts) == 1).to(torch.int8)
+
+    def requantize(self, acc, mult):
+        """Base requantize, then floor onto the power-of-two grid."""
+        q = torch.floor(acc.to(torch.float32) * _scale_like(acc, mult))
+        q = torch.clamp(q, 0, self.max_level).to(torch.int32)
+        return pow2_floor(q, self.num_steps).to(self.packed_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class PhaseEncoding(EncodingSpec):
+    """Phase coding: ``P = periods`` repeats of ``K = T / P`` radix
+    phases, ``q = sum_t 2^(K-1-(t mod K)) s_t / P`` in ``[0, 2^K - 1]``.
+    The packed level is one period's ``K`` bits; the bitserial dataflow
+    replays all ``P * K`` plane passes and floor-divides by ``P``.
+
+    Raises ``ValueError`` when ``periods < 1`` or does not divide
+    ``num_steps``.
+    """
+
+    periods: int = 1
+
+    name: ClassVar[str] = "phase"
+    backends: ClassVar[Tuple[str, ...]] = ("kernels", "jnp")
+    kernel_dataflows: ClassVar[Tuple[str, ...]] = ("fused", "bitserial")
+    pool_modes: ClassVar[Tuple[str, ...]] = ("or", "avg", "max")
+    levels_doc: ClassVar[str] = "2^(T/P)"
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.periods < 1:
+            raise ValueError(f"periods must be >= 1, got {self.periods}")
+        if self.num_steps % self.periods:
+            raise ValueError(
+                f"num_steps={self.num_steps} must be divisible by "
+                f"periods={self.periods} (each period spans "
+                f"num_steps/periods phases)")
+
+    @property
+    def phases(self) -> int:
+        """Phases per period (``K = num_steps / periods``)."""
+        return self.num_steps // self.periods
+
+    @property
+    def packed_bits(self) -> int:
+        return self.phases
+
+    @property
+    def levels(self) -> int:
+        return 1 << self.phases
+
+    @property
+    def radix_planes(self) -> bool:
+        return self.periods == 1
+
+    def plane_weights(self) -> np.ndarray:
+        return np.tile(_np_radix_weights(self.phases), self.periods)
+
+    def encode(self, q):
+        """One period's MSB-first bit planes, tiled ``periods`` times."""
+        planes = encode(q, self.phases)
+        return planes.repeat((self.periods,) + (1,) * (planes.ndim - 1))
+
+
+SPECS: Tuple[type, ...] = (RadixEncoding, RateEncoding, TTFSEncoding,
+                           PhaseEncoding)
+"""Every shipped :class:`EncodingSpec` subclass, in documentation order."""
+
+
+def support_matrix() -> list:
+    """The specs' declared capabilities: one dict per spec with ``name``,
+    ``levels`` (formula), ``backends``, ``kernel_dataflows`` and
+    ``pool_modes``."""
+    return [dict(name=cls.name, levels=cls.levels_doc,
+                 backends=cls.backends,
+                 kernel_dataflows=cls.kernel_dataflows,
+                 pool_modes=cls.pool_modes) for cls in SPECS]
+
+
+def support_matrix_markdown() -> str:
+    """:func:`support_matrix` as a markdown table."""
+    fmt = "| {:<8} | {:<18} | {:<13} | {:<17} | {:<12} |".format
+    lines = [fmt("encoding", "levels (T steps)", "backends",
+                 "kernel dataflows", "pool modes"),
+             "|" + "|".join("-" * n for n in (10, 20, 15, 19, 14)) + "|"]
+    for row in support_matrix():
+        join = lambda t: ", ".join(t) if t else "—"
+        lines.append(fmt(row["name"], row["levels"], join(row["backends"]),
+                         join(row["kernel_dataflows"]),
+                         join(row["pool_modes"])))
+    return "\n".join(lines)

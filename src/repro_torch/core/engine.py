@@ -455,12 +455,18 @@ class PlanCache:
     off after the call) or, above the top bucket, chunks into top-bucket
     pieces plus one bucketed tail.  Entries are keyed by (weakref(net),
     bucket, item shape, method, encoding) and die with the net.
+
+    ``compile_fn(qnet, input_shape) -> plan`` replaces the kernel plan
+    compiler; ``api`` passes one for the ``jnp`` backend, whose per-bucket
+    plans share the bucketing, chunking and counters with kernel plans.
+    A plan is called on the padded batch and has ``plane_stats()``,
+    ``reset_plane_stats()`` and ``tuned_tiles``, as ``CompiledPlan`` does.
     """
 
     def __init__(self, buckets: Sequence[int] = DEFAULT_BUCKETS, *,
                  method: str = "fused",
                  encoding: Optional[encoding.EncodingSpec] = None,
-                 device="cpu"):
+                 device="cpu", compile_fn: Optional[Callable] = None):
         bs = tuple(sorted({int(b) for b in buckets}))
         if not bs or bs[0] < 1:
             raise ValueError(f"bucket ladder must be positive, got {buckets}")
@@ -468,6 +474,7 @@ class PlanCache:
         self.method = method
         self.encoding = encoding
         self.device = torch.device(device)
+        self._compile_fn = compile_fn
         self.stats = PlanCacheStats()
         self._plans: dict = {}
 
@@ -512,9 +519,12 @@ class PlanCache:
             self.stats.hits += 1
             return plan
         self.prune()
-        plan = _compile_plan_impl(
-            qnet, (int(bucket),) + tuple(item_shape), method=self.method,
-            spec=self.encoding, device=self.device)
+        shape = (int(bucket),) + tuple(item_shape)
+        if self._compile_fn is not None:
+            plan = self._compile_fn(qnet, shape)
+        else:
+            plan = _compile_plan_impl(qnet, shape, method=self.method,
+                                      spec=self.encoding, device=self.device)
         self._plans[key] = (weakref.ref(qnet), plan)
         self.stats.compiles += 1
         return plan

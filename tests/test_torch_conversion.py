@@ -19,6 +19,7 @@ from repro.core import conversion as jconv
 from repro.models import lenet as jlenet
 from repro_torch import carry
 from repro_torch.core import conversion as tconv
+from repro_torch.core.encoding import RateEncoding
 
 RTOL = 1e-5
 
@@ -162,7 +163,18 @@ def test_convert_argument_errors():
     with pytest.raises(ValueError):
         tconv.convert(static, tparams, torch.from_numpy(calib), num_steps=3,
                       encoding=tconv.RadixEncoding(4))
+    # every spec now carries across ("rate" did not before); an unknown
+    # name, a spec with fields beside it, or a contradicting T is refused
+    fields = dict(num_steps=4, weight_bits=3, input_scale=1.0,
+                  logit_scale=1.0)
+    rate = carry.qnet_from_numpy(static, [], encoding="rate", scale=2.0,
+                                 **fields)
+    assert rate.spec == RateEncoding(4, scale=2.0)
     with pytest.raises(ValueError):
-        carry.qnet_from_numpy(static, [], num_steps=4, weight_bits=3,
-                              input_scale=1.0, logit_scale=1.0,
-                              encoding="rate")
+        carry.qnet_from_numpy(static, [], encoding="delta", **fields)
+    with pytest.raises(ValueError):
+        carry.qnet_from_numpy(static, [], encoding=rate.spec, scale=2.0,
+                              **fields)
+    with pytest.raises(ValueError):
+        carry.qnet_from_numpy(static, [], encoding=RateEncoding(5),
+                              **fields)

@@ -164,8 +164,13 @@ def test_compile_rejects_what_is_not_ported(vgg_net):
         acc.compile(tnet, hw, parallel=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         acc.compile(tnet, hw, autotune=True)
+    # the jnp backend is ported (the eager path); an unknown backend, or
+    # a dataflow off the kernels backend, is refused
+    assert api.Accelerator(backend="jnp").backend == "jnp"
     with pytest.raises(ValueError):
-        api.Accelerator(backend="jnp")
+        api.Accelerator(backend="xla")
+    with pytest.raises(ValueError):
+        api.Accelerator(backend="jnp", dataflow="fused")
     with pytest.raises(ValueError):
         api.Accelerator(dataflow="rowwise", device="cpu").compile(tnet, hw)
     with pytest.raises(ValueError):
