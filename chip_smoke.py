@@ -26,11 +26,13 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` and runs:
      shape (B = 8, H = 8, Hkv = 1, hd = 256, S = 512, T = 4 packed, bf16
      query, a mask set with causal prefixes, ring windows and an
      all-masked row, an empty plane in the whole cache), S in {1, 33,
-     300, 4096}, Hkv in {1, 2}, g in {1, 4, 8}, hd in {64, 256}, T = 1
-     and 8 unpacked and 4 packed, a plane empty in one tile only, ring
-     windows whose middle splits are fully masked, bf16 and f32 queries;
-     each with both dataflows and the occupancy gate on and off:
-     ``torch.equal``.  At the decode shape (packed and unpacked) and at
+     129, 300, 512, 4096}, Hkv in {1, 2}, g in {1, 4, 8, 10, 16}, hd in
+     {64, 128, 256, 512}, T = 1 and 8 unpacked and 4 packed, a plane
+     empty in one tile only, ring windows whose middle splits are fully
+     masked, bf16 and f32 queries; each with both dataflows and the
+     occupancy gate on and off: ``torch.equal``; GLM4-9B's group (g = 16,
+     hd = 128) is timed beside its bound.  At the decode shape (packed
+     and unpacked) and at
      S = 8192 one ``ops.radix_decode_attention`` call must launch the
      kernel once, run at most 2 device kernels (profiler; the same work
      as separate PyTorch ops is counted beside it) and no occupancy
@@ -104,10 +106,24 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` and runs:
    conv/matmul launches over the streams and the drill = layers x the
    server's executions; then ``serve_cnn.main`` once through its CLI
    (Fang CNN-2, TTFS, avg pool, bitserial), its launches = layers x
-   (executions + the warmed buckets).
+   (executions + the warmed buckets);
+11. the autotuner (``kernels/autotune.py``), against a fresh winner table
+   (``REPRO_TORCH_AUTOTUNE_CACHE`` pointed at a new temporary file):
+   phase 4's VGG-11 compiled with ``autotune=True`` at bucket 8 for both
+   dataflows, each layer's candidate launches printed with their times
+   and the winner, logits ``torch.equal`` to the untuned plan and the
+   oracle, a second compile sweeping nothing (its hits = its layers, 0
+   candidates skipped), tuned and untuned plans timed in turns; VGG-11's
+   ``Executable.memory()`` (the paper's ping-pong buffers); every
+   candidate launch of VGG-11's layers and Gemma-2B's FFN products
+   ``torch.equal`` to the untuned launch (counted on no path); then
+   Gemma-2B at full width with ``autotune=True`` (``kernel_autotune``)
+   at bucket 64 and the decode plan, both dataflows, one request's
+   logits at every step ``torch.equal`` to the plain path run with the
+   same tuned launches, tuned and untuned timed in turns.
 
 Launch counters are set to 0 just before each path (phases 3-4, 7, 8, 9,
-10) and read just after; so are the GEMM wrappers' per-call
+10, 11) and read just after; so are the GEMM wrappers' per-call
 weight-transpose counters, which must stay 0 on the CNN and LM paths
 (their plans hold K-major weights).  Every failure raises, so the
 script exits non-zero.
@@ -123,6 +139,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -679,6 +696,9 @@ def phase_lm_matmul(torch, cfg, results) -> None:
 # whole cache; "tile": plane 1 empty in the second 32-slot tile only).
 ATTN_DECODE = dict(b=LM_BATCH, s=LM_MAX_LEN, hkv=1, g=8, hd=256, t=T,
                    packed=True, q="bf16", mask="mixed", empty="cache")
+# GLM4-9B's decode shape: 32 query heads over 2 kv heads (g = 16), hd 128
+ATTN_G16 = dict(b=LM_BATCH, s=LM_MAX_LEN, hkv=2, g=16, hd=128, t=T,
+                packed=True, q="bf16", mask="ring", empty="cache")
 ATTN_EDGES = [
     ATTN_DECODE,
     dict(b=2, s=1, hkv=1, g=8, hd=256, t=4, packed=True, q="f32",
@@ -695,10 +715,16 @@ ATTN_EDGES = [
          mask="mixed", empty="tile"),
     dict(b=2, s=4096, hkv=2, g=4, hd=64, t=4, packed=True, q="f32",
          mask="ring", empty="cache"),
+    # groups past 8 query heads and heads past 256 dims: RecurrentGemma-2B's
+    # group (10 over 1 kv head, hd 256), GLM4-9B's (32 query heads over 2
+    # kv heads, hd 128) and hd = 512
+    dict(b=2, s=300, hkv=1, g=10, hd=256, t=4, packed=True, q="bf16",
+         mask="mixed", empty="tile"),
+    ATTN_G16,
+    dict(b=2, s=129, hkv=2, g=4, hd=512, t=8, packed=False, q="f32",
+         mask="allmasked", empty="tile"),
 ]
 ATTN_LONG = dict(ATTN_DECODE, s=8192)   # Gemma-2B's context
-# (SPLIT_SLOTS, MAX_SPLITS) candidates timed against each other
-SPLIT_CHOICES = ((32, 32), (64, 32), (32, 16), (64, 16))
 
 
 def attn_mask(torch, kind: str, b: int, s_len: int):
@@ -856,6 +882,7 @@ def phase_attn(torch, results) -> None:
             f"{c['mask']}" + (f" empty plane ({c['empty']})"
                               if c["empty"] else "") for c in edges))
     results["attn_edges"] = edges
+    results["attn_wide"] = attn_wide(torch, gen)
 
     rows = []
     for case in (ATTN_DECODE, dict(ATTN_DECODE, packed=False), ATTN_LONG):
@@ -931,38 +958,64 @@ def phase_attn(torch, results) -> None:
     split_sweep(torch, gen, results)
 
 
+def attn_wide(torch, gen) -> list:
+    """Device time of the kernel at GLM4-9B's group (``ATTN_G16``: 32 query
+    heads over 2 kv heads, hd 128, B = 8, S = 512, packed), both
+    dataflows, beside its byte bound."""
+    from repro_torch.kernels import radix_attn as ra
+
+    q, kq, ks, vq, vs, mask, _ = attn_problem(torch, ATTN_G16, gen)
+    rows = []
+    for method in ("fused", "bitserial"):
+        kw = dict(num_steps=ATTN_G16["t"], method=method, packed=True)
+        fn = lambda: ra.radix_decode_attn_cuda(q, kq, ks, vq, vs, mask, **kw)
+        row = dict(method=method, shape=(ATTN_G16["b"], ATTN_G16["g"],
+                                         ATTN_G16["hkv"], ATTN_G16["hd"],
+                                         ATTN_G16["s"]),
+                   device_ms=device_ms(torch, fn, "radix_decode_attn_kernel"),
+                   call_ms=cuda_ms(torch, fn, reps=20))
+        row["bound_ms"], row["bound_by"], row["bytes"] = attn_bound(ATTN_G16,
+                                                                    mask)
+        row["ms"] = row["device_ms"] or row["call_ms"]
+        rows.append(row)
+        log(f"[kernel] glm4-9b radix_decode_attn packed {method:9s} B=8 H=32 "
+            f"Hkv=2 g=16 hd=128 S=512: kernel {row['ms']:.4f} ms on the "
+            f"device ({row['call_ms']:.4f} ms a call by CUDA events), bound "
+            f"{row['bound_ms']:.5f} ms ({row['bound_by']}, "
+            f"{100 * row['bound_ms'] / row['ms']:.1f}% of it)")
+    return rows
+
+
 def split_sweep(torch, gen, results) -> None:
     """Device time of the kernel (packed, both dataflows) at the decode
-    shape and at S = 8192 for each ``SPLIT_CHOICES`` pair: the measurement
+    shape and at S = 8192 for each (split_slots, max_splits) pair the
+    tuner offers (``autotune.ATTN_SPLITS``): the measurement
     behind ``kernels/radix_attn.py``'s constants.  At the decode shape each
     pair is also held against the plain version, which splits alike."""
     from repro_torch.kernels import radix_attn as ra
+    from repro_torch.kernels.autotune import ATTN_SPLITS
 
     chosen = (ra.SPLIT_SLOTS, ra.MAX_SPLITS)
     problems = [(case, attn_problem(torch, case, gen)[:6])
                 for case in (ATTN_DECODE, ATTN_LONG)]
     rows = []
-    try:
-        for split, most in SPLIT_CHOICES:
-            ra.SPLIT_SLOTS, ra.MAX_SPLITS = split, most
-            for case, args in problems:
-                for method in ("fused", "bitserial"):
-                    kw = dict(num_steps=T, method=method, packed=True)
-                    if case is ATTN_DECODE:
-                        check(torch.equal(
-                            ra.radix_decode_attn_cuda(*args, **kw),
-                            ra.radix_decode_attn_plain(*args, **kw)),
-                            f"split {ra.SPLIT_SLOTS}/{ra.MAX_SPLITS}: "
-                            "kernel != plain")
-                    rows.append(dict(
-                        split_slots=ra.SPLIT_SLOTS, max_splits=ra.MAX_SPLITS,
-                        s=case["s"], method=method,
-                        splits=-(-case["s"] // ra.split_slots(case["s"])),
-                        device_ms=device_ms(
-                            torch, lambda: ra.radix_decode_attn_cuda(
-                                *args, **kw), "radix_decode_attn_kernel")))
-    finally:
-        ra.SPLIT_SLOTS, ra.MAX_SPLITS = chosen
+    for split, most in ATTN_SPLITS:
+        for case, args in problems:
+            for method in ("fused", "bitserial"):
+                kw = dict(num_steps=T, method=method, packed=True,
+                          splits=(split, most))
+                if case is ATTN_DECODE:
+                    check(torch.equal(
+                        ra.radix_decode_attn_cuda(*args, **kw),
+                        ra.radix_decode_attn_plain(*args, **kw)),
+                        f"split {split}/{most}: kernel != plain")
+                rows.append(dict(
+                    split_slots=split, max_splits=most, s=case["s"],
+                    method=method, splits=-(-case["s"] // ra.split_slots(
+                        case["s"], split, most)),
+                    device_ms=device_ms(
+                        torch, lambda: ra.radix_decode_attn_cuda(
+                            *args, **kw), "radix_decode_attn_kernel")))
     log("[kernel] radix_decode_attn split sweep (SPLIT_SLOTS/MAX_SPLITS, S, "
         "dataflow: splits a row, device ms; chosen "
         f"{chosen[0]}/{chosen[1]}): " + "; ".join(
@@ -1156,7 +1209,7 @@ def phase_net(torch, name, static, params, hw, results) -> dict:
         f"logits {tuple(want_snn.shape)}, per-class std {float(spread):.4f}, "
         f"{out['argmax_classes']} distinct argmax classes")
     results[name] = out
-    return dict(exes=exes, x=x)
+    return dict(exes=exes, x=x, qnet=qnet, want=want_snn)
 
 
 # ---------------------------------------------------------------------------
@@ -1930,6 +1983,300 @@ def phase_serving(torch, np_, qnet, hw, results) -> None:
             "health")}))
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the autotuner (kernels/autotune.py) and the memory model.
+# ---------------------------------------------------------------------------
+
+AUTOTUNE_BUCKET = 8            # VGG-11's tuned plans
+LM_TUNE_BUCKETS = (64,)        # Gemma-2B's tuned prefill plan (+ decode)
+LM_TUNE_REQUEST = (8, 48, 8)   # (prompts, tokens, new tokens)
+
+
+def _launch_name(row: dict) -> str:
+    return ("default" if (row["bm"], row["split"]) == (0, 0)
+            else f"{row['bm']}x{row['bn']}x{row['bk']}/k{row['split']}"
+            if row["bm"] else f"plan tile/k{row['split']}")
+
+
+def candidate_check(torch, calls, results) -> None:
+    """Every launch the tuner offers for each distinct ``calls`` problem
+    (VGG-11's layers at bucket 8, Gemma-2B's FFN products at the tuned
+    plans' M), both dataflows: ``torch.equal`` to the untuned launch on
+    seeded levels."""
+    t0 = time.perf_counter()
+    from repro_torch.core.encoding import KernelSchedule
+    from repro_torch.kernels import autotune, gemm
+
+    fns = _kernel_fns()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    dev = torch.device("cuda")
+    done, compared = set(), 0
+    for call in calls:
+        key = _shape_key(call)
+        if key in done:
+            continue
+        done.add(key)
+        kernel_fn, _, prep = fns[call["kernel"]]
+        bits = call["bits"]
+        x = torch.randint(0, 1 << bits, call["x"], generator=gen,
+                          device=dev).to(
+            torch.uint8 if bits <= 8 else torch.int32)
+        wq = prep(torch.randint(-127, 128, call["w"], generator=gen,
+                                device=dev).to(torch.int8))
+        n = call["w"][-1]
+        epi = dict(bias=torch.randint(-64, 64, (1, n), generator=gen,
+                                      device=dev, dtype=torch.int32),
+                   mult=torch.rand((1, n), generator=gen, device=dev)
+                   * 0.002) if call["epi"] else {}
+        sched = KernelSchedule(packed_bits=bits)
+        base = dict(num_steps=bits, out_steps=T, kmajor=True, **epi)
+        if call["kernel"] == "radix_conv2d":
+            base["stride"] = call["stride"]
+        for method in ("fused", "bitserial"):
+            if call["kernel"] == "radix_conv2d":
+                b, h, w, cin = call["x"]
+                kh, kw, _, cout = call["w"]
+                cands = autotune.conv_candidates(
+                    h, w, cin, kh, kw, cout, call["stride"], sched, method,
+                    batch=b, backend=dev, sms=gemm.device_sms(dev))
+            else:
+                m, k, n = call["mkn"]
+                cands = autotune.matmul_candidates(
+                    m, k, n, sched, method, backend=dev,
+                    sms=gemm.device_sms(dev))
+            want = kernel_fn(x, wq, method=method, **base)
+            for cfg in cands[1:]:
+                got = kernel_fn(x, wq, method=method, config=cfg, **base)
+                compared += 1
+                check(torch.equal(got, want),
+                      f"{call['kernel']} {key} {method} {cfg}: a tuned "
+                      "launch differs from the untuned one")
+    sync(torch)
+    results["autotune"]["candidates_compared"] = compared
+    log(f"[autotune] every candidate launch equals the untuned launch "
+        f"(torch.equal): {compared} launches over VGG-11's layers at "
+        f"bucket 8 and Gemma-2B's FFN products, both dataflows, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_autotune(torch, run: dict, hw, results) -> None:
+    """VGG-11 (radix T = 4, 224 x 224 x 3) compiled with ``autotune=True``
+    at bucket 8 for both dataflows against a fresh winner table; logits
+    ``torch.equal`` to the untuned plan and the oracle; a second compile
+    sweeps nothing; ``Executable.memory()``."""
+    import os
+    import tempfile
+
+    from repro_torch import api
+    from repro_torch.kernels import autotune
+
+    table = Path(tempfile.mkdtemp(prefix="autotune-")) / "autotune.json"
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(table)
+    autotune.reset_default_cache()
+    cache = autotune.default_cache()
+    check(cache.path == table and not table.exists(),
+          f"autotune table not fresh: {cache.path}")
+    qnet, x, want = run["qnet"], run["x"][:AUTOTUNE_BUCKET], run["want"]
+    n_layers = sum(1 for k, _ in qnet.static if k in ("conv", "linear"))
+    out = dict(table=str(table), dataflows={})
+    for dataflow in ("fused", "bitserial"):
+        acc = api.Accelerator(dataflow=dataflow)
+        before = cache.stats.as_dict()
+        t0 = time.perf_counter()
+        exe = acc.compile(qnet, hw, buckets=(AUTOTUNE_BUCKET,),
+                          autotune=True).warmup()
+        sweep_s = time.perf_counter() - t0
+        mid = cache.stats.as_dict()
+        got = exe(x)
+        plain = acc.compile(qnet, hw, buckets=(AUTOTUNE_BUCKET,))(x)
+        sync(torch)
+        check(torch.equal(got, plain) and torch.equal(got,
+                                                      want[:len(x)]),
+              f"vgg11/{dataflow}: tuned logits differ from the untuned plan "
+              "or the oracle")
+        check(mid["sweeps"] - before["sweeps"] == n_layers
+              and mid["skipped"] == 0,
+              f"vgg11/{dataflow}: sweeps {before} -> {mid}")
+        rows = exe.stats()["autotune"]["layers"]
+        impl = "cuda" if DEV == "cuda" else "plain"
+        check(len(rows) == n_layers and all(r["tuned"] and r["impl"] == impl
+                                            for r in rows),
+              f"vgg11/{dataflow}: tuned rows {rows}")
+        for r in rows:
+            log(f"[autotune] vgg11 {dataflow:9s} {r['layer']:22s} "
+                + "; ".join(f"{_launch_name(c)} {c['us']:.1f} us"
+                            for c in r["sweep"])
+                + f" -> winner {r['bm']}x{r['bn']}x{r['bk']}/k{r['split']}")
+        # a second compile of the same problems: every layer a hit
+        t0 = time.perf_counter()
+        again = acc.compile(qnet, hw, buckets=(AUTOTUNE_BUCKET,),
+                            autotune=True).warmup()
+        again_s = time.perf_counter() - t0
+        after = cache.stats.as_dict()
+        check(torch.equal(again(x), got), f"vgg11/{dataflow}: second "
+              "compile's logits differ")
+        check(after["sweeps"] == mid["sweeps"]
+              and after["hits"] - mid["hits"] == n_layers
+              and after["skipped"] == 0,
+              f"vgg11/{dataflow}: second compile {mid} -> {after}")
+        ab = tuned_vs_untuned(torch, {
+            "untuned": acc.compile(qnet, hw, buckets=(AUTOTUNE_BUCKET,))
+            .plan_for(AUTOTUNE_BUCKET), "tuned": exe.plan_for(
+                AUTOTUNE_BUCKET)}, x)
+        out["dataflows"][dataflow] = dict(
+            sweep_s=sweep_s, second_compile_s=again_s, layers=rows,
+            stats_first=mid, stats_second=after, timing=ab)
+        log(f"[autotune] vgg11 {dataflow}: compile with sweep {sweep_s:.2f} s"
+            f" ({mid['sweeps'] - before['sweeps']} sweeps, "
+            f"{sum(len(r['sweep']) for r in rows)} candidates, 0 skipped); "
+            f"second compile {again_s:.2f} s, {after['hits'] - mid['hits']} "
+            f"hits, 0 sweeps; logits equal the untuned plan and the oracle")
+    mem = api.Accelerator().compile(qnet, hw).memory()
+    out["memory"] = dataclasses.asdict(mem)
+    log(f"[memory] vgg11 Executable.memory() (the paper's accelerator, Sec. "
+        f"III-C; T = {qnet.num_steps}, {qnet.weight_bits}-bit weights): "
+        f"2-D ping-pong {mem.buf2d_bytes} B, 1-D {mem.buf1d_bytes} B, total "
+        f"{mem.total_buffer_bytes} B; weights {mem.total_param_bytes} B, "
+        f"needs DRAM {mem.needs_dram}; per layer (name, act reads, weight "
+        f"reads): " + "; ".join(f"{l.name} {l.act_reads} {l.weight_reads}"
+                                for l in mem.layers))
+    results["autotune"] = out
+
+
+def tuned_vs_untuned(torch, plans: dict, xb) -> dict:
+    """Wall ms (host clock, median of 10) and device ms by kernel kind
+    (profiler, three calls) of each plan, in turns untuned, tuned, tuned,
+    untuned; per plan the medians over its two turns."""
+    got = {k: [] for k in plans}
+    for name in ("untuned", "tuned", "tuned", "untuned"):
+        plan = plans[name]
+        wall = host_ms(torch, lambda: plan(xb), reps=10)
+        prof = profile_plan(torch, plan, xb, wall) or {}
+        got[name].append((wall, prof.get("device_ms_per_call"),
+                          prof.get("radix_kernels_ms_per_call")))
+    out = {}
+    for name, runs in got.items():
+        out[name] = dict(
+            wall_ms=statistics.median(r[0] for r in runs),
+            device_ms=None if None in [r[1] for r in runs]
+            else statistics.median(r[1] for r in runs),
+            radix_ms=None if None in [r[2] for r in runs]
+            else statistics.median(r[2] for r in runs), runs=runs)
+    log("[autotune] A/B at bucket 8 (untuned, tuned, tuned, untuned): "
+        + "; ".join(f"{k} wall {v['wall_ms']:.3f} ms, device "
+                    f"{v['device_ms']} ms, radix kernels {v['radix_ms']} ms"
+                    for k, v in out.items()))
+    return out
+
+
+def lm_matmul_tune_calls() -> list:
+    """Gemma-2B's FFN products at the tuned plans' M (bucket 64 prefill,
+    decode), as ``kernel_calls`` rows."""
+    from repro_torch.configs import gemma_2b
+
+    cfg = gemma_2b.ARCH
+    calls = []
+    for m in (LM_BATCH * LM_TUNE_BUCKETS[0], LM_BATCH):
+        for k, n in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):
+            calls.append(dict(kernel="radix_matmul", x=(m, k), w=(k, n),
+                              stride=1, bits=T, epi=False, mkn=(m, k, n)))
+    return calls
+
+
+def lm_tuned_vs_untuned(torch, cfg, exes: dict) -> dict:
+    """Prefill ms (bucket 64, full batch) and decode ms a step by host
+    clock, and a decode step's device ms (profiler), of each executable,
+    in turns untuned, tuned, tuned, untuned; medians over the turns."""
+    prompts = lm_prompts(torch, cfg, LM_BATCH, LM_TUNE_BUCKETS[0], SEED + 61)
+    runs = {k: [] for k in exes}
+    for name in ("untuned", "tuned", "tuned", "untuned"):
+        exe = exes[name]
+        state = exe.prefill(prompts)
+        tok = state["logits"].argmax(-1)[:, None]
+        runs[name].append((
+            host_ms(torch, lambda: exe.prefill(prompts), reps=3, warmup=1),
+            host_ms(torch, lambda: exe.decode(state, tok), reps=10),
+            device_ms(torch, lambda: exe.decode(state, tok), None, reps=5)))
+    out = {}
+    for name, rs in runs.items():
+        dev = [r[2] for r in rs]
+        out[name] = dict(prefill_ms=statistics.median(r[0] for r in rs),
+                         decode_ms=statistics.median(r[1] for r in rs),
+                         decode_device_ms=None if None in dev
+                         else statistics.median(dev), runs=rs)
+    log("[autotune] gemma-2b A/B (untuned, tuned, tuned, untuned): "
+        + "; ".join(f"{k} prefill {v['prefill_ms']:.2f} ms, decode "
+                    f"{v['decode_ms']:.3f} ms a step (device "
+                    f"{v['decode_device_ms']} ms)" for k, v in out.items()))
+    return out
+
+
+def phase_autotune_lm(torch, arch, results) -> None:
+    """Gemma-2B at full width (bf16, T = 4, packed KV and attention)
+    compiled with ``autotune=True`` (``kernel_autotune``) at bucket 64 and
+    the decode plan, both dataflows: one request's logits at every step
+    ``torch.equal`` to the plain path with the same tuned launches."""
+    from repro_torch import api
+    from repro_torch.kernels import autotune
+    from repro_torch.lm import model
+
+    cache = autotune.default_cache()
+    cfg = dataclasses.replace(arch, radix_steps=T, radix_kv_pack=True,
+                              packed_attn=True)
+    params = model.init_params(
+        torch.Generator(device=DEV).manual_seed(SEED), cfg, device=DEV)
+    n, s0, new = LM_TUNE_REQUEST
+    prompts = lm_prompts(torch, cfg, n, s0, SEED + 60)
+    out = {}
+    for dataflow in ("fused", "bitserial"):
+        before = cache.stats.as_dict()
+        t0 = time.perf_counter()
+        exe = api.Accelerator(dataflow=dataflow).compile(
+            (params, cfg), (LM_BATCH, LM_MAX_LEN), buckets=LM_TUNE_BUCKETS,
+            autotune=True)
+        sync(torch)
+        sweep_s = time.perf_counter() - t0
+        mid = cache.stats.as_dict()
+        rows = exe.stats()["autotune"]["layers"]
+        check(exe.cfg.kernel_autotune and mid["skipped"] == 0 and all(
+            r["tuned"] for r in rows) and any(r["layer"] == "decode_attn"
+                                              for r in rows),
+              f"gemma-2b/{dataflow}: tuned rows {rows}, stats {mid}")
+        r = serve_greedy(exe, prompts, new)
+        check(DEV != "cuda" or (
+            r["launches"]["radix_matmul"] == 3 * cfg.n_layers * new
+            and r["launches"]["radix_decode_attn"]
+            == cfg.n_layers * (new - 1)),
+              f"gemma-2b/{dataflow} tuned: launches {r['launches']}")
+        after = cache.stats.as_dict()
+        check(after["sweeps"] == mid["sweeps"],
+              f"gemma-2b/{dataflow}: serving swept: {mid} -> {after}")
+        plain_cfg = dataclasses.replace(exe.cfg, use_kernel=False)
+        ref = plain_logits(model, exe.params, plain_cfg, prompts,
+                           r["tokens"], exe._cache.bucket_for(s0))
+        c = compare_logits(torch, r["logits"], ref)
+        check(c["equal"], f"gemma-2b/{dataflow} tuned: logits differ from "
+              f"the plain path with the same launches {c}")
+        untuned = api.Accelerator(dataflow=dataflow).compile(
+            (params, cfg), (LM_BATCH, LM_MAX_LEN), buckets=LM_TUNE_BUCKETS)
+        timing = lm_tuned_vs_untuned(torch, cfg, {"untuned": untuned,
+                                                  "tuned": exe})
+        out[dataflow] = dict(sweep_s=sweep_s, layers=rows, stats=after,
+                             comparison=c, timing=timing)
+        log(f"[autotune] gemma-2b {dataflow:9s}: compile with sweep "
+            f"{sweep_s:.2f} s ({mid['sweeps'] - before['sweeps']} sweeps, 0 "
+            f"skipped); winners: " + "; ".join(
+                f"{row['layer']} m={row['m']}: "
+                + (f"split {row['split_slots']}/{row['max_splits']}"
+                   if row["layer"] == "decode_attn"
+                   else _launch_name(row)) for row in rows)
+            + f"; {n} x {s0} tokens + {new} new: logits equal the plain path "
+            f"at every step")
+    del params
+    torch.cuda.empty_cache()
+    results["autotune_lm"] = out
+
+
 def main() -> int:
     try:
         import torch
@@ -1995,6 +2342,7 @@ def main() -> int:
     copies = {"cnn": transposes()}
     phase_quantize(torch, results)
     phase_profile(torch, runs, results)
+    tune_run = {k: runs["vgg11"][k] for k in ("qnet", "x", "want")}
     del runs
     torch.cuda.empty_cache()
 
@@ -2031,6 +2379,25 @@ def main() -> int:
     copies["cnn_serving"] = transposes()
     log(f"[serve] phase 10: {time.perf_counter() - t0:.1f} s")
     del qnets, qnet
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    reset_counters()
+    phase_autotune(torch, tune_run, vgg_hw, results)
+    paths["cnn_autotune"] = counters()
+    copies["cnn_autotune"] = transposes()
+    # these launches compare kernels with each other: counted on no path
+    candidate_check(torch, nets["vgg11"] + lm_matmul_tune_calls(), results)
+    reset_counters()
+    phase_autotune_lm(torch, gemma_2b.ARCH, results)
+    paths["lm_autotune"] = counters()
+    copies["lm_autotune"] = transposes()
+    results["autotune_s"] = time.perf_counter() - t0
+    log(f"[autotune] phase 11: {results['autotune_s']:.1f} s (script wall "
+        f"so far {time.perf_counter() - t_start:.1f} s)")
+    del tune_run
+    shutil.rmtree(Path(results["autotune"]["table"]).parent,
+                  ignore_errors=True)
 
     results["path_launches"] = paths
     cnn_kernels = ("radix_conv2d", "radix_matmul")
@@ -2038,7 +2405,10 @@ def main() -> int:
                         ("lm", ("radix_matmul", "radix_decode_attn")),
                         ("encode", ("spike_encode",)),
                         ("cnn_encodings", cnn_kernels),
-                        ("cnn_serving", cnn_kernels)):
+                        ("cnn_serving", cnn_kernels),
+                        ("cnn_autotune", cnn_kernels),
+                        ("lm_autotune", ("radix_matmul",
+                                         "radix_decode_attn"))):
         check(all(paths[path][k] > 0 for k in names),
               f"a kernel of the {path} path was not launched: "
               f"{paths[path]}")
@@ -2074,8 +2444,7 @@ def main() -> int:
         source, replaces = KERNEL_INFO[kname]
         kernels.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
-            launches=paths["lm" if kname == "radix_decode_attn"
-                           else "encode"][kname],
+            launches=sum(p[kname] for p in paths.values()),
             max_abs_err=results["max_abs_err"][kname], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
@@ -2088,7 +2457,7 @@ def main() -> int:
     log(f"[done] {results['total_s']:.1f} s; kernel line: conv and matmul "
         "device times summed over one VGG-11 batch-8 fused execution's "
         "launches "
-        "(conv and matmul launches: every path, phases 3-4, 7, 9 and 10); "
+        "(launches: every path, phases 3-4, 7, 8, 9, 10 and 11); "
         "decode attention at the LM "
         "decode shape (packed, fused); encoder at 8x224x224x3, T=4")
     print(smi)

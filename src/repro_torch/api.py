@@ -31,9 +31,10 @@ bucketed prefill plus one decode-step plan over the radix KV cache.
 ``mode="packed"``) every CNN plan is bit-exact against.
 
 Entry points run on the CUDA device unless the caller passes
-``device="cpu"`` (where the kernels' plain versions run).  Not ported:
-``parallel > 1``, ``autotune=True``, ``auto=``, ``memory()`` and the PPA
-stats provider (ROADMAP.md).
+``device="cpu"`` (where the kernels' plain versions run).
+``compile(..., autotune=True)`` picks each kernel launch by timing
+``kernels.autotune``'s candidates at compile time.  Not ported:
+``parallel > 1``, ``auto=`` and the PPA stats provider (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -184,19 +185,21 @@ class Executable:
     def __init__(self, qnet: conversion.QuantizedNet,
                  item_shape: Tuple[int, ...], encoding: EncodingSpec,
                  backend: str, dataflow: Optional[str],
-                 buckets: Sequence[int], device: torch.device):
+                 buckets: Sequence[int], device: torch.device,
+                 autotune: bool = False):
         self.qnet = qnet                     # strong ref: exe keeps net alive
         self.item_shape = tuple(int(d) for d in item_shape)
         self.encoding = encoding
         self.backend = backend
         self.dataflow = dataflow
         self.device = device
+        self.autotune = bool(autotune)
         eager = backend == "jnp"
         self._cache = engine.PlanCache(
             buckets, method="jnp" if eager else dataflow, encoding=encoding,
             device=device, compile_fn=(
                 lambda net, shape: _EagerPlan(net, encoding)) if eager
-            else None)
+            else None, autotune=autotune)
         self.buckets = self._cache.buckets
         self._stat_providers: list = []
 
@@ -245,11 +248,15 @@ class Executable:
         """Plan-cache counters (``hits``/``compiles``/``executions``/
         ``padded_rows``/``pruned``/``failures``), the sparsity-prepass
         counters ``plane_passes_skipped``/``plane_passes_total`` (zeros on
-        the ``jnp`` backend), an ``autotune`` sub-dict with each (bucket,
-        kernel layer)'s strategy, and any :meth:`attach_stats` dicts."""
+        the ``jnp`` backend), an ``autotune`` sub-dict (``enabled``, the
+        winner table's counters, each (bucket, kernel layer)'s launch),
+        and any :meth:`attach_stats` dicts."""
+        from repro_torch.kernels import autotune as autotune_mod
+
         d = self._cache.stats.as_dict()
         d.update(self._cache.plane_stats())
-        d["autotune"] = {"enabled": False,
+        d["autotune"] = {"enabled": self.autotune,
+                         **autotune_mod.default_cache().stats.as_dict(),
                          "layers": self._cache.tuned_tiles()}
         return _merge_stat_providers(d, self._stat_providers)
 
@@ -262,6 +269,15 @@ class Executable:
                 "the activation-traffic model describes compiled kernel "
                 "plans; compile with Accelerator(backend='kernels')")
         return self.plan_for(self.buckets[0]).activation_traffic()
+
+    def memory(self, **kwargs) -> engine.MemoryReport:
+        """Ping-pong buffer sizing and access counts of the paper's
+        accelerator (Sec. III-C) for one image: ``engine.memory_report``."""
+        if len(self.item_shape) != 3:
+            raise ValueError(
+                "memory() models (H, W, C) image nets, item_shape="
+                f"{self.item_shape}")
+        return engine.memory_report(self.qnet, self.item_shape, **kwargs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -299,12 +315,16 @@ class Accelerator:
         A ``(params, ArchConfig)`` pair compiles the LM serving path
         instead (:meth:`_compile_lm`).
 
+        ``autotune=True`` (kernels backend) times each conv and linear
+        layer's launch candidates as a bucket's plan is built and keeps the
+        winners (``kernels.autotune``); every candidate gives the same
+        logits.
+
         Raises ``RuntimeError`` when the device is CUDA and none exists,
         ``ValueError`` for an encoding/backend/dataflow/pool mismatch (and
         for ``parallel > 1`` or ``autotune=True`` off the kernels
         backend, as the reference does), and ``NotImplementedError`` for
-        ``parallel > 1``, ``autotune=True`` or ``auto=`` on the kernels
-        backend.
+        ``parallel > 1`` or ``auto=`` on the kernels backend.
         """
         if _is_lm_net(qnet):
             return self._compile_lm(qnet, input_spec, encoding=encoding,
@@ -313,7 +333,7 @@ class Accelerator:
         if auto is not None:
             raise NotImplementedError(
                 "auto= (the PPA planner) is not ported yet (ROADMAP.md, "
-                "queue 1 item 13)")
+                "queue 1 item 5)")
         spec = _resolve_spec(qnet, encoding)
         if self.backend not in spec.backends:
             raise ValueError(
@@ -325,10 +345,6 @@ class Accelerator:
                 raise NotImplementedError(
                     "parallel > 1 (multi-GPU bucket plans) is not ported "
                     "yet (ROADMAP.md, queue 1 item 7)")
-            if autotune:
-                raise NotImplementedError(
-                    "autotune=True is not ported yet (ROADMAP.md, queue 1 "
-                    "item 10)")
             dataflow = spec.validate_dataflow(self.dataflow)
         else:
             if parallel not in (None, 1):
@@ -343,7 +359,7 @@ class Accelerator:
         device = _resolve_device(self.device)
         return Executable(qnet, input_spec, spec, self.backend, dataflow,
                           engine.DEFAULT_BUCKETS if buckets is None
-                          else buckets, device)
+                          else buckets, device, autotune=autotune)
 
     def _compile_lm(self, qnet, input_spec, *, encoding, parallel, buckets,
                     autotune, auto) -> "LMExecutable":
@@ -357,11 +373,15 @@ class Accelerator:
         (``radix_steps`` = T, ``radix_kv`` / ``radix_kv_pack``,
         ``packed_attn``, ``radix_attn``)."""
         params, cfg = qnet
+        if autotune and self.backend != "kernels":
+            raise ValueError(
+                "autotune sweeps kernel strategies and requires "
+                "backend='kernels'")
         if self.backend != "kernels":
             raise NotImplementedError(
                 "the LM path's jnp backend (the reference's int8 "
                 "dot_general twin) is not ported yet (ROADMAP.md, queue 1 "
-                "item 12); use backend='kernels'")
+                "item 3.7); use backend='kernels'")
         if auto is not None:
             raise ValueError(
                 "auto= (the PPA planner) prices the paper's CNN lattice, "
@@ -374,10 +394,6 @@ class Accelerator:
             raise ValueError(
                 "parallel bucket sharding is a CNN-plan feature; LM "
                 "plans shard via the model's mesh instead")
-        if autotune:
-            raise NotImplementedError(
-                "autotune=True is not ported yet (ROADMAP.md, queue 1 "
-                "item 10)")
         if self.dataflow is not None and self.dataflow not in (
                 "bitserial", "fused"):
             raise ValueError(
@@ -403,7 +419,7 @@ class Accelerator:
             buckets = tuple(sorted(ladder))
         return LMExecutable(params, cfg, batch=batch, max_len=max_len,
                             seq_buckets=buckets, dataflow=self.dataflow,
-                            device=device)
+                            device=device, autotune=autotune)
 
 
 class LMExecutable:
@@ -429,7 +445,7 @@ class LMExecutable:
 
     def __init__(self, params, cfg: ArchConfig, *, batch: int, max_len: int,
                  seq_buckets: Sequence[int], dataflow: Optional[str],
-                 device: torch.device):
+                 device: torch.device, autotune: bool = False):
         from repro_torch.lm import model as lm_model
 
         bad = sorted(set(cfg.layer_types) - {"attn"})
@@ -446,12 +462,14 @@ class LMExecutable:
                 "stacks; encoder-decoder and embedding-input archs are "
                 "not ported yet")
         serve_cfg = dataclasses.replace(
-            cfg, quant="radix", use_kernel=True, kernel_autotune=False,
+            cfg, quant="radix", use_kernel=True,
+            kernel_autotune=bool(autotune),
             kernel_dataflow=dataflow or cfg.kernel_dataflow)
         lm_model.check_supported(serve_cfg)
         self.cfg = serve_cfg
         self.arch = cfg.name
         self.dataflow = serve_cfg.kernel_dataflow
+        self.autotune = bool(autotune)
         self.device = device
         self.batch = int(batch)
         self.max_len = int(max_len)
@@ -486,6 +504,94 @@ class LMExecutable:
                 f"top sequence bucket {self.buckets[-1]} must stay below "
                 f"max_len={self.max_len} (the KV cache needs at least one "
                 "free decode slot)")
+        self._tuned_rows: list = []
+        if self.autotune:
+            self._tuned_rows = self._sweep()
+
+    def _sweep(self) -> list:
+        """Tune, here at compile time, every radix matmul problem the plans
+        run: each weight at M = batch * bucket rows (prefill) and at M =
+        batch (decode; the untied lm head only there), so the plans'
+        lookups hit.  One row per (weight, M) problem, with the winner."""
+        from repro_torch.core import encoding as encoding_mod
+        from repro_torch.kernels import autotune as autotune_mod
+        from repro_torch.kernels import ops as kops
+
+        problems = []
+
+        def walk(t, path=""):
+            if isinstance(t, dict):
+                if set(t) == {"qt", "scale"}:
+                    qt = t["qt"]
+                    problems.append((path, qt.reshape((-1,) + tuple(
+                        qt.shape[-2:]))[0]))
+                    return
+                for k in sorted(t):
+                    walk(t[k], f"{path}/{k}" if path else k)
+            elif isinstance(t, (tuple, list)):
+                for i, v in enumerate(t):
+                    walk(v, f"{path}/{i}")
+
+        walk(self.params)
+        T = self.cfg.radix_steps
+        method = self.cfg.kernel_dataflow
+        gen = torch.Generator().manual_seed(0)
+        rows, seen = [], set()
+        for name, qt in problems:
+            n, k = int(qt.shape[0]), int(qt.shape[1])
+            ms = {self.batch} if name.endswith("unembed") else (
+                {self.batch * b for b in self.buckets} | {self.batch})
+            for m in sorted(ms):
+                key = autotune_mod.matmul_key(
+                    m, k, n, T, method, epilogue=False, sparsity=False,
+                    backend=self.device)
+                if key in seen:
+                    continue
+                seen.add(key)
+                x = torch.randint(0, encoding_mod.max_level(T) + 1, (m, k),
+                                  generator=gen, dtype=torch.uint8)
+                kops.radix_matmul(x.to(self.device), qt, None, T,
+                                  method=method, autotune=True, kmajor=True)
+                win = autotune_mod.default_cache().get(key)
+                rows.append({"layer": name, "m": m, "k": k, "n": n,
+                             "tuned": win is not None,
+                             **(win or autotune_mod.KernelConfig()).as_dict()})
+        if self.cfg.packed_attn and self.cfg.radix_kv:
+            rows.append(self._sweep_attn(gen))
+        return rows
+
+    def _sweep_attn(self, gen: torch.Generator) -> dict:
+        """Tune the decode plan's attention problem: S = max_len over a
+        synthetic radix cache (seeded levels, unit scales, every slot
+        valid), so the decode plan's lookup hits."""
+        from repro_torch.kernels import autotune as autotune_mod
+        from repro_torch.kernels import ops as kops
+        from repro_torch.lm import radix as radix_lib
+
+        cfg, b, s_len = self.cfg, self.batch, self.max_len
+        t, hkv, hd = cfg.radix_steps, cfg.n_kv_heads, cfg.hd
+        g = cfg.n_heads // hkv
+        packed = radix_lib._packed(cfg)
+        method = cfg.kernel_dataflow
+        q = torch.randn((b, hkv * g, hd), generator=gen).to(
+            self.device, radix_lib.torch_dtype(cfg.dtype))
+        lv = [torch.randint(0, 1 << t, (b, s_len, hkv, hd), generator=gen,
+                            dtype=torch.uint8) for _ in range(2)]
+        if packed:
+            lv = [radix_lib._pack4(x) for x in lv]
+        k_q, v_q = (x.to(self.device) for x in lv)
+        scale = torch.ones((b, s_len, hkv), dtype=torch.float32,
+                           device=self.device)
+        mask = torch.ones((b, s_len), dtype=torch.bool, device=self.device)
+        kops.radix_decode_attention(q, k_q, scale, v_q, scale, mask, t,
+                                    packed=packed, method=method,
+                                    autotune=True)
+        win = autotune_mod.default_cache().get(autotune_mod.attn_key(
+            b, s_len, hkv, g, hd, t, method, q_bits=kops.Q_BITS,
+            packed=packed, sparsity=True, backend=self.device))
+        return {"layer": "decode_attn", "m": b, "k": hd, "n": s_len,
+                "tuned": win is not None,
+                **(win or autotune_mod.KernelConfig()).as_dict()}
 
     def __repr__(self) -> str:
         return (f"LMExecutable({self.arch!r}, T={self.cfg.radix_steps}, "
@@ -590,7 +696,13 @@ class LMExecutable:
         """LM plan-cache counters (``hits`` / ``compiles`` / ``executions``
         / ``padded_rows`` / ``failures``: ``compiles`` stays flat in
         steady state, one prefill plan per sequence bucket plus one decode
-        plan) and an ``autotune`` sub-dict (not ported: disabled)."""
+        plan) and an ``autotune`` sub-dict: whether the compile-time sweep
+        ran, the winner table's counters, and one row per swept problem
+        with the launch the plans use."""
+        from repro_torch.kernels import autotune as autotune_mod
+
         d = self._cache.stats.as_dict()
-        d["autotune"] = {"enabled": False, "layers": []}
+        d["autotune"] = {"enabled": self.autotune,
+                         **autotune_mod.default_cache().stats.as_dict(),
+                         "layers": list(self._tuned_rows)}
         return d

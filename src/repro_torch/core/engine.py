@@ -14,6 +14,8 @@
   steady-state recompiles.
 * :class:`LMPlanCache` — the LM's sequence-bucket ladder: one prefill plan
   per bucket and one decode-step plan.
+* :func:`memory_report` — the paper's ping-pong buffer sizing and memory
+  access counts (Sec. III-C), a static model in plain Python.
 
 PyTorch runs eagerly, so a "compile" here builds the plan's closures and
 device-resident parameters; the CUDA kernels themselves are built once
@@ -23,6 +25,7 @@ per process at first launch.
 from __future__ import annotations
 
 import dataclasses
+import math
 import weakref
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -33,7 +36,8 @@ import torch.nn.functional as F
 from repro_torch.core import conversion, encoding, layers
 
 __all__ = ["CompiledPlan", "PlanLayerInfo", "PlanCache", "PlanCacheStats",
-           "LMPlanCache", "DEFAULT_BUCKETS"]
+           "LMPlanCache", "DEFAULT_BUCKETS", "LayerMem", "MemoryReport",
+           "memory_report"]
 
 
 # ---------------------------------------------------------------------------
@@ -199,6 +203,7 @@ def _compile_plan_impl(
     method: Optional[str] = "fused",
     spec: Optional[encoding.EncodingSpec] = None,
     device="cpu",
+    autotune: bool = False,
 ) -> CompiledPlan:
     """Compile ``qnet`` into a radix-kernel pipeline on ``device``.
 
@@ -221,11 +226,21 @@ def _compile_plan_impl(
     their place, is the K-major copy of every weight the int8 tensor cores
     read (``kernels.gemm.matmul_kmajor`` / ``conv_kmajor``); the plan holds
     no other copy.
+
+    ``autotune=True`` picks each conv and linear layer's launch (tile and
+    split-K) by timing ``kernels.autotune``'s candidates here, at compile
+    time, on seeded levels of the layer's input shape, and reuses cached
+    winners.  Every candidate gives the same integers.  ``tuned_tiles``
+    records per layer the launch that runs: on CUDA its resolved tile and
+    split, with the sweep's times when one ran.
     """
+    from repro_torch.kernels import autotune as autotune_mod
     from repro_torch.kernels import gemm, ops as kops
     from repro_torch.kernels.autotune import KernelConfig
-    from repro_torch.kernels.radix_conv import radix_conv2d_cuda
-    from repro_torch.kernels.radix_matmul import radix_matmul_cuda
+    from repro_torch.kernels.radix_conv import (radix_conv2d_cuda,
+                                                radix_conv2d_plain)
+    from repro_torch.kernels.radix_matmul import (radix_matmul_cuda,
+                                                  radix_matmul_plain)
 
     device = torch.device(device)
     spec = spec if spec is not None else qnet.spec
@@ -260,16 +275,51 @@ def _compile_plan_impl(
         row, occ_bits = kops.plane_occupancy(state, in_bits)
         return row, (in_bits - occ_bits.sum()) * periods
 
+    tune_rng = np.random.default_rng(0)   # the sweep's stand-in levels
+    sms = gemm.device_sms(device)
+
+    def _tune_sample(shape, nbits):
+        """Seeded levels standing in for a layer's input in the sweep,
+        uniform over the level range (every plane occupied)."""
+        dt = np.uint8 if nbits <= 8 else np.int32
+        return torch.from_numpy(tune_rng.integers(
+            0, 1 << nbits, shape, dtype=dt)).to(device)
+
+    def _kernel(cuda_fn, plain_fn, kcfg):
+        """The function a layer calls and its extra arguments."""
+        if kcfg.impl == "cuda":
+            return cuda_fn, {"config": kcfg}
+        return plain_fn, {}
+
+    def _resolve(name, key_fn, cand_fn, build, in_shape, in_bits, mnk):
+        """One layer's launch: the tuned winner (swept here, eagerly) or
+        the untuned default, recorded in ``tuned_tiles`` as it runs."""
+        sweep = []
+        if autotune:
+            sample = _tune_sample(in_shape, in_bits)
+            kcfg = autotune_mod.tune(
+                key_fn(), cand_fn(),
+                lambda c: (lambda: build(c)(sample)[0]),
+                on_result=lambda c, us: sweep.append(
+                    {**c.as_dict(), "us": us}))
+        else:
+            kcfg = KernelConfig()
+        row = {"layer": name, "tuned": bool(autotune), **kcfg.as_dict()}
+        if kcfg.impl == "cuda" and sms is not None:
+            launch = kcfg.launch(*mnk, sms)
+            row.update(bm=launch.tile.act, bn=launch.tile.w,
+                       bk=launch.tile.bk, split=launch.split)
+        if sweep:
+            row["sweep"] = sweep
+        tuned.append(row)
+        return kcfg
+
     def _record(name, out_shape, last):
         infos.append(PlanLayerInfo(
             name=name, out_shape=out_shape,
             out_dtype="int32" if last else "uint8",
             act_write_bytes=_elems(out_shape) * (4 if last else 1),
             act_write_bytes_int32=_elems(out_shape) * 4))
-        tile = gemm.tile_for(_elems(out_shape[:-1]), out_shape[-1])
-        tuned.append({"layer": name, "tuned": False,
-                      **KernelConfig(bm=tile.act, bn=tile.w,
-                                     bk=tile.bk).as_dict()})
 
     for (kind, cfg), qp in zip(qnet.static, qnet.qlayers):
         if kind in ("conv", "linear"):
@@ -291,32 +341,53 @@ def _compile_plan_impl(
             assert cin == c, (cin, c)
             w_k = gemm.conv_kmajor(w_q)
             stride = cfg.get("stride", 1)
+            in_shape = (batch, h, w, c)
             pads = None
             if cfg.get("padding", "VALID") == "SAME":
                 ph = kops.same_pads(h, kh, stride)
                 pw = kops.same_pads(w, kw, stride)
                 pads = (0, 0, pw[0], pw[1], ph[0], ph[1])
                 h, w = h + sum(ph), w + sum(pw)
+            hp, wp = h, w
             h = (h - kh) // stride + 1
             w = (w - kw) // stride + 1
             c = cout
 
-            def apply(state, *, pads=pads, w_k=w_k, in_bits=in_bits,
-                      stride=stride, rows=rows, last=last,
-                      b=b if last else None):
-                if pads is not None:
-                    state = F.pad(state, pads)
-                state = state.contiguous()
-                occ, skipped = _occ(state, in_bits)
-                out = radix_conv2d_cuda(state, w_k, num_steps=in_bits,
-                                        stride=stride, occupancy=occ,
-                                        kmajor=True, **kernel_kw, **rows)
-                return (out + b if last else out), skipped
+            def build_conv(kcfg, *, pads=pads, w_k=w_k, in_bits=in_bits,
+                           stride=stride, rows=rows, last=last,
+                           b=b if last else None):
+                kfn, extra = _kernel(radix_conv2d_cuda, radix_conv2d_plain,
+                                     kcfg)
+
+                def apply(state):
+                    if pads is not None:
+                        state = F.pad(state, pads)
+                    state = state.contiguous()
+                    occ, skipped = _occ(state, in_bits)
+                    out = kfn(state, w_k, num_steps=in_bits, stride=stride,
+                              occupancy=occ, kmajor=True, **kernel_kw,
+                              **rows, **extra)
+                    return (out + b if last else out), skipped
+                return apply
 
             name = f"conv{kh}x{kw}x{cin}->{cout}" + (
                 f"/s{stride}" if stride > 1 else "")
+            layer_sched = encoding.KernelSchedule(
+                packed_bits=in_bits, periods=periods,
+                out_grid=sched.out_grid)
+            kcfg = _resolve(
+                name,
+                lambda: autotune_mod.conv_key(
+                    hp, wp, cin, kh, kw, cout, stride, layer_sched, method,
+                    batch=batch, epilogue=not last, sparsity=True,
+                    backend=device),
+                lambda: autotune_mod.conv_candidates(
+                    hp, wp, cin, kh, kw, cout, stride, layer_sched, method,
+                    batch=batch, backend=device, sms=sms),
+                build_conv, in_shape, in_bits,
+                (batch * h * w, cout, kh * kw * cin))
             _record(name, (batch, h, w, cout), last)
-            steps.append(apply)
+            steps.append(build_conv(kcfg))
             bits = T
 
         elif kind == "linear":
@@ -325,17 +396,34 @@ def _compile_plan_impl(
             f = fout
             w_k = gemm.matmul_kmajor(w_q)
 
-            def apply(state, *, w_k=w_k, in_bits=in_bits, rows=rows,
-                      last=last, b=b if last else None):
-                state = state.contiguous()
-                occ, skipped = _occ(state, in_bits)
-                out = radix_matmul_cuda(state, w_k, num_steps=in_bits,
-                                        occupancy=occ, kmajor=True,
-                                        **kernel_kw, **rows)
-                return (out + b if last else out), skipped
+            def build_linear(kcfg, *, w_k=w_k, in_bits=in_bits, rows=rows,
+                             last=last, b=b if last else None):
+                kfn, extra = _kernel(radix_matmul_cuda, radix_matmul_plain,
+                                     kcfg)
 
-            _record(f"linear{fin}->{fout}", (batch, fout), last)
-            steps.append(apply)
+                def apply(state):
+                    state = state.contiguous()
+                    occ, skipped = _occ(state, in_bits)
+                    out = kfn(state, w_k, num_steps=in_bits, occupancy=occ,
+                              kmajor=True, **kernel_kw, **rows, **extra)
+                    return (out + b if last else out), skipped
+                return apply
+
+            name = f"linear{fin}->{fout}"
+            layer_sched = encoding.KernelSchedule(
+                packed_bits=in_bits, periods=periods,
+                out_grid=sched.out_grid)
+            kcfg = _resolve(
+                name,
+                lambda: autotune_mod.matmul_key(
+                    batch, fin, fout, layer_sched, method,
+                    epilogue=not last, sparsity=True, backend=device),
+                lambda: autotune_mod.matmul_candidates(
+                    batch, fin, fout, layer_sched, method, backend=device,
+                    sms=sms),
+                build_linear, (batch, fin), in_bits, (batch, fout, fin))
+            _record(name, (batch, fout), last)
+            steps.append(build_linear(kcfg))
             bits = T
 
         elif kind == "pool":
@@ -459,6 +547,7 @@ class PlanCache:
     ``compile_fn(qnet, input_shape) -> plan`` replaces the kernel plan
     compiler; ``api`` passes one for the ``jnp`` backend, whose per-bucket
     plans share the bucketing, chunking and counters with kernel plans.
+    ``autotune`` tunes each kernel plan's layers as it is built.
     A plan is called on the padded batch and has ``plane_stats()``,
     ``reset_plane_stats()`` and ``tuned_tiles``, as ``CompiledPlan`` does.
     """
@@ -466,7 +555,8 @@ class PlanCache:
     def __init__(self, buckets: Sequence[int] = DEFAULT_BUCKETS, *,
                  method: str = "fused",
                  encoding: Optional[encoding.EncodingSpec] = None,
-                 device="cpu", compile_fn: Optional[Callable] = None):
+                 device="cpu", compile_fn: Optional[Callable] = None,
+                 autotune: bool = False):
         bs = tuple(sorted({int(b) for b in buckets}))
         if not bs or bs[0] < 1:
             raise ValueError(f"bucket ladder must be positive, got {buckets}")
@@ -475,6 +565,7 @@ class PlanCache:
         self.encoding = encoding
         self.device = torch.device(device)
         self._compile_fn = compile_fn
+        self.autotune = bool(autotune)
         self.stats = PlanCacheStats()
         self._plans: dict = {}
 
@@ -524,7 +615,8 @@ class PlanCache:
             plan = self._compile_fn(qnet, shape)
         else:
             plan = _compile_plan_impl(qnet, shape, method=self.method,
-                                      spec=self.encoding, device=self.device)
+                                      spec=self.encoding, device=self.device,
+                                      autotune=self.autotune)
         self._plans[key] = (weakref.ref(qnet), plan)
         self.stats.compiles += 1
         return plan
@@ -637,3 +729,109 @@ class LMPlanCache:
         """Count one plan call (and any pad rows/columns it carried)."""
         self.stats.executions += 1
         self.stats.padded_rows += int(padded_rows)
+
+
+# ---------------------------------------------------------------------------
+# Ping-pong buffer sizing and memory-access accounting.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class LayerMem:
+    name: str
+    in_shape: Tuple[int, ...]
+    out_shape: Tuple[int, ...]
+    act_bits: int                 # bits per activation element (T, packed)
+    weight_bytes: int             # parameter bytes at weight_bits resolution
+    act_reads: int                # activation elements read (with row reuse)
+    act_writes: int
+    weight_reads: int             # weight elements fetched (row reuse: once
+                                  # per (out-row, time step) per kernel row)
+
+
+@dataclasses.dataclass
+class MemoryReport:
+    layers: List[LayerMem]
+    buf2d_bytes: int              # ping + pong 2-D activation buffers
+    buf1d_bytes: int              # ping + pong 1-D activation buffers
+    weight_bram_bytes: int        # on-chip weight storage if it fits
+    needs_dram: bool              # paper: VGG-11 streams weights from DRAM
+    total_param_bytes: int
+
+    @property
+    def total_buffer_bytes(self) -> int:
+        return self.buf2d_bytes + self.buf1d_bytes
+
+
+def memory_report(qnet: conversion.QuantizedNet,
+                  input_hw: Tuple[int, int, int], *,
+                  bram_capacity_bytes: int = 8 << 20) -> MemoryReport:
+    """Static ping-pong sizing and access counts for one inference (batch
+    1), as Sec. III-C lays them out: two 2-D buffers sized to the largest
+    conv/pool feature map (T bits per element, packed), two 1-D buffers for
+    the linear layers; weights on chip iff they fit
+    ``bram_capacity_bytes``.  A model of the paper's accelerator, not of
+    the card."""
+    T = qnet.num_steps
+    h, w, c = input_hw
+    shape: Tuple[int, ...] = (h, w, c)
+    layer_mems: List[LayerMem] = []
+    max2d = int(np.prod(shape))
+    max1d = 0
+    total_param_bytes = 0
+
+    for (kind, cfg), qp in zip(qnet.static, qnet.qlayers):
+        in_shape = shape
+        if kind == "conv":
+            kh, kw, cin, cout = (int(d) for d in qp["w_q"].shape)
+            stride = cfg.get("stride", 1)
+            if cfg.get("padding", "VALID") == "SAME":
+                ho = -(-shape[0] // stride)
+                wo = -(-shape[1] // stride)
+            else:
+                ho = (shape[0] - kh) // stride + 1
+                wo = (shape[1] - kw) // stride + 1
+            shape = (ho, wo, cout)
+            wbytes = math.ceil(kh * kw * cin * cout * qnet.weight_bits / 8)
+            total_param_bytes += wbytes
+            layer_mems.append(LayerMem(
+                name=f"conv{kh}x{kw}x{cin}->{cout}",
+                in_shape=in_shape, out_shape=shape, act_bits=T,
+                weight_bytes=wbytes,
+                # row-based reuse: each input row read once per (out-channel
+                # pass, time step); kernel rows re-fetched per output row
+                act_reads=T * cin * shape[0] * in_shape[1] * kh,
+                act_writes=int(np.prod(shape)),
+                weight_reads=T * cin * cout * kh * kw * shape[0]))
+            max2d = max(max2d, int(np.prod(shape)))
+        elif kind == "linear":
+            fin, fout = (int(d) for d in qp["w_q"].shape)
+            shape = (fout,)
+            wbytes = math.ceil(fin * fout * qnet.weight_bits / 8)
+            total_param_bytes += wbytes
+            layer_mems.append(LayerMem(
+                name=f"linear{fin}->{fout}",
+                in_shape=in_shape, out_shape=shape, act_bits=T,
+                weight_bytes=wbytes, act_reads=T * fin, act_writes=fout,
+                weight_reads=T * fin * fout))
+            max1d = max(max1d, fin, fout)
+        elif kind == "pool":
+            win = cfg["window"]
+            shape = (shape[0] // win, shape[1] // win, shape[2])
+            layer_mems.append(LayerMem(
+                name=f"pool{win}", in_shape=in_shape, out_shape=shape,
+                act_bits=T, weight_bytes=0,
+                act_reads=T * int(np.prod(in_shape)),
+                act_writes=int(np.prod(shape)), weight_reads=0))
+            max2d = max(max2d, int(np.prod(shape)))
+        elif kind == "flatten":
+            shape = (int(np.prod(shape)),)
+            max1d = max(max1d, shape[0])
+
+    buf2d = 2 * math.ceil(max2d * T / 8)          # ping + pong, T-bit packed
+    buf1d = 2 * math.ceil(max1d * T / 8)
+    needs_dram = total_param_bytes > bram_capacity_bytes
+    return MemoryReport(
+        layers=layer_mems, buf2d_bytes=buf2d, buf1d_bytes=buf1d,
+        weight_bram_bytes=0 if needs_dram else total_param_bytes,
+        needs_dram=needs_dram, total_param_bytes=total_param_bytes)

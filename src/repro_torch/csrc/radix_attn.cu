@@ -31,10 +31,16 @@
 // KV blocks with the softmax state in VMEM scratch.  Here one block owns
 // one (row = (batch, kv-head), split) pair, a split being `split`
 // consecutive slots cut into 32-slot tiles, so a batch-8 decode over 512
-// slots runs 128 blocks instead of 8.  The block has one warp per query
-// head of the row's group (K/V bytes are read once per group):
-//   - each warp loads its head's query from the caller's bf16/f32 q
-//     before the mask (the two latencies overlap) and quantizes it;
+// slots runs 128 blocks instead of 8.  The block has min(g, 8) warps for
+// the row's group of g query heads, and warp w owns heads w, w + 8, ...
+// (any g: GLM4-9B's 16, RecurrentGemma-2B's 10), so K/V bytes are read
+// from device memory once per block whatever the group.  A head's state
+// (m, l, qs, qsum, o) lives in shared memory, and each head's arithmetic
+// is the same whichever warp runs it; any hd with whole 4-byte cache
+// words, each lane taking units lane, lane + 32, ... of the head:
+//   - each warp loads its first head's query from the caller's bf16/f32
+//     q before the mask (the two latencies overlap) and quantizes its
+//     heads once a tile is in flight;
 //   - the mask row is read as the caller's bool bytes with one
 //     __ballot_sync per tile; a tile with no valid slot is neither loaded
 //     nor computed (its update would leave (m, l, o) exactly as they are),
@@ -42,12 +48,12 @@
 //   - tiles arrive by 16-byte cp.async (4-byte when a row is not 16-byte
 //     aligned), masked slots zero-filled, double-buffered so the next
 //     valid tile is in flight while this one is scored;
-//   - QK^T: lane j scores slot j; softmax: warp reductions over the 32
-//     lanes; PV: each lane owns 4-dim units of the head, holds the tile's
-//     32 levels of each unit in registers and sums the 32 slots as a
-//     pairwise tree taken in bit-reversed slot order (the butterfly's
-//     order), o in registers; a bitserial plane bit times pw is a select
-//     of pw or pw * 0, the bits of the multiply;
+//   - per tile, each warp walks its heads: QK^T, lane j scoring slot j;
+//     softmax: warp reductions over the 32 lanes; PV: each lane owns
+//     4-dim units of the head, holds the tile's 32 levels of a unit in
+//     registers and sums the 32 slots as a pairwise tree taken in
+//     bit-reversed slot order (the butterfly's order); a bitserial plane
+//     bit times pw is a select of pw or pw * 0, the bits of the multiply;
 //   - bitserial plane passes are gated on the OR of the levels the warp
 //     read in this tile (__reduce_or_sync).  An empty plane adds exactly
 //     +0 to the int32 dot and to the non-negative value sums, so gating
@@ -80,10 +86,10 @@
 
 namespace {
 
-constexpr int SLOTS = 32;      // KV slots per tile: one per lane
-constexpr int MAX_G = 8;       // query heads per block: one warp each
-constexpr int MAX_UNITS = 2;   // 4-dim units per lane: hd <= 256
+constexpr int SLOTS = 32;       // KV slots per tile: one per lane
+constexpr int MAX_WARPS = 8;    // warps per block; each loops over heads
 constexpr int MAX_LOG_SPLITS = 5;   // <= 32 splits a row
+constexpr size_t MAX_SMEM = 232448;   // dynamic shared memory a block can use
 constexpr float MASKED = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr unsigned ONES = 0x01010101u;
@@ -257,9 +263,8 @@ __device__ __forceinline__ void combine_row(const float* e_s,
   }
   // every split's o of this lane's units in flight at once (one unit at a
   // time past 16 splits, to bound the registers)
-  constexpr int UNITS = W <= 16 ? MAX_UNITS : 1;
-  for (int k0 = 0; k0 < MAX_UNITS; k0 += UNITS) {
-    if (lane + 32 * k0 >= nunits) break;
+  constexpr int UNITS = W <= 16 ? 2 : 1;
+  for (int k0 = 0; lane + 32 * k0 < nunits; k0 += UNITS) {
     float4 v[UNITS][W];
 #pragma unroll
     for (int kk = 0; kk < UNITS; ++kk) {
@@ -335,12 +340,12 @@ __device__ __forceinline__ unsigned plane_word(unsigned w, unsigned qa,
 }
 
 template <bool PACKED, bool FUSED, typename QT>
-__global__ void __launch_bounds__(MAX_G * 32)
+__global__ void __launch_bounds__(MAX_WARPS * 32)
     radix_decode_attn_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int last_s;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nthreads = blockDim.x;
+  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
   const int split = blockIdx.x, row = blockIdx.y;
   const int b = row / p.hkv, h = row - b * p.hkv;
   const int g = p.g, hd = p.hd;
@@ -354,22 +359,38 @@ __global__ void __launch_bounds__(MAX_G * 32)
   const int nunits = hd / 4;
   unsigned char* q_s = smem + 2 * buf_bytes;                  // [g][qrow]
   float* pw_s = reinterpret_cast<float*>(q_s + g * qrow);     // [g][SLOTS]
-  unsigned* bits_s = reinterpret_cast<unsigned*>(pw_s + g * SLOTS);  // tiles
+  float* o_s = pw_s + g * SLOTS;                              // [g][hd]
+  float* st_s = o_s + g * hd;   // [g][4]: m, l, qs, qsum (int)
+  unsigned* bits_s = reinterpret_cast<unsigned*>(st_s + 4 * g);  // tiles
 
   const int s0 = split * p.split;
   const int s_end = min(p.s_len, s0 + p.split);
   const int ntiles = (s_end - s0 + SLOTS - 1) / SLOTS;
 
-  // this warp's query head, loaded first so its latency overlaps the mask's
-  const QT* qp = static_cast<const QT*>(p.q) + b * p.q_b +
-                 static_cast<long long>(h * g + warp) * p.q_h;
-  float qv[4 * MAX_UNITS];   // dims lane + 32 i
+  // this warp's first query head (dims lane + 32 i, i < 8), loaded before
+  // the mask so the two latencies overlap; the warp's other heads, and
+  // dims past 256, are read where they are quantized.  Each head's state
+  // starts at (MASKED, 0, o = 0).
+  const QT* qb = static_cast<const QT*>(p.q) + b * p.q_b;
+  float qv[8];
+  {
+    const QT* qp = qb + static_cast<long long>(h * g + warp) * p.q_h;
 #pragma unroll
-  for (int i = 0; i < 4 * MAX_UNITS; ++i)
-    qv[i] = lane + 32 * i < hd ? to_f32(qp[lane + 32 * i]) : 0.0f;
+    for (int i = 0; i < 8; ++i)
+      qv[i] = lane + 32 * i < hd ? to_f32(qp[lane + 32 * i]) : 0.0f;
+  }
+  for (int hh = warp; hh < g; hh += nwarps) {
+    for (int u = lane; u < nunits; u += 32)
+      reinterpret_cast<float4*>(o_s + hh * hd)[u] =
+          make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (lane == 0) {
+      st_s[4 * hh] = MASKED;
+      st_s[4 * hh + 1] = 0.0f;
+    }
+  }
 
   // valid slots of each tile, one bit per slot: a ballot over the mask row
-  for (int t = warp; t < ntiles; t += nthreads / 32) {
+  for (int t = warp; t < ntiles; t += nwarps) {
     const int s = s0 + t * SLOTS + lane;
     const bool ok = s < s_end && p.mask[b * p.m_b + s * p.m_s] != 0;
     const unsigned bits = __ballot_sync(FULL, ok);
@@ -426,13 +447,6 @@ __global__ void __launch_bounds__(MAX_G * 32)
     cp_async_commit();
   };
 
-  float m = MASKED, l = 0.0f;   // this warp's head: uniform over lanes
-  float o[MAX_UNITS][4];
-#pragma unroll
-  for (int k = 0; k < MAX_UNITS; ++k)
-#pragma unroll
-    for (int d = 0; d < 4; ++d) o[k][d] = 0.0f;
-
   unsigned cur_bits = 0;
   int cur = next_tile(0, cur_bits);
   if (cur < ntiles) {
@@ -446,29 +460,45 @@ __global__ void __launch_bounds__(MAX_G * 32)
     }
     load_tile(cur, cur_bits, 0);
 
-    // the query head quantized as quantize_q does
-    float amax = 0.0f;
-#pragma unroll
-    for (int i = 0; i < 4 * MAX_UNITS; ++i) amax = fmaxf(amax, fabsf(qv[i]));
-    const float qs = __fadd_rn(warp_max(amax), 1e-9f);
+    // each head of this warp quantized as quantize_q does
     const float qlvl = static_cast<float>(p.qlvl);
-    unsigned char* qr = q_s + warp * qrow;
-    int qsum = 0;
+    for (int hh = warp; hh < g; hh += nwarps) {
+      const QT* qp = qb + static_cast<long long>(h * g + hh) * p.q_h;
+      const bool first = hh == warp;
+      float amax = 0.0f;
+      if (first) {
 #pragma unroll
-    for (int i = 0; i < 4 * MAX_UNITS; ++i) {
-      const int d = lane + 32 * i;
-      if (d >= hd) break;
-      const float u = __fmul_rn(__fadd_rn(__fdiv_rn(qv[i], qs), 1.0f), 0.5f);
-      const int lv = static_cast<int>(
-          fminf(fmaxf(rintf(__fmul_rn(u, qlvl)), 0.0f), qlvl));
-      qsum += lv;
-      // packed: each 8-dim group as (dims 0,2,4,6 | dims 1,3,5,7)
-      const int r = d & 7;
-      qr[PACKED ? (d & ~7) + ((r & 1) ? 4 : 0) + (r >> 1) : d] =
-          static_cast<unsigned char>(lv);
+        for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(qv[i]));
+      }
+      for (int d = lane + (first ? 256 : 0); d < hd; d += 32)
+        amax = fmaxf(amax, fabsf(to_f32(qp[d])));
+      const float qs = __fadd_rn(warp_max(amax), 1e-9f);
+      unsigned char* qr = q_s + hh * qrow;
+      int qsum = 0;
+      auto quantize = [&](int d, float x) {
+        const float u = __fmul_rn(__fadd_rn(__fdiv_rn(x, qs), 1.0f), 0.5f);
+        const int lv = static_cast<int>(
+            fminf(fmaxf(rintf(__fmul_rn(u, qlvl)), 0.0f), qlvl));
+        qsum += lv;
+        // packed: each 8-dim group as (dims 0,2,4,6 | dims 1,3,5,7)
+        const int r = d & 7;
+        qr[PACKED ? (d & ~7) + ((r & 1) ? 4 : 0) + (r >> 1) : d] =
+            static_cast<unsigned char>(lv);
+      };
+      if (first) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (lane + 32 * i < hd) quantize(lane + 32 * i, qv[i]);
+      }
+      for (int d = lane + (first ? 256 : 0); d < hd; d += 32)
+        quantize(d, to_f32(qp[d]));
+      for (int d = hd + lane; d < qrow; d += 32) qr[d] = 0;
+      qsum = warp_isum(qsum);
+      if (lane == 0) {
+        st_s[4 * hh + 2] = qs;
+        reinterpret_cast<int*>(st_s)[4 * hh + 3] = qsum;
+      }
     }
-    for (int d = hd + lane; d < qrow; d += 32) qr[d] = 0;
-    qsum = warp_isum(qsum);
     __syncwarp();
 
     int buf = 0;
@@ -488,154 +518,180 @@ __global__ void __launch_bounds__(MAX_G * 32)
       const float* ksb = reinterpret_cast<const float*>(vb + SLOTS * rs);
       const float* vsb = ksb + SLOTS;
       const bool valid = (cur_bits >> lane) & 1u;
-
-      // QK^T: lane j scores slot j against this warp's head
       const unsigned char* krow = kb + lane * rs;
-      unsigned sint = 0, ksum = 0;
-      if (FUSED) {
-        for (int c = 0; c < nch; ++c) {
-          const uint4 kw = *reinterpret_cast<const uint4*>(krow + c * 16);
-          if (PACKED) {
-            const uint4 qa = *reinterpret_cast<const uint4*>(qr + c * 32);
-            const uint4 qb = *reinterpret_cast<const uint4*>(qr + c * 32 + 16);
-            dot_word<true>(kw.x, qa.x, qa.y, sint, ksum);
-            dot_word<true>(kw.y, qa.z, qa.w, sint, ksum);
-            dot_word<true>(kw.z, qb.x, qb.y, sint, ksum);
-            dot_word<true>(kw.w, qb.z, qb.w, sint, ksum);
-          } else {
-            const uint4 qa = *reinterpret_cast<const uint4*>(qr + c * 16);
-            dot_word<false>(kw.x, qa.x, 0, sint, ksum);
-            dot_word<false>(kw.y, qa.y, 0, sint, ksum);
-            dot_word<false>(kw.z, qa.z, 0, sint, ksum);
-            dot_word<false>(kw.w, qa.w, 0, sint, ksum);
-          }
-        }
-      } else {
-        unsigned occ = 0;
-        for (int c = 0; c < nch; ++c) {
-          const uint4 kw = *reinterpret_cast<const uint4*>(krow + c * 16);
-          const unsigned ws[4] = {kw.x, kw.y, kw.z, kw.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const unsigned w = ws[i];
-            if (PACKED) {
-              const unsigned hi = (w >> 4) & 0x0F0F0F0Fu, lo = w & 0x0F0F0F0Fu;
-              ksum = __dp4a(hi + lo, ONES, ksum);
-              occ |= hi | lo;
-            } else {
-              ksum = __dp4a(w, ONES, ksum);
-              occ |= w;
-            }
-          }
-        }
-        unsigned planes = (1u << p.steps) - 1u;
-        if (p.gate) {   // planes empty in every row this warp read: skipped
-          occ = __reduce_or_sync(FULL, occ);
-          occ |= occ >> 16;
-          occ |= occ >> 8;
-          planes &= occ;
-        }
-        for (int s = 0; s < p.steps; ++s) {
-          if (!((planes >> s) & 1u)) continue;
-          unsigned part = 0;
+
+      for (int hh = warp; hh < g; hh += nwarps) {
+        const unsigned char* qr = q_s + hh * qrow;
+        const float m = st_s[4 * hh], l = st_s[4 * hh + 1];
+        const float qs = st_s[4 * hh + 2];
+        const int qsum = reinterpret_cast<const int*>(st_s)[4 * hh + 3];
+
+        // QK^T: lane j scores slot j against head hh
+        unsigned sint = 0, ksum = 0;
+        if (FUSED) {
           for (int c = 0; c < nch; ++c) {
             const uint4 kw = *reinterpret_cast<const uint4*>(krow + c * 16);
             if (PACKED) {
               const uint4 qa = *reinterpret_cast<const uint4*>(qr + c * 32);
-              const uint4 qb =
+              const uint4 qb2 =
                   *reinterpret_cast<const uint4*>(qr + c * 32 + 16);
-              part = plane_word<true>(kw.x, qa.x, qa.y, s, part);
-              part = plane_word<true>(kw.y, qa.z, qa.w, s, part);
-              part = plane_word<true>(kw.z, qb.x, qb.y, s, part);
-              part = plane_word<true>(kw.w, qb.z, qb.w, s, part);
+              dot_word<true>(kw.x, qa.x, qa.y, sint, ksum);
+              dot_word<true>(kw.y, qa.z, qa.w, sint, ksum);
+              dot_word<true>(kw.z, qb2.x, qb2.y, sint, ksum);
+              dot_word<true>(kw.w, qb2.z, qb2.w, sint, ksum);
             } else {
               const uint4 qa = *reinterpret_cast<const uint4*>(qr + c * 16);
-              part = plane_word<false>(kw.x, qa.x, 0, s, part);
-              part = plane_word<false>(kw.y, qa.y, 0, s, part);
-              part = plane_word<false>(kw.z, qa.z, 0, s, part);
-              part = plane_word<false>(kw.w, qa.w, 0, s, part);
+              dot_word<false>(kw.x, qa.x, 0, sint, ksum);
+              dot_word<false>(kw.y, qa.y, 0, sint, ksum);
+              dot_word<false>(kw.z, qa.z, 0, sint, ksum);
+              dot_word<false>(kw.w, qa.w, 0, sint, ksum);
             }
           }
-          sint += part << s;
-        }
-      }
-      const float raw = __fadd_rn(
-          __fsub_rn(__fsub_rn(__fmul_rn(p.c_sint, __int2float_rn((int)sint)),
-                              __fmul_rn(p.c_qsum, __int2float_rn(qsum))),
-                    __fmul_rn(p.c_ksum, __int2float_rn((int)ksum))),
-          p.c_hd);
-      const float score =
-          valid ? __fmul_rn(__fmul_rn(__fmul_rn(p.c_scale, qs), ksb[lane]),
-                            raw)
-                : MASKED;
-
-      // streaming softmax over the tile's 32 slots
-      const float m_new = fmaxf(m, warp_max(score));
-      const float alpha = expf(__fsub_rn(m, m_new));
-      const float pr = valid ? expf(__fsub_rn(score, m_new)) : 0.0f;
-      const float pwl = __fmul_rn(pr, vsb[lane]);
-      const float psum = warp_sum(pr);
-      const float pws = warp_sum(pwl);
-      l = __fadd_rn(__fmul_rn(l, alpha), psum);
-      m = m_new;
-      pw_s[warp * SLOTS + lane] = pwl;
-      __syncwarp();
-      float pw[SLOTS];
-#pragma unroll
-      for (int j = 0; j < SLOTS; j += 4) {
-        const float4 v4 =
-            *reinterpret_cast<const float4*>(pw_s + warp * SLOTS + j);
-        pw[j] = v4.x;
-        pw[j + 1] = v4.y;
-        pw[j + 2] = v4.z;
-        pw[j + 3] = v4.w;
-      }
-
-      // PV: this lane's 4-dim units, the tile's 32 levels in registers
-#pragma unroll
-      for (int k = 0; k < MAX_UNITS; ++k) {
-        if (32 * k >= nunits) break;   // uniform over the warp
-        const int u = lane + 32 * k;
-        const bool has = u < nunits;
-        unsigned lv[SLOTS];
-        unsigned occ = 0;
-#pragma unroll
-        for (int j = 0; j < SLOTS; ++j) {
-          lv[j] = !has ? 0u
-                  : PACKED
-                      ? *reinterpret_cast<const uint16_t*>(vb + j * rs + 2 * u)
-                      : *reinterpret_cast<const uint32_t*>(vb + j * rs + 4 * u);
-          occ |= lv[j];
-        }
-        float vint[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        if (FUSED) {
-          slot_tree<PACKED>(pw, lv, -1, vint);
         } else {
-          unsigned planes = (1u << p.steps) - 1u;
-          if (p.gate) {
-            if (PACKED) {
-              occ = (occ | (occ >> 4)) & 0x0F0Fu;
-              occ |= occ >> 8;
-            } else {
-              occ |= occ >> 16;
-              occ |= occ >> 8;
+          unsigned occ = 0;
+          for (int c = 0; c < nch; ++c) {
+            const uint4 kw = *reinterpret_cast<const uint4*>(krow + c * 16);
+            const unsigned ws[4] = {kw.x, kw.y, kw.z, kw.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const unsigned w = ws[i];
+              if (PACKED) {
+                const unsigned hi = (w >> 4) & 0x0F0F0F0Fu,
+                               lo = w & 0x0F0F0F0Fu;
+                ksum = __dp4a(hi + lo, ONES, ksum);
+                occ |= hi | lo;
+              } else {
+                ksum = __dp4a(w, ONES, ksum);
+                occ |= w;
+              }
             }
-            planes &= __reduce_or_sync(FULL, occ);
+          }
+          unsigned planes = (1u << p.steps) - 1u;
+          if (p.gate) {   // planes empty in every row this warp read: skipped
+            occ = __reduce_or_sync(FULL, occ);
+            occ |= occ >> 16;
+            occ |= occ >> 8;
+            planes &= occ;
           }
           for (int s = 0; s < p.steps; ++s) {
             if (!((planes >> s) & 1u)) continue;
-            float t[4];
-            slot_tree<PACKED>(pw, lv, s, t);
-#pragma unroll
-            for (int d = 0; d < 4; ++d)
-              vint[d] = __fadd_rn(vint[d],
-                                  __fmul_rn(t[d], static_cast<float>(1 << s)));
+            unsigned part = 0;
+            for (int c = 0; c < nch; ++c) {
+              const uint4 kw = *reinterpret_cast<const uint4*>(krow + c * 16);
+              if (PACKED) {
+                const uint4 qa = *reinterpret_cast<const uint4*>(qr + c * 32);
+                const uint4 qb2 =
+                    *reinterpret_cast<const uint4*>(qr + c * 32 + 16);
+                part = plane_word<true>(kw.x, qa.x, qa.y, s, part);
+                part = plane_word<true>(kw.y, qa.z, qa.w, s, part);
+                part = plane_word<true>(kw.z, qb2.x, qb2.y, s, part);
+                part = plane_word<true>(kw.w, qb2.z, qb2.w, s, part);
+              } else {
+                const uint4 qa = *reinterpret_cast<const uint4*>(qr + c * 16);
+                part = plane_word<false>(kw.x, qa.x, 0, s, part);
+                part = plane_word<false>(kw.y, qa.y, 0, s, part);
+                part = plane_word<false>(kw.z, qa.z, 0, s, part);
+                part = plane_word<false>(kw.w, qa.w, 0, s, part);
+              }
+            }
+            sint += part << s;
           }
         }
+        const float raw = __fadd_rn(
+            __fsub_rn(__fsub_rn(__fmul_rn(p.c_sint, __int2float_rn((int)sint)),
+                                __fmul_rn(p.c_qsum, __int2float_rn(qsum))),
+                      __fmul_rn(p.c_ksum, __int2float_rn((int)ksum))),
+            p.c_hd);
+        const float score =
+            valid ? __fmul_rn(__fmul_rn(__fmul_rn(p.c_scale, qs), ksb[lane]),
+                              raw)
+                  : MASKED;
+
+        // streaming softmax over the tile's 32 slots
+        const float m_new = fmaxf(m, warp_max(score));
+        const float alpha = expf(__fsub_rn(m, m_new));
+        const float pr = valid ? expf(__fsub_rn(score, m_new)) : 0.0f;
+        const float pwl = __fmul_rn(pr, vsb[lane]);
+        const float psum = warp_sum(pr);
+        const float pws = warp_sum(pwl);
+        pw_s[hh * SLOTS + lane] = pwl;
+        __syncwarp();   // every lane has read (m, l) and written its pw
+        if (lane == 0) {
+          st_s[4 * hh] = m_new;
+          st_s[4 * hh + 1] = __fadd_rn(__fmul_rn(l, alpha), psum);
+        }
+        float pw[SLOTS];
 #pragma unroll
-        for (int d = 0; d < 4; ++d)
-          o[k][d] = __fadd_rn(__fmul_rn(o[k][d], alpha),
-                              __fsub_rn(__fmul_rn(p.c_v, vint[d]), pws));
+        for (int j = 0; j < SLOTS; j += 4) {
+          const float4 v4 =
+              *reinterpret_cast<const float4*>(pw_s + hh * SLOTS + j);
+          pw[j] = v4.x;
+          pw[j + 1] = v4.y;
+          pw[j + 2] = v4.z;
+          pw[j + 3] = v4.w;
+        }
+
+        // PV: this lane's 4-dim units u = lane + 32 k, two at a time (their
+        // value trees are independent chains), the tile's 32 levels of a
+        // unit in registers, o in shared memory; the loops are uniform
+        // over the warp
+        for (int k0 = 0; 32 * k0 < nunits; k0 += 2) {
+#pragma unroll
+          for (int k = k0; k < k0 + 2; ++k) {
+            if (32 * k >= nunits) break;
+            const int u = lane + 32 * k;
+            const bool has = u < nunits;
+            unsigned lv[SLOTS];
+            unsigned occ = 0;
+#pragma unroll
+            for (int j = 0; j < SLOTS; ++j) {
+              const unsigned char* src = vb + j * rs;
+              lv[j] = !has ? 0u
+                      : PACKED
+                          ? *reinterpret_cast<const uint16_t*>(src + 2 * u)
+                          : *reinterpret_cast<const uint32_t*>(src + 4 * u);
+              occ |= lv[j];
+            }
+            float vint[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            if (FUSED) {
+              slot_tree<PACKED>(pw, lv, -1, vint);
+            } else {
+              unsigned planes = (1u << p.steps) - 1u;
+              if (p.gate) {
+                if (PACKED) {
+                  occ = (occ | (occ >> 4)) & 0x0F0Fu;
+                  occ |= occ >> 8;
+                } else {
+                  occ |= occ >> 16;
+                  occ |= occ >> 8;
+                }
+                planes &= __reduce_or_sync(FULL, occ);
+              }
+              for (int s = 0; s < p.steps; ++s) {
+                if (!((planes >> s) & 1u)) continue;
+                float t[4];
+                slot_tree<PACKED>(pw, lv, s, t);
+#pragma unroll
+                for (int d = 0; d < 4; ++d)
+                  vint[d] = __fadd_rn(
+                      vint[d], __fmul_rn(t[d], static_cast<float>(1 << s)));
+              }
+            }
+            if (has) {
+              float4* op = reinterpret_cast<float4*>(o_s + hh * hd) + u;
+              float4 o = *op;
+              o.x = __fadd_rn(__fmul_rn(o.x, alpha),
+                              __fsub_rn(__fmul_rn(p.c_v, vint[0]), pws));
+              o.y = __fadd_rn(__fmul_rn(o.y, alpha),
+                              __fsub_rn(__fmul_rn(p.c_v, vint[1]), pws));
+              o.z = __fadd_rn(__fmul_rn(o.z, alpha),
+                              __fsub_rn(__fmul_rn(p.c_v, vint[2]), pws));
+              o.w = __fadd_rn(__fmul_rn(o.w, alpha),
+                              __fsub_rn(__fmul_rn(p.c_v, vint[3]), pws));
+              *op = o;
+            }
+          }
+        }
       }
       __syncthreads();   // the buffer is refilled two tiles on
       if (nxt >= ntiles) break;
@@ -647,36 +703,39 @@ __global__ void __launch_bounds__(MAX_G * 32)
 
   const int nrows = gridDim.y;
   if (p.nsplit == 1) {   // the combine of one split is the identity
-    float* dst = p.out + (static_cast<size_t>(row) * g + warp) * hd;
-#pragma unroll
-    for (int k = 0; k < MAX_UNITS; ++k) {
-      const int u = lane + 32 * k;
-      if (u >= nunits) break;
-      float4 v;
-      v.x = l > 0.0f ? __fdiv_rn(o[k][0], l) : o[k][0];
-      v.y = l > 0.0f ? __fdiv_rn(o[k][1], l) : o[k][1];
-      v.z = l > 0.0f ? __fdiv_rn(o[k][2], l) : o[k][2];
-      v.w = l > 0.0f ? __fdiv_rn(o[k][3], l) : o[k][3];
-      *reinterpret_cast<float4*>(dst + 4 * u) = v;
+    for (int hh = warp; hh < g; hh += nwarps) {
+      const float l = st_s[4 * hh + 1];
+      const float4* src = reinterpret_cast<const float4*>(o_s + hh * hd);
+      float4* dst = reinterpret_cast<float4*>(
+          p.out + (static_cast<size_t>(row) * g + hh) * hd);
+      for (int u = lane; u < nunits; u += 32) {
+        float4 v = src[u];
+        v.x = l > 0.0f ? __fdiv_rn(v.x, l) : v.x;
+        v.y = l > 0.0f ? __fdiv_rn(v.y, l) : v.y;
+        v.z = l > 0.0f ? __fdiv_rn(v.z, l) : v.z;
+        v.w = l > 0.0f ? __fdiv_rn(v.w, l) : v.w;
+        dst[u] = v;
+      }
     }
     return;
   }
 
-  // this split's state; an empty split (l == 0, o == 0) writes no o
-  const size_t state = (static_cast<size_t>(row) * p.nsplit + split) * g + warp;
+  // this split's state per head; an empty split (l == 0, o == 0) writes
+  // no o
   float* ml = p.work + static_cast<size_t>(nrows) * p.nsplit * g * hd;
-  if (l != 0.0f) {
-#pragma unroll
-    for (int k = 0; k < MAX_UNITS; ++k) {
-      const int u = lane + 32 * k;
-      if (u >= nunits) break;
-      *reinterpret_cast<float4*>(p.work + state * hd + 4 * u) =
-          make_float4(o[k][0], o[k][1], o[k][2], o[k][3]);
+  for (int hh = warp; hh < g; hh += nwarps) {
+    const size_t state =
+        (static_cast<size_t>(row) * p.nsplit + split) * g + hh;
+    const float m = st_s[4 * hh], l = st_s[4 * hh + 1];
+    if (l != 0.0f) {
+      const float4* src = reinterpret_cast<const float4*>(o_s + hh * hd);
+      float4* dst = reinterpret_cast<float4*>(p.work + state * hd);
+      for (int u = lane; u < nunits; u += 32) dst[u] = src[u];
     }
-  }
-  if (lane == 0) {
-    ml[2 * state] = m;
-    ml[2 * state + 1] = l;
+    if (lane == 0) {
+      ml[2 * state] = m;
+      ml[2 * state + 1] = l;
+    }
   }
 
   // the last block of the row to arrive combines the splits
@@ -696,43 +755,53 @@ __global__ void __launch_bounds__(MAX_G * 32)
   float* e_s = reinterpret_cast<float*>(smem) + warp * 2 * w;  // [w] exp
   float* le_s = e_s + w;                                       // [w] l*exp
   const float* ml_row = ml + static_cast<size_t>(row) * p.nsplit * g * 2;
-  float mx = MASKED;
-  for (int r = lane; r < p.nsplit; r += 32)
-    mx = fmaxf(mx, __ldcg(ml_row + 2 * (r * g + warp)));
-  mx = warp_max(mx);
-  for (int r = lane; r < w; r += 32) {
-    float e = -1.0f, le = 0.0f;   // e < 0: no o to read (empty or padding)
-    if (r < p.nsplit) {
-      const float mr = __ldcg(ml_row + 2 * (r * g + warp));
-      const float lr = __ldcg(ml_row + 2 * (r * g + warp) + 1);
-      const float er = expf(__fsub_rn(mr, mx));
-      le = __fmul_rn(lr, er);
-      if (lr != 0.0f) e = er;
-    }
-    e_s[r] = e;
-    le_s[r] = le;
-  }
-  __syncwarp();
-  const float* o_row =
-      p.work + static_cast<size_t>(row) * p.nsplit * g * hd + warp * hd;
-  float* dst = p.out + (static_cast<size_t>(row) * g + warp) * hd;
   const size_t stride = static_cast<size_t>(g) * hd;   // split to split
-  switch (log_w) {
-    case 0: combine_row<0>(e_s, le_s, o_row, stride, dst, lane, nunits); break;
-    case 1: combine_row<1>(e_s, le_s, o_row, stride, dst, lane, nunits); break;
-    case 2: combine_row<2>(e_s, le_s, o_row, stride, dst, lane, nunits); break;
-    case 3: combine_row<3>(e_s, le_s, o_row, stride, dst, lane, nunits); break;
-    case 4: combine_row<4>(e_s, le_s, o_row, stride, dst, lane, nunits); break;
-    default: combine_row<5>(e_s, le_s, o_row, stride, dst, lane, nunits);
+  for (int hh = warp; hh < g; hh += nwarps) {
+    float mx = MASKED;
+    for (int r = lane; r < p.nsplit; r += 32)
+      mx = fmaxf(mx, __ldcg(ml_row + 2 * (r * g + hh)));
+    mx = warp_max(mx);
+    for (int r = lane; r < w; r += 32) {
+      float e = -1.0f, le = 0.0f;   // e < 0: no o to read (empty or padding)
+      if (r < p.nsplit) {
+        const float mr = __ldcg(ml_row + 2 * (r * g + hh));
+        const float lr = __ldcg(ml_row + 2 * (r * g + hh) + 1);
+        const float er = expf(__fsub_rn(mr, mx));
+        le = __fmul_rn(lr, er);
+        if (lr != 0.0f) e = er;
+      }
+      e_s[r] = e;
+      le_s[r] = le;
+    }
+    __syncwarp();
+    const float* o_row =
+        p.work + static_cast<size_t>(row) * p.nsplit * g * hd + hh * hd;
+    float* dst = p.out + (static_cast<size_t>(row) * g + hh) * hd;
+    const int nu = nunits;
+    switch (log_w) {
+      case 0: combine_row<0>(e_s, le_s, o_row, stride, dst, lane, nu); break;
+      case 1: combine_row<1>(e_s, le_s, o_row, stride, dst, lane, nu); break;
+      case 2: combine_row<2>(e_s, le_s, o_row, stride, dst, lane, nu); break;
+      case 3: combine_row<3>(e_s, le_s, o_row, stride, dst, lane, nu); break;
+      case 4: combine_row<4>(e_s, le_s, o_row, stride, dst, lane, nu); break;
+      default: combine_row<5>(e_s, le_s, o_row, stride, dst, lane, nu);
+    }
+    __syncwarp();   // e_s is refilled for the warp's next head
   }
 }
 
 template <bool PACKED, bool FUSED, typename QT>
 cudaError_t launch(const Params& p, int nrows, size_t smem,
                    cudaStream_t stream) {
+  auto kernel = radix_decode_attn_kernel<PACKED, FUSED, QT>;
+  if (smem > 48 * 1024) {   // past the default dynamic limit: opt in
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
   const dim3 grid(p.nsplit, nrows);
-  radix_decode_attn_kernel<PACKED, FUSED, QT>
-      <<<grid, 32 * p.g, smem, stream>>>(p);
+  kernel<<<grid, 32 * (p.g < MAX_WARPS ? p.g : MAX_WARPS), smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -795,23 +864,23 @@ extern "C" int radix_decode_attn_launch(const void* q, const void* kq,
   p.c_v = consts[5];
   const bool packed = dims[D_PACKED] != 0, fused = dims[D_FUSED] != 0;
   const bool qbf16 = dims[D_QBF16] != 0;
-  if (p.g < 1 || p.g > MAX_G || p.hd > 4 * 32 * MAX_UNITS ||
-      p.nsplit > (1 << MAX_LOG_SPLITS))
+  if (p.g < 1 || p.hd < 4 || p.nsplit > (1 << MAX_LOG_SPLITS))
     return static_cast<int>(cudaErrorInvalidValue);
   // smem: two (K, V, k-scale, v-scale) tile buffers (reused by the
-  // combine), the query levels, the scale-folded probabilities, the
-  // tiles' valid-slot bits
+  // combine), then per head the query levels, the scale-folded
+  // probabilities, o and (m, l, qs, qsum), then the tiles' valid-slot bits
+  // (kernels/radix_attn.py:smem_bytes repeats the sum)
   const int hdp = packed ? p.hd / 2 : p.hd;
   const int nch = (hdp + 15) / 16;
   const size_t buf = 2 * SLOTS * ((nch | 1) * 16) + 2 * SLOTS * 4;
-  size_t smem = 2 * buf + static_cast<size_t>(p.g) * nch * 16 *
-                              (packed ? 2 : 1) +
-                static_cast<size_t>(p.g) * SLOTS * 4 +
+  const size_t per_head = static_cast<size_t>(nch) * 16 * (packed ? 2 : 1) +
+                          SLOTS * 4 + static_cast<size_t>(p.hd) * 4 + 16;
+  size_t smem = 2 * buf + static_cast<size_t>(p.g) * per_head +
                 static_cast<size_t>(p.split / SLOTS) * 4;
-  const size_t combine = static_cast<size_t>(p.g) * 2 * 4 *
+  const size_t combine = static_cast<size_t>(MAX_WARPS) * 2 * 4 *
                          (1 << MAX_LOG_SPLITS);
   if (smem < combine) smem = combine;
-  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n = static_cast<int>(dims[D_ROWS]);   // B * Hkv
   cudaError_t e;

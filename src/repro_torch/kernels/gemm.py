@@ -11,7 +11,8 @@ tests reach:
   plan takes its weights; :func:`matmul_logical` / :func:`conv_logical`
   view them back in the reference's (K, N) / HWIO layout;
 * **the launch plan** — :func:`plan` picks the tile from M and N, splits K
-  until the grid covers the card (:func:`k_ranges` lists the splits);
+  until the grid covers the card, or takes the tile and split an autotuned
+  ``KernelConfig`` names (:func:`k_ranges` lists the splits);
   :func:`buffers` allocates the output and the split-K workspace;
 * **the kernel's arithmetic twin** — :func:`emulate` computes the product
   the way a launch does (split-K ranges, byte groups of int32 levels,
@@ -79,17 +80,22 @@ def tile_for(m: int, n: int) -> Tile:
     return MID if n <= MID.w else LARGE
 
 
-def plan(m: int, n: int, k: int, sms: int) -> Launch:
-    """The tile for (M, N), and the split of K: none while the output
-    tiles fill ``sms`` SMs, else enough K slices (whole ``bk`` tiles, none
-    empty) for ``BLOCKS_PER_SM * sms`` blocks."""
-    tile = tile_for(m, n)
+def plan(m: int, n: int, k: int, sms: int, *, tile: Optional[Tile] = None,
+         split: int = 0) -> Launch:
+    """The launch of an (M, K) x (K, N) product: ``tile`` (default
+    :func:`tile_for`'s) and ``split`` blocks along K (default: none while
+    the output tiles fill ``sms`` SMs, else enough for ``BLOCKS_PER_SM *
+    sms`` blocks), in whole ``bk`` tiles with none empty, so a split past
+    K's tiles, or one that would leave a slice empty, comes out smaller.
+    An autotuned ``KernelConfig`` names ``tile`` and ``split``."""
+    tile = tile_for(m, n) if tile is None else tile
     tiles = _cdiv(m, tile.act) * _cdiv(n, tile.w)
     k_tiles = max(1, _cdiv(k, tile.bk))
-    split = 1
-    if tiles < sms:
-        split = min(k_tiles, _cdiv(BLOCKS_PER_SM * sms, tiles))
-    per = _cdiv(k_tiles, split)
+    if split <= 0:
+        split = 1
+        if tiles < sms:
+            split = _cdiv(BLOCKS_PER_SM * sms, tiles)
+    per = _cdiv(k_tiles, min(split, k_tiles))
     return Launch(tile, _cdiv(k_tiles, per), per * tile.bk)
 
 
@@ -102,6 +108,15 @@ def k_ranges(k: int, launch: Launch) -> List[Tuple[int, int]]:
 @functools.lru_cache(maxsize=None)
 def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def device_sms(device: torch.device) -> Optional[int]:
+    """The SM count of a CUDA ``device`` (its current card when it names
+    none); None off CUDA."""
+    if device.type != "cuda":
+        return None
+    return sm_count(torch.cuda.current_device() if device.index is None
+                    else device.index)
 
 
 def buffers(m: int, n: int, launch: Launch, *, epilogue: bool, div: int,

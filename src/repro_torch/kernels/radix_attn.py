@@ -65,6 +65,7 @@ __all__ = [
     "SPLIT_SLOTS",
     "MAX_SPLITS",
     "split_slots",
+    "smem_bytes",
     "tree_sum",
     "quantize_q",
     "plane_scores",
@@ -99,9 +100,15 @@ MAX_SPLITS = 32
 """At most this many splits per row: past ``SPLIT_SLOTS * MAX_SPLITS``
 slots the splits grow by whole ``SPLIT_SLOTS`` steps, so the combine
 stays small at long contexts.  Like ``SPLIT_SLOTS`` it depends on no
-device, so the plain version repeats the split on the CPU."""
+device, so the plain version repeats the split on the CPU.  Both are the
+untuned launch: a call may name others (``splits=``, the tuner's
+``KernelConfig.split_slots``/``max_splits``), and the plain version then
+splits alike."""
 
-_MAX_G, _MAX_HD = 8, 256     # the kernel's block: one warp per query head
+KERNEL_MAX_SPLITS = 32
+"""The most splits a row the kernel's combine takes (``MAX_LOG_SPLITS``)."""
+MAX_SMEM = 232448
+"""Shared memory one block of the kernel can use on the card (227 KB)."""
 _DIMS = ("hkv", "g", "s_len", "hd", "steps", "gate", "qlvl", "split",
          "nsplit", "vec16", "packed", "fused", "qbf16",
          "q_b", "q_h", "k_b", "k_s", "k_h", "v_b", "v_s", "v_h",
@@ -114,12 +121,43 @@ _ARGTYPES = ([_VOID] * 9 + [ctypes.POINTER(ctypes.c_longlong),
                             ctypes.POINTER(ctypes.c_float), _VOID])
 
 
-def split_slots(s_len: int) -> int:
-    """Slots per KV split for a cache of ``s_len`` slots: ``SPLIT_SLOTS``,
-    or the least multiple of it that needs at most ``MAX_SPLITS`` splits.
-    ``s_len <= SPLIT_SLOTS`` gives one split."""
-    units = -(-max(s_len, 1) // SPLIT_SLOTS)
-    return SPLIT_SLOTS * -(-units // MAX_SPLITS)
+def split_slots(s_len: int, slots: Optional[int] = None,
+                max_splits: Optional[int] = None) -> int:
+    """Slots per KV split for a cache of ``s_len`` slots: ``slots``
+    (default ``SPLIT_SLOTS``), or the least multiple of it that needs at
+    most ``max_splits`` (default ``MAX_SPLITS``) splits.  ``s_len <=
+    slots`` gives one split."""
+    slots, max_splits = check_splits(slots, max_splits)
+    units = -(-max(s_len, 1) // slots)
+    return slots * -(-units // max_splits)
+
+
+def check_splits(slots: Optional[int], max_splits: Optional[int]
+                 ) -> Tuple[int, int]:
+    """``(slots, max_splits)`` with the module defaults filled in, or
+    ValueError: slots a positive multiple of ``SLOTS``, at most
+    ``KERNEL_MAX_SPLITS`` splits."""
+    slots = SPLIT_SLOTS if slots is None else int(slots)
+    max_splits = MAX_SPLITS if max_splits is None else int(max_splits)
+    if slots < SLOTS or slots % SLOTS:
+        raise ValueError(f"split slots must be a positive multiple of "
+                         f"{SLOTS}, got {slots}")
+    if not 1 <= max_splits <= KERNEL_MAX_SPLITS:
+        raise ValueError(f"max_splits must be in [1, {KERNEL_MAX_SPLITS}], "
+                         f"got {max_splits}")
+    return slots, max_splits
+
+
+def smem_bytes(g: int, hd: int, packed: bool, split: int) -> int:
+    """Shared memory of one kernel block (``radix_decode_attn_launch``'s
+    sum): two K/V tile buffers, per query head its levels, probabilities,
+    ``o`` and state, and one valid-slot word per tile of the split."""
+    hdp = hd // 2 if packed else hd
+    nch = -(-hdp // 16)
+    buf = 2 * SLOTS * ((nch | 1) * 16) + 2 * SLOTS * 4
+    per_head = nch * 16 * (2 if packed else 1) + SLOTS * 4 + hd * 4 + 16
+    combine = 8 * 2 * 4 * KERNEL_MAX_SPLITS
+    return max(2 * buf + g * per_head + (split // SLOTS) * 4, combine)
 
 
 def quantize_q(q: torch.Tensor, q_bits: int = Q_BITS):
@@ -327,17 +365,20 @@ def radix_decode_attn_plain(q: torch.Tensor, k_q: torch.Tensor,
                             num_steps: int, q_bits: int = Q_BITS,
                             method: str = "bitserial", packed: bool = False,
                             sparsity: bool = True,
+                            splits: Optional[Tuple[int, int]] = None,
                             occupancy: Optional[Tuple[torch.Tensor,
                                                       torch.Tensor]] = None
                             ) -> torch.Tensor:
     """Plain PyTorch version of the kernel (the arguments of
     :func:`radix_decode_attn_cuda`), on any device: ``quantize_q``, the
-    cache's :func:`split_slots` splits through the tile loop, then
+    cache's :func:`split_slots` splits (``splits`` = ``(slots,
+    max_splits)``, default the module's) through the tile loop, then
     :func:`combine_splits`.  With ``sparsity`` the plane passes are gated
     on ``occupancy`` (K and V ``(1, OCC_LANES)`` rows), by default the
     whole cache's (:func:`occupancy_rows`)."""
     if method not in ("fused", "bitserial"):
         raise ValueError(f"unknown method {method!r}")
+    splits = check_splits(*(splits or (None, None)))
     b, h, hd, s_len, hkv, g = _shapes(q, k_q, mask, packed)
     n = b * hkv
     if n == 0 or g == 0 or s_len == 0:
@@ -359,7 +400,7 @@ def radix_decode_attn_plain(q: torch.Tensor, k_q: torch.Tensor,
         rows = occupancy if occupancy is not None else occupancy_rows(
             k_q, v_q, num_steps, packed)
         occk, occv = rows[0][0], rows[1][0]
-    step = split_slots(s_len)
+    step = split_slots(s_len, *splits)
     states = [_attend_split(qq, qs, qsum, kq[:, j0:j0 + step],
                             ks[:, j0:j0 + step], vq[:, j0:j0 + step],
                             vs[:, j0:j0 + step], maskn[:, j0:j0 + step],
@@ -397,7 +438,7 @@ class _Plan:
     else."""
 
     def __init__(self, tensors, *, num_steps: int, q_bits: int, method: str,
-                 packed: bool, sparsity: bool):
+                 packed: bool, sparsity: bool, splits: Tuple[int, int]):
         q, k_q, k_scale, v_q, v_scale, mask = tensors
         dev = q.device
         if method not in ("fused", "bitserial"):
@@ -428,11 +469,9 @@ class _Plan:
             if tuple(t.shape) != (b, s_len, hkv):
                 raise ValueError(f"{name} must be {(b, s_len, hkv)}, got "
                                  f"{tuple(t.shape)}")
-        if h and (not 1 <= g <= _MAX_G or hd > _MAX_HD or hdp % 4):
-            raise ValueError(f"the kernel takes g <= {_MAX_G} query heads "
-                             f"per kv head and hd <= {_MAX_HD} with whole "
-                             f"4-byte cache words; got g={g}, hd={hd}, "
-                             f"packed={packed}")
+        if h and hdp % 4:
+            raise ValueError(f"the kernel takes whole 4-byte cache words; "
+                             f"got hd={hd}, packed={packed}")
         if q.stride(2) != 1 or k_q.stride(3) != 1 or v_q.stride(3) != 1:
             raise ValueError("q and the cache need contiguous head rows")
         cache_strides = k_q.stride()[:3] + v_q.stride()[:3]
@@ -446,11 +485,16 @@ class _Plan:
                              "boundaries")
         self.device, self.out_shape = dev, (b, h, hd)
         self.empty = b == 0 or h == 0 or s_len == 0
-        split = split_slots(max(s_len, 1))
+        split = split_slots(max(s_len, 1), *splits)
         nsplit = -(-s_len // split)
-        if nsplit > MAX_SPLITS:
+        if nsplit > KERNEL_MAX_SPLITS:
             raise ValueError(f"{nsplit} splits: the combine takes at most "
-                             f"{MAX_SPLITS}")
+                             f"{KERNEL_MAX_SPLITS}")
+        smem = smem_bytes(g, hd, packed, split)
+        if h and smem > MAX_SMEM:
+            raise ValueError(f"g={g} query heads of hd={hd} need {smem} "
+                             f"bytes of shared memory a block, more than "
+                             f"the card's {MAX_SMEM}")
         n = b * hkv
         self.work = self.count = None
         if nsplit > 1:
@@ -485,7 +529,9 @@ def radix_decode_attn_cuda(q: torch.Tensor, k_q: torch.Tensor,
                            v_scale: torch.Tensor, mask: torch.Tensor, *,
                            num_steps: int, q_bits: int = Q_BITS,
                            method: str = "bitserial", packed: bool = False,
-                           sparsity: bool = True) -> torch.Tensor:
+                           sparsity: bool = True,
+                           splits: Optional[Tuple[int, int]] = None
+                           ) -> torch.Tensor:
     """One decode step over the radix cache, in one launch.
 
     ``q`` (B, H, hd) bf16 or f32 decode queries; ``k_q``/``v_q`` (B, S,
@@ -493,8 +539,12 @@ def radix_decode_attn_cuda(q: torch.Tensor, k_q: torch.Tensor,
     first); ``k_scale``/``v_scale`` (B, S, Hkv) f32; ``mask`` (B, S) bool
     (1 = attend).  Any strides, but each head's levels and query row are
     contiguous; a broadcast mask (stride 0) is read as it is.  Returns
-    (B, H, hd) f32.  The kernel takes up to 8 query heads per kv head
-    and hd <= 256 with a whole number of 4-byte words per cache row.
+    (B, H, hd) f32.  The kernel takes any number of query heads per kv
+    head and any hd with a whole number of 4-byte words per cache row,
+    as long as one block's shared memory (:func:`smem_bytes`) fits the
+    card.  ``splits`` = ``(slots, max_splits)`` names the KV split
+    (default ``(SPLIT_SLOTS, MAX_SPLITS)``); the plain version given the
+    same ``splits`` repeats the launch bit for bit.
 
     CPU tensors run :func:`radix_decode_attn_plain`; CUDA tensors launch
     the kernel or raise."""
@@ -502,18 +552,19 @@ def radix_decode_attn_cuda(q: torch.Tensor, k_q: torch.Tensor,
     if q.device.type == "cpu":
         return radix_decode_attn_plain(
             *tensors, num_steps=num_steps, q_bits=q_bits, method=method,
-            packed=packed, sparsity=sparsity)
+            packed=packed, sparsity=sparsity, splits=splits)
     if q.device.type != "cuda":
         raise ValueError(f"radix_decode_attn runs on CPU or CUDA, got "
                          f"{q.device}")
-    key = (num_steps, q_bits, method, packed, sparsity, SPLIT_SLOTS,
-           MAX_SPLITS) + tuple(
+    splits = check_splits(*(splits or (None, None)))
+    key = (num_steps, q_bits, method, packed, sparsity, splits) + tuple(
         (t.device, t.dtype, t.shape, t.stride(), t.data_ptr() % 16)
         for t in tensors)
     plan = _plans.get(key)
     if plan is None:
         plan = _Plan(tensors, num_steps=num_steps, q_bits=q_bits,
-                     method=method, packed=packed, sparsity=sparsity)
+                     method=method, packed=packed, sparsity=sparsity,
+                     splits=splits)
         if len(_plans) >= 64:
             _plans.clear()
         _plans[key] = plan

@@ -34,6 +34,7 @@ from repro_torch.kernels.radix_matmul import (
     _epilogue,
     check_schedule,
     epilogue_args,
+    launch_of,
     occ_mask,
     occupancy_arg,
 )
@@ -91,7 +92,7 @@ def radix_conv2d_cuda(x_q: torch.Tensor, w_q: torch.Tensor, *,
                       out_level: Optional[int] = None,
                       out_grid: str = "dense",
                       occupancy: Optional[torch.Tensor] = None,
-                      kmajor: bool = False) -> torch.Tensor:
+                      kmajor: bool = False, config=None) -> torch.Tensor:
     """(N, H, W, Cin) packed levels (uint8 or int32) conv (KH, KW, Cin, Cout)
     int8 -> VALID, strided (N, H', W', Cout) (``kmajor``: the weights given
     as (Cout, KH, KW, Cin)).
@@ -102,7 +103,8 @@ def radix_conv2d_cuda(x_q: torch.Tensor, w_q: torch.Tensor, *,
     ``occupancy`` as in ``radix_matmul_cuda``.
 
     CPU tensors run :func:`radix_conv2d_plain`; CUDA tensors launch the
-    kernel or raise.
+    kernel or raise.  ``config`` (an autotuned ``KernelConfig``) names the
+    launch's tile and split-K; by default ``gemm.plan`` picks them.
     """
     kw = dict(num_steps=num_steps, method=method, stride=stride, bias=bias,
               mult=mult, out_steps=out_steps, periods=periods,
@@ -135,7 +137,7 @@ def radix_conv2d_cuda(x_q: torch.Tensor, w_q: torch.Tensor, *,
     occ_ptr = occupancy_arg(occupancy, dev)
     fused = method == "fused"
     m, k = n * h_out * w_out, kh * kwd * cin
-    launch = gemm.plan(m, cout, k, gemm.sm_count(_build.device_index(dev)))
+    launch = launch_of(config, m, cout, k, dev)
     out, work = gemm.buffers(m, cout, launch, epilogue=mult is not None,
                              div=1 if fused else periods, device=dev)
     out = out.reshape(n, h_out, w_out, cout)

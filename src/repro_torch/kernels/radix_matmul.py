@@ -187,6 +187,16 @@ def epilogue_args(bias, mult, n: int, device: torch.device):
         raise ValueError(f"mult has {mult.numel()} entries, expected {n}")
 
 
+def launch_of(config, m: int, n: int, k: int,
+              device: torch.device) -> gemm.Launch:
+    """The launch of an (M, K) x (K, N) product on ``device``: the tile and
+    split-K ``config`` names, ``gemm.plan``'s where it names none."""
+    sms = gemm.device_sms(device)
+    if config is None:
+        return gemm.plan(m, n, k, sms)
+    return config.launch(m, n, k, sms)
+
+
 def occupancy_arg(occupancy, device: torch.device):
     if occupancy is None:
         return None
@@ -205,7 +215,7 @@ def radix_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor, *,
                       out_level: Optional[int] = None,
                       out_grid: str = "dense",
                       occupancy: Optional[torch.Tensor] = None,
-                      kmajor: bool = False) -> torch.Tensor:
+                      kmajor: bool = False, config=None) -> torch.Tensor:
     """(M, K) packed levels (uint8 or int32) @ (K, N) int8 -> (M, N)
     (``kmajor``: the weights given as (N, K)).
 
@@ -218,7 +228,8 @@ def radix_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor, *,
     skips (bitserial) or masks (fused) empty planes.
 
     CPU tensors run :func:`radix_matmul_plain`; CUDA tensors launch the
-    kernel or raise.
+    kernel or raise.  ``config`` (an autotuned ``KernelConfig``) names the
+    launch's tile and split-K; by default ``gemm.plan`` picks them.
     """
     kw = dict(num_steps=num_steps, method=method, bias=bias, mult=mult,
               out_steps=out_steps, periods=periods, out_level=out_level,
@@ -245,7 +256,7 @@ def radix_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor, *,
         epilogue_args(bias, mult, n, dev)
     occ_ptr = occupancy_arg(occupancy, dev)
     fused = method == "fused"
-    launch = gemm.plan(m, n, k, gemm.sm_count(_build.device_index(dev)))
+    launch = launch_of(config, m, n, k, dev)
     out, work = gemm.buffers(m, n, launch, epilogue=mult is not None,
                              div=1 if fused else periods, device=dev)
     if m == 0 or n == 0:

@@ -646,7 +646,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if args.auto:
         raise NotImplementedError(
             "--auto (the PPA planner) is not ported yet (ROADMAP.md, "
-            "queue 1 item 13)")
+            "queue 1 item 5)")
     if args.data_parallel is not None and args.data_parallel > 1:
         raise NotImplementedError(
             "--data-parallel > 1 (multi-GPU bucket plans) is not ported "

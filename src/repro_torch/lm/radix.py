@@ -118,14 +118,13 @@ def maybe_radix_matmul(x: torch.Tensor, w, *, cfg: ArchConfig,
     product through ``kernels.ops.radix_matmul`` in the
     ``cfg.kernel_dataflow`` schedule (the CUDA kernel on a CUDA tensor);
     otherwise the plain integer product runs.  Both give the same int32
-    accumulator."""
+    accumulator.  ``cfg.kernel_autotune`` runs the kernel at the tuned
+    launch (``kernels.autotune``'s winner for the problem, swept on a
+    miss)."""
     if not isinstance(w, dict):
         return torch.einsum("...d,df->...f", x, w)
     if use_kernel is None:
         use_kernel = cfg.use_kernel
-    if cfg.kernel_autotune:
-        raise NotImplementedError(
-            "kernel_autotune is not ported yet (ROADMAP.md, queue 1 item 10)")
     t = cfg.radix_steps
     lvl = encoding.max_level(t)
     qx, sx = _radix_activation(x, t)
@@ -134,7 +133,7 @@ def maybe_radix_matmul(x: torch.Tensor, w, *, cfg: ArchConfig,
     if use_kernel:
         from repro_torch.kernels import ops as kops
         acc = kops.radix_matmul(qx, qw, None, t, method=cfg.kernel_dataflow,
-                                kmajor=kmajor)
+                                kmajor=kmajor, autotune=cfg.kernel_autotune)
     else:
         acc = _int_product(qx, qw.transpose(-1, -2) if kmajor else qw)
     colsum = qw.sum(dim=-1 if kmajor else -2, dtype=torch.int32)
@@ -244,17 +243,17 @@ def packed_decode_attention(q: torch.Tensor, cache: dict, mask: torch.Tensor,
     q (B, H, hd) float, ``cache`` the radix dict, ``mask`` (B, S) bool ->
     (B, H, hd) f32.  No dequantized K/V is materialized.  Routing mirrors
     :func:`maybe_radix_matmul`: ``cfg.use_kernel`` runs the kernel (the
-    CUDA kernel on a CUDA tensor), otherwise its plain version."""
+    CUDA kernel on a CUDA tensor), otherwise its plain version.
+    ``cfg.kernel_autotune`` takes the tuned KV split, on the plain path
+    too, so that the two repeat one float order."""
     from repro_torch.kernels import ops as kops
 
-    if cfg.kernel_autotune:
-        raise NotImplementedError(
-            "kernel_autotune is not ported yet (ROADMAP.md, queue 1 item 10)")
     config = None if cfg.use_kernel else kops.KernelConfig(impl="plain")
     return kops.radix_decode_attention(
         q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"],
         mask, cfg.radix_steps, packed=_packed(cfg),
-        method=cfg.kernel_dataflow, config=config)
+        method=cfg.kernel_dataflow, autotune=cfg.kernel_autotune,
+        config=config)
 
 
 def encode_cache_bulk(k: torch.Tensor, v: torch.Tensor, cfg: ArchConfig,

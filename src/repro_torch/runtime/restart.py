@@ -2,7 +2,7 @@
 ``repro/runtime/restart.py`` that serving needs).
 
 ``RestartableRun``, the checkpointing training loop, waits for the
-training slice of the port (ROADMAP.md, queue 1 item 14).
+training slice of the port (ROADMAP.md, queue 1 item 6).
 """
 
 from __future__ import annotations

@@ -135,9 +135,13 @@ def test_decode_mask_matches_simulation(pos, s_len, window):
     np.testing.assert_array_equal(per_row[0].numpy(), got[0])
 
 
-def test_plain_config_and_wrapper_agree():
+def test_plain_config_and_wrapper_agree(monkeypatch):
     """``KernelConfig(impl="plain")`` (the packed LM path with
-    ``use_kernel=False``) and the wrapper's CPU path are one function."""
+    ``use_kernel=False``) and the wrapper's CPU path are one function, and
+    so is ``autotune=True`` on a CPU tensor, whose one candidate is the
+    plain version."""
+    from repro_torch.kernels import autotune as tat
+
     q, k_q, k_s, v_q, v_s, mask = _problem(7, 2, 50, 1, 4, 16, 4, "ring",
                                            True)
     args = [torch.from_numpy(a) for a in (q, _pack4(k_q), k_s, _pack4(v_q),
@@ -146,8 +150,14 @@ def test_plain_config_and_wrapper_agree():
     b = tops.radix_decode_attention(
         *args, 4, packed=True, config=tops.KernelConfig(impl="plain"))
     assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="autotune"):
-        tops.radix_decode_attention(*args, 4, packed=True, autotune=True)
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", "")
+    tat.reset_default_cache()
+    try:
+        c = tops.radix_decode_attention(*args, 4, packed=True, autotune=True)
+        assert torch.equal(a, c)
+        assert tat.default_cache().stats.sweeps == 1
+    finally:
+        tat.reset_default_cache()
 
 
 def test_osm_all_masked_block_is_stable():
@@ -351,3 +361,113 @@ def test_cuda_wrapper_refuses_other_devices():
                                                      _pack4(v_q), v_s, mask)]
     with pytest.raises(ValueError, match="CPU or CUDA"):
         tra.radix_decode_attn_cuda(*args, num_steps=4, packed=True)
+
+
+WIDE_CASES = [
+    # T, packed, method, g, hkv, hd, B, S: RecurrentGemma-2B's group (g =
+    # 10, hd = 256), GLM4-9B's (g = 16 over 2 kv heads, hd = 128), and
+    # heads past 256 dims (hd = 512), which the kernel's lanes loop over
+    (4, True, "bitserial", 10, 1, 256, 2, 70),
+    (4, True, "fused", 10, 1, 256, 1, 33),
+    (4, True, "fused", 16, 2, 128, 2, 70),
+    (4, True, "bitserial", 16, 2, 128, 1, 40),
+    (8, False, "fused", 2, 1, 512, 2, 70),
+    (4, True, "bitserial", 2, 1, 512, 1, 40),
+]
+
+
+@pytest.mark.parametrize("t,packed,method,g,hkv,hd,b,s_len", WIDE_CASES)
+def test_wide_groups_and_heads_match_reference(t, packed, method, g, hkv, hd,
+                                               b, s_len):
+    """Groups past 8 query heads and heads past 256 dims: the plain
+    version (which the kernel repeats bit for bit on the card) against
+    the reference's Pallas kernel in interpret mode and both packages'
+    oracle, at the reference's 3e-5, with an all-masked row and an empty
+    plane; several splits (S > SPLIT_SLOTS) and one."""
+    q, k_q, k_s, v_q, v_s, mask = _problem(g * 1000 + hd + s_len, b, s_len,
+                                           hkv, g, hd, t, "allmasked", True)
+    kc, vc = (_pack4(k_q), _pack4(v_q)) if packed else (k_q, v_q)
+    want = np.asarray(jops.radix_decode_attention(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(k_s), jnp.asarray(vc),
+        jnp.asarray(v_s), jnp.asarray(mask), t, packed=packed,
+        method=method))
+    args = [torch.from_numpy(a) for a in (q, kc, k_s, vc, v_s, mask)]
+    got = tops.radix_decode_attention(*args, t, packed=packed,
+                                      method=method).numpy()
+    oracle = np.asarray(jref.decode_attn_ref(
+        jnp.asarray(q), jnp.asarray(k_q), jnp.asarray(k_s), jnp.asarray(v_q),
+        jnp.asarray(v_s), jnp.asarray(mask), t))
+    assert got.shape == (b, hkv * g, hd) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(got, oracle, **TOL)
+    assert not got[0].any()                 # the all-masked row gives 0
+    # the kernel's shared memory at these shapes fits one block
+    assert tra.smem_bytes(g, hd, packed, tra.split_slots(s_len)) \
+        <= tra.MAX_SMEM
+
+
+SPLIT_OVERRIDES = [(32, 32), (64, 32), (32, 16), (64, 16), (96, 4), (32, 1)]
+
+
+@pytest.mark.parametrize("s_len", [32, 33, 64, 65, 96, 97, 1024, 1025])
+def test_split_override_on_exact_inputs_equals_default(s_len):
+    """A named KV split, at split boundaries, gives the default's bits when
+    every float op is exact: T = 1 (the value constant 2/lvl is 2), unit
+    v-scales and k-scales of 0 (every valid score 0, so p = 1 and the
+    merge weights exp(0) = 1): the sums are integers below 2^24 in any
+    order."""
+    b, hkv, g, hd, t = 2, 1, 3, 8, 1
+    q, k_q, _, v_q, _, mask = _problem(s_len, b, s_len, hkv, g, hd, t,
+                                       "allmasked", False)
+    zeros = np.zeros((b, s_len, hkv), np.float32)
+    args = [torch.from_numpy(a) for a in (q, k_q, zeros, v_q, zeros + 1.0,
+                                          mask)]
+    for method in ("fused", "bitserial"):
+        kw = dict(num_steps=t, method=method)
+        want = tra.radix_decode_attn_plain(*args, **kw)
+        for splits in SPLIT_OVERRIDES:
+            got = tra.radix_decode_attn_plain(*args, **kw, splits=splits)
+            assert torch.equal(got, want), (splits, method)
+            cfg = tops.KernelConfig(split_slots=splits[0],
+                                    max_splits=splits[1])
+            assert torch.equal(tops.radix_decode_attention(
+                *args, t, method=method, config=cfg), want)
+        # the exact answer: mean over valid slots of 2 v - 1
+        v = 2.0 * v_q[..., 0, :].astype(np.float64) - 1.0
+        cnt = mask.sum(axis=1)
+        ref = (v * mask[..., None]).sum(axis=1) / np.maximum(cnt, 1)[:, None]
+        np.testing.assert_array_equal(
+            want.numpy(), np.broadcast_to(ref[:, None, :],
+                                          want.shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("splits", SPLIT_OVERRIDES)
+def test_split_override_matches_reference(splits):
+    """Every named split of a random problem (S = 300, GQA, ring mask)
+    agrees with the reference at 3e-5, as the default split does."""
+    b, hkv, g, hd, t, s_len = 2, 2, 4, 16, 4, 300
+    q, k_q, k_s, v_q, v_s, _ = _problem(7, b, s_len, hkv, g, hd, t, "prefix",
+                                        True)
+    mask = _ring_wrap_mask(b, s_len)
+    kc, vc = _pack4(k_q), _pack4(v_q)
+    want = np.asarray(jops.radix_decode_attention(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(k_s), jnp.asarray(vc),
+        jnp.asarray(v_s), jnp.asarray(mask), t, packed=True,
+        method="bitserial"))
+    args = [torch.from_numpy(a) for a in (q, kc, k_s, vc, v_s, mask)]
+    got = tra.radix_decode_attn_plain(*args, num_steps=t, packed=True,
+                                      method="bitserial", splits=splits)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_kernel_shape_limits():
+    """The kernel takes any group and head size whose block fits the card's
+    shared memory (``smem_bytes``, which the CUDA wrapper checks before a
+    launch), and KV splits of whole tiles, at most the combine's 32."""
+    assert tra.smem_bytes(8, 256, True, 32) < 48 * 1024
+    assert tra.smem_bytes(16, 128, True, 32) < 48 * 1024
+    assert tra.smem_bytes(64, 1024, False, 32) > tra.MAX_SMEM
+    with pytest.raises(ValueError):
+        tra.check_splits(48, 32)
+    with pytest.raises(ValueError):
+        tra.check_splits(32, tra.KERNEL_MAX_SPLITS + 1)

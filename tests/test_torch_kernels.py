@@ -221,8 +221,9 @@ def test_int32_levels_and_phase_divide_on_plain_path():
 def test_wrappers_reject_bad_arguments():
     x = torch.zeros((4, 8), dtype=torch.uint8)
     w = torch.zeros((8, 3), dtype=torch.int8)
-    with pytest.raises(NotImplementedError):
-        tops.radix_matmul(x, w, None, 4, autotune=True)
+    with pytest.raises(ValueError):     # no compiled tile of that shape
+        tops.radix_matmul(x, w, None, 4,
+                          config=tops.KernelConfig(bm=64, bn=64, bk=64))
     with pytest.raises(ValueError):
         radix_matmul_cuda(x, w, num_steps=4, method="rowwise")
     with pytest.raises(ValueError):

@@ -162,8 +162,13 @@ def test_compile_rejects_what_is_not_ported(vgg_net):
     acc = api.Accelerator(device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         acc.compile(tnet, hw, parallel=2)
+    # autotune is ported (kernels/autotune.py); the planner is not, and
+    # autotune off the kernels backend is refused as the reference does
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        acc.compile(tnet, hw, autotune=True)
+        acc.compile(tnet, hw, auto={"objective": "latency"})
+    with pytest.raises(ValueError, match="backend='kernels'"):
+        api.Accelerator(backend="jnp", device="cpu").compile(
+            tnet, hw, autotune=True)
     # the jnp backend is ported (the eager path); an unknown backend, or
     # a dataflow off the kernels backend, is refused
     assert api.Accelerator(backend="jnp").backend == "jnp"
