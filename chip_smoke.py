@@ -120,12 +120,31 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` and runs:
    Gemma-2B at full width with ``autotune=True`` (``kernel_autotune``)
    at bucket 64 and the decode plan, both dataflows, one request's
    logits at every step ``torch.equal`` to the plain path run with the
-   same tuned launches, tuned and untuned timed in turns.
+   same tuned launches, tuned and untuned timed in turns;
+12. the LM archs beyond Gemma-2B (``ARCH_PHASES``), each at full width in
+   bf16 (seeded weights on the card), T = 4, ``radix_kv_pack`` and
+   ``packed_attn`` on, its weights freed before the next: GLM4-9B (40
+   layers, g = 16) through ``Accelerator.compile`` at (8, 512) with
+   buckets (64, 256) for both dataflows, requests of 8 x 40 and 3 x 200
+   tokens with 8 new; Gemma-7B (28 layers) and DeepSeek-Coder-33B (16 of
+   its 62 layers: its bf16 tree alone is ~66.8 GB) alike, fused, the
+   first request only; RecurrentGemma-2B (26 layers, window 2048) through
+   ``launch.serve.generate``, requests of 8 x 64 tokens with 16 new and
+   2 x 2100 with 8 new (prefill keeps the last 2048 positions and rolls
+   the ring; decode wraps); RWKV-6-3B (32 layers) through ``generate``,
+   8 x 256 with 16 new.  Every step's logits ``torch.equal`` to the
+   plain path (the same ``cfg`` with ``use_kernel=False``; through
+   ``generate`` the tokens too), and per token position the launches of
+   ``lm_launches``: the radix FFN products plus an untied unembed, and
+   in decode one attention per attention layer.  Prefill and decode ms
+   by host clock, a profile of one prefill and three decode steps
+   (device ms, busy share, attention's share), seconds and peak memory
+   per arch.
 
 Launch counters are set to 0 just before each path (phases 3-4, 7, 8, 9,
-10, 11) and read just after; so are the GEMM wrappers' per-call
-weight-transpose counters, which must stay 0 on the CNN and LM paths
-(their plans hold K-major weights).  Every failure raises, so the
+10, 11, and each arch of 12) and read just after; so are the GEMM
+wrappers' per-call weight-transpose counters, which must stay 0 on the
+CNN and LM paths (their plans hold K-major weights).  Every failure raises, so the
 script exits non-zero.
 It prints the card's name and power limit (``nvidia-smi``), a
 ``{"kernels": [...]}`` JSON line, and last ``{"ok": true, "device":
@@ -1373,16 +1392,23 @@ def compare_logits(torch, got: list, want: list) -> dict:
 
 def profile_lm(torch, exe, prompts) -> dict:
     """Device time by kernel name over one prefill and three decode steps
-    (``torch.profiler``), and its share of the profiled wall time."""
+    of ``exe`` (``torch.profiler``), and its share of the profiled wall
+    time."""
+    state = exe.prefill(prompts)
+    sync(torch)
+    tok = state["logits"].argmax(-1)[:, None]
+    return profile_steps(torch, lambda: exe.prefill(prompts),
+                         lambda: [exe.decode(state, tok) for _ in range(3)])
+
+
+def profile_steps(torch, prefill, decode3) -> dict:
+    """Device time by kernel name over ``prefill()`` (one prefill) and
+    ``decode3()`` (three decode steps), and its share of the profiled
+    wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
-    state = exe.prefill(prompts)
-    sync(torch)
-    for name, fn in (("prefill", lambda: exe.prefill(prompts)),
-                     ("decode", lambda: [exe.decode(state, state["logits"]
-                                                    .argmax(-1)[:, None])
-                                         for _ in range(3)])):
+    for name, fn in (("prefill", prefill), ("decode", decode3)):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1527,9 +1553,11 @@ def phase_lm(torch, arch, results) -> None:
     results["lm"] = out
 
 
-def lm_timings(torch, cfg, exe, row) -> None:
+def lm_timings(torch, cfg, exe, row, request=LM_REQUESTS[0],
+               tag: str = "lm") -> None:
     """Prefill ms per bucket (full batch, prompts filling the bucket),
-    decode ms per step and tokens/s; host clock ending in synchronize."""
+    decode ms per step and tokens/s, and one ``request`` (prompts, tokens,
+    new tokens) through ``generate``; host clock ending in synchronize."""
     for bucket in LM_BUCKETS:
         prompts = lm_prompts(torch, cfg, LM_BATCH, bucket, SEED + 40)
         ms = host_ms(torch, lambda: exe.prefill(prompts), reps=3, warmup=1)
@@ -1541,7 +1569,7 @@ def lm_timings(torch, cfg, exe, row) -> None:
     ms = host_ms(torch, lambda: exe.decode(state, tok), reps=10)
     row["decode_ms"] = ms
     row["decode_tokens_per_s"] = LM_BATCH / ms * 1e3
-    n, s0, new = LM_REQUESTS[0]
+    n, s0, new = request
     prompts = lm_prompts(torch, cfg, n, s0, SEED + 20)
     t0 = time.perf_counter()
     exe.generate(prompts, new)
@@ -1550,7 +1578,7 @@ def lm_timings(torch, cfg, exe, row) -> None:
     row["request_s"] = req_s
     row["request_tokens_per_s"] = n * new / req_s
     top = LM_BUCKETS[-1]
-    log(f"[lm] {exe.dataflow:9s} prefill "
+    log(f"[{tag}] {exe.dataflow:9s} prefill "
         + ", ".join(f"bucket {b}: {row[f'prefill_{b}_ms']:.2f} ms"
                     for b in LM_BUCKETS)
         + f" ({row[f'prefill_{top}_tokens_per_s']:.0f} prompt tokens/s at "
@@ -2277,6 +2305,233 @@ def phase_autotune_lm(torch, arch, results) -> None:
     results["autotune_lm"] = out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the LM archs beyond Gemma-2B.
+# ---------------------------------------------------------------------------
+
+# (config module, layers kept (0: all), dataflows, requests as (prompts,
+# tokens, new tokens), served through): DeepSeek-Coder-33B's bf16 tree is
+# ~66.8 GB at its 62 layers, and radixifying a stacked FFN leaf on the card
+# adds its int8 copy (8.5 GB at 62 layers) and float temporaries, so it
+# runs 16 layers; RecurrentGemma's second request (2100 tokens) is longer
+# than its 2048-slot window, so prefill rolls the ring and decode wraps.
+ARCH_PHASES = (
+    ("glm4_9b", 0, ("fused", "bitserial"), ((8, 40, 8), (3, 200, 8)),
+     "compile"),
+    ("gemma_7b", 0, ("fused",), ((8, 40, 8),), "compile"),
+    ("deepseek_coder_33b", 16, ("fused",), ((8, 40, 8),), "compile"),
+    ("recurrentgemma_2b", 0, ("fused",), ((8, 64, 16), (2, 2100, 8)),
+     "generate"),
+    ("rwkv6_3b", 0, ("fused",), ((8, 256, 16),), "generate"),
+)
+
+
+def arch_cfg(name: str, layers: int):
+    """The arch's published config in bf16 at T = 4 with packed KV and
+    packed decode attention, cut to ``layers`` layers when non-zero."""
+    import importlib
+
+    cfg = importlib.import_module(f"repro_torch.configs.{name}").ARCH
+    cfg = dataclasses.replace(cfg, radix_steps=T, radix_kv_pack=True,
+                              packed_attn=True)
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def lm_launches(cfg) -> tuple:
+    """(radix_matmul, radix_decode_attn) launches of one forward over one
+    token position: the radix FFN products (RWKV's channel mix has none),
+    an untied unembed, and in decode one attention per attention layer."""
+    gated = 3 if cfg.act in ("swiglu", "geglu") else 2
+    types = cfg.layer_types
+    mm = sum(gated for t in types if t != "rwkv6")
+    mm += 0 if cfg.tie_embeddings else 1
+    return mm, sum(t in ("attn", "local_attn") for t in types)
+
+
+def arch_params(torch, model, cfg) -> tuple:
+    """Seeded bf16 weights drawn on the card; (params, count)."""
+    params = model.init_params(
+        torch.Generator(device=DEV).manual_seed(SEED), cfg)
+    sizes = []
+    model.tree_map(lambda t: sizes.append(t.numel()), params)
+    return params, sum(sizes)
+
+
+def log_arch_profile(name: str, dataflow: str, prof: dict, n_attn: int,
+                     row: dict) -> None:
+    for step, pr in prof.items():
+        if pr is None:
+            log(f"[arch] {name} {dataflow} {step} profile: no device time "
+                "recorded (not measured)")
+            continue
+        share = pr["attn_ms"] / pr["device_ms"]
+        row[f"{step}_attn_share"] = share
+        log(f"[arch] {name} {dataflow} {step} profile: device "
+            f"{pr['device_ms']:.3f} ms per call of "
+            f"{pr['profiled_wall_ms']:.3f} ms profiled wall "
+            f"({100 * pr['busy_share']:.1f}% busy), "
+            f"{pr['device_kernels']:.0f} device kernels a call, radix "
+            f"kernels {pr['radix_ms']:.3f} ms, decode attention "
+            f"{pr['attn_ms']:.3f} ms ({100 * share:.1f}% of the device time"
+            + (f"; {pr['attn_ms'] / n_attn:.4f} ms a launch"
+               if n_attn and pr["attn_ms"] else "")
+            + "); top: " + "; ".join(f"{k} {v:.3f} ms x{c}"
+                                     for k, v, c in pr["top"]))
+
+
+def phase_arch_compiled(torch, name, cfg, dataflows, requests,
+                        results) -> None:
+    """A dense GQA arch served through ``Accelerator.compile`` at
+    (batch, max_len) = (8, 512), buckets (64, 256): every request's logits
+    ``torch.equal`` to the plain path at every step, and the launches of
+    ``lm_launches`` per token position."""
+    from repro_torch import api
+    from repro_torch.lm import model
+
+    t_phase = time.perf_counter()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    params, n_params = arch_params(torch, model, cfg)
+    mm, attn = lm_launches(cfg)
+    out = dict(params=n_params, layers=cfg.n_layers,
+               launches_per_step=dict(radix_matmul=mm,
+                                      radix_decode_attn=attn),
+               dataflows={})
+    for dataflow in dataflows:
+        exe = api.Accelerator(dataflow=dataflow, device=DEV).compile(
+            (params, cfg), (LM_BATCH, LM_MAX_LEN), buckets=LM_BUCKETS)
+        exe.warmup()
+        built = exe.stats()["compiles"]
+        check(built == len(LM_BUCKETS) + 1, f"{name}: warmup built {built}")
+        plain_cfg = dataclasses.replace(exe.cfg, use_kernel=False)
+        cmp = []
+        for i, (n, s0, new) in enumerate(requests):
+            prompts = lm_prompts(torch, cfg, n, s0, SEED + 70 + i)
+            r = serve_greedy(exe, prompts, new)
+            want = {"radix_matmul": mm * new,
+                    "radix_decode_attn": attn * (new - 1),
+                    "radix_conv2d": 0, "spike_encode": 0}
+            check(DEV != "cuda" or r["launches"] == want,
+                  f"{name} {dataflow} request {i}: "
+                  f"launches {r['launches']} != {want}")
+            check(all(tuple(x.shape) == (n, cfg.vocab)
+                      and bool(torch.isfinite(x).all()) for x in r["logits"]),
+                  f"{name}: logits shape / finiteness")
+            ref = plain_logits(model, exe.params, plain_cfg, prompts,
+                               r["tokens"], exe._cache.bucket_for(s0))
+            c = compare_logits(torch, r["logits"], ref)
+            check(c["equal"], f"{name} {dataflow} request {i}: logits "
+                  f"differ from the plain path {c}")
+            cmp.append(c)
+        check(exe.stats()["compiles"] == built,
+              f"{name} {dataflow}: plans built in steady state")
+        row = out["dataflows"][dataflow] = dict(comparisons=cmp)
+        log(f"[arch] {name} {dataflow}: " + "; ".join(
+            f"{n} x {s0} tokens + {new} new: logits equal the plain path at "
+            f"every step, {mm * new} radix_matmul + "
+            f"{attn * (new - 1)} radix_decode_attn launches"
+            for n, s0, new in requests))
+        lm_timings(torch, cfg, exe, row, request=requests[0],
+                   tag=f"arch {name}")
+        row["profile"] = profile_lm(torch, exe, lm_prompts(
+            torch, cfg, LM_BATCH, LM_BUCKETS[-1], SEED + 30))
+        log_arch_profile(name, dataflow, row["profile"], attn, row)
+        del exe
+    finish_arch(torch, name, out, params, t_phase, results)
+
+
+def phase_arch_generate(torch, name, cfg, requests, results) -> None:
+    """An arch served through ``launch.serve.generate`` (unbucketed
+    prefill, then decode) with radix weights in the kernels' K-major
+    layout, fused dataflow: tokens and every step's logits ``torch.equal``
+    to the plain path, and the launches of ``lm_launches``."""
+    from repro_torch.launch import serve
+    from repro_torch.lm import model
+
+    t_phase = time.perf_counter()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(cfg, quant="radix", use_kernel=True,
+                              kernel_dataflow="fused")
+    plain_cfg = dataclasses.replace(cfg, use_kernel=False)
+    params, n_params = arch_params(torch, model, cfg)
+    params = model.kmajor_params(model.radixify_params(params, cfg))
+    mm, attn = lm_launches(cfg)
+    out = dict(params=n_params, layers=cfg.n_layers,
+               launches_per_step=dict(radix_matmul=mm,
+                                      radix_decode_attn=attn),
+               dataflows={"fused": {"requests": []}})
+    row = out["dataflows"]["fused"]
+    for i, (n, s0, new) in enumerate(requests):
+        prompts = lm_prompts(torch, cfg, n, s0, SEED + 80 + i)
+        before = counters()
+        t0 = time.perf_counter()
+        toks, logits = serve.generate(cfg, params, prompts, new,
+                                      return_logits=True)
+        sync(torch)
+        req_s = time.perf_counter() - t0
+        after = counters()
+        launches = {k: after[k] - before[k] for k in after}
+        want = {"radix_matmul": mm * new,
+                "radix_decode_attn": attn * (new - 1),
+                "radix_conv2d": 0, "spike_encode": 0}
+        check(DEV != "cuda" or launches == want,
+              f"{name} request {i}: launches {launches} != {want}")
+        check(tuple(toks.shape) == (n, s0 + new) and all(
+            tuple(x.shape) == (n, cfg.vocab) and bool(torch.isfinite(x).all())
+            for x in logits), f"{name}: output shape / finiteness")
+        ptoks, plogits = serve.generate(plain_cfg, params, prompts, new,
+                                        return_logits=True)
+        c = compare_logits(torch, logits, plogits)
+        check(c["equal"] and torch.equal(toks, ptoks), f"{name} request "
+              f"{i}: tokens or logits differ from the plain path {c}")
+        req = dict(request=(n, s0, new), comparison=c, request_s=req_s,
+                   launches=launches)
+        with torch.inference_mode():
+            batch = {"tokens": torch.nn.functional.pad(prompts, (0, 1))}
+
+            def prefill():
+                return model.prefill(params, batch, cfg, max_len=s0 + new)
+
+            req["prefill_ms"] = host_ms(torch, prefill, reps=3, warmup=1)
+            caches = prefill()[1]
+            tok = toks[:, s0:s0 + 1]
+
+            def decode():
+                return model.decode_step(params, caches, tok, s0, cfg)
+
+            req["decode_ms"] = host_ms(torch, decode, reps=10)
+            if i == 0:
+                row["profile"] = profile_steps(
+                    torch, prefill, lambda: [decode() for _ in range(3)])
+        row["requests"].append(req)
+        log(f"[arch] {name} fused: {n} x {s0} tokens + {new} new through "
+            f"generate: tokens and logits equal the plain path at every "
+            f"step, launches {launches}; request {req_s:.3f} s; prefill "
+            f"{req['prefill_ms']:.2f} ms "
+            f"({n * s0 / req['prefill_ms'] * 1e3:.0f} prompt tokens/s); "
+            f"decode {req['decode_ms']:.3f} ms a step "
+            f"({n / req['decode_ms'] * 1e3:.1f} tokens/s at batch {n})")
+    log_arch_profile(name, "fused", row["profile"], attn, row)
+    finish_arch(torch, name, out, params, t_phase, results)
+
+
+def finish_arch(torch, name, out, params, t_phase, results) -> None:
+    """Log the phase's seconds and peak device memory, then free its
+    weights before the next phase."""
+    del params
+    sync(torch)
+    out["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                      if DEV == "cuda" else 0.0)
+    out["phase_s"] = time.perf_counter() - t_phase
+    results.setdefault("archs", {})[name] = out
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[arch] {name}: {out['layers']} layers, {out['params'] / 1e9:.3f} B "
+        f"parameters; phase {out['phase_s']:.1f} s, peak "
+        f"{out['peak_gb']:.2f} GB allocated")
+
+
 def main() -> int:
     try:
         import torch
@@ -2399,6 +2654,23 @@ def main() -> int:
     shutil.rmtree(Path(results["autotune"]["table"]).parent,
                   ignore_errors=True)
 
+    t0 = time.perf_counter()
+    arch_paths = {}
+    for name, layers, dataflows, requests, served in ARCH_PHASES:
+        cfg = arch_cfg(name, layers)
+        reset_counters()
+        if served == "compile":
+            phase_arch_compiled(torch, name, cfg, dataflows, requests,
+                                results)
+        else:
+            phase_arch_generate(torch, name, cfg, requests, results)
+        paths[name] = counters()
+        copies[name] = transposes()
+        arch_paths[name] = ("radix_matmul", "radix_decode_attn")[
+            :1 + (lm_launches(cfg)[1] > 0)]
+    log(f"[arch] phase 12: {time.perf_counter() - t0:.1f} s (script wall "
+        f"so far {time.perf_counter() - t_start:.1f} s)")
+
     results["path_launches"] = paths
     cnn_kernels = ("radix_conv2d", "radix_matmul")
     for path, names in (("cnn", cnn_kernels),
@@ -2408,7 +2680,8 @@ def main() -> int:
                         ("cnn_serving", cnn_kernels),
                         ("cnn_autotune", cnn_kernels),
                         ("lm_autotune", ("radix_matmul",
-                                         "radix_decode_attn"))):
+                                         "radix_decode_attn")),
+                        *arch_paths.items()):
         check(all(paths[path][k] > 0 for k in names),
               f"a kernel of the {path} path was not launched: "
               f"{paths[path]}")
@@ -2457,7 +2730,7 @@ def main() -> int:
     log(f"[done] {results['total_s']:.1f} s; kernel line: conv and matmul "
         "device times summed over one VGG-11 batch-8 fused execution's "
         "launches "
-        "(launches: every path, phases 3-4, 7, 8, 9, 10 and 11); "
+        "(launches: every path, phases 3-4, 7, 8, 9, 10, 11 and 12); "
         "decode attention at the LM "
         "decode shape (packed, fused); encoder at 8x224x224x3, T=4")
     print(smi)

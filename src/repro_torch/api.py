@@ -455,7 +455,7 @@ class LMExecutable:
                 "buckets, which is exact only for pure full-attention "
                 f"stacks (causal masking hides the pads); block types "
                 f"{bad} would absorb pad tokens into recurrent/ring state "
-                "(their unbucketed serving loop is not ported yet)")
+                "— serve those archs via repro_torch.launch.serve.generate")
         if cfg.encoder_layers or cfg.embedding_inputs:
             raise ValueError(
                 "the LM compile path serves token-in/token-out decoder "

@@ -2,8 +2,9 @@
 
 Each ported LM architecture has a module exporting ``ARCH`` (the
 published configuration) and ``SMOKE`` (a reduced same-family config for
-CPU tests), equal field for field to the reference's.  Only ``gemma_2b``
-is ported; the other LM archs are listed in ROADMAP.md.  The paper's own
+CPU tests), equal field for field to the reference's.  The dense GQA
+stacks, RecurrentGemma and RWKV-6 are ported; the MoE, Whisper and
+Qwen2-VL archs wait (ROADMAP.md).  The paper's own
 CNNs (``lenet5``, ``vgg11``, ``fang_cnn``) register their ``make``
 (``get_snn``).
 """
@@ -13,7 +14,14 @@ from __future__ import annotations
 import importlib
 from typing import List
 
-LM_ARCHS: List[str] = ["gemma_2b"]
+LM_ARCHS: List[str] = [
+    "gemma_2b",
+    "glm4_9b",
+    "gemma_7b",
+    "deepseek_coder_33b",
+    "recurrentgemma_2b",
+    "rwkv6_3b",
+]
 
 SNN_ARCHS: List[str] = ["lenet5", "vgg11", "fang_cnn"]
 

@@ -1,2 +1,2 @@
-"""Entry points of the port (``serve_cnn``: CNN serving with the
-resilience queue)."""
+"""Entry points of the port (``serve``: the uncompiled LM decode driver;
+``serve_cnn``: CNN serving with the resilience queue)."""

@@ -1,20 +1,23 @@
-"""Full-attention building blocks (port of ``repro/lm/blocks.py``, the
-full-attention subset: norms, RoPE, causal query-chunked attention,
-decode attention over the KV cache, gated dense FFN).
+"""Building blocks of the LM zoo (port of ``repro/lm/blocks.py``: norms,
+RoPE, causal query-chunked attention with an optional sliding window,
+decode attention over the KV cache or its ring buffer, the dense FFNs,
+the Griffin RG-LRU block and the RWKV-6 time and channel mix).
 
 Every function takes (params-dict, inputs) tensors, as the reference
 does.  Layouts are the reference's: activations (B, S, d), q/k/v
 (B, S, H, hd), the KV cache ``{k, v}`` (B, S_max, Hkv, hd) plus radix
 scales, positions (B, S).  Prefill attention is plain tensor code (the
 reference's is plain jnp, not a Pallas kernel); decode attention over a
-radix cache with ``packed_attn`` runs the decode-attention kernel.
-Sliding windows (except in ``decode_mask``), M-RoPE, recurrent blocks,
-cross-attention and the ungated FFNs are not ported yet.
+radix cache with ``packed_attn`` runs the decode-attention kernel.  The
+recurrences are tensor code too: RG-LRU's prefill is a log-depth scan,
+RWKV-6's a loop over chunks of attention-like products.  M-RoPE and
+cross-attention are not ported yet.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -23,7 +26,8 @@ from repro_torch.lm import radix as radix_lib
 from repro_torch.lm.config import ArchConfig
 
 __all__ = ["norm", "rope_apply", "attention", "decode_mask",
-           "decode_attention", "ffn"]
+           "decode_attention", "ffn", "conv1d_causal", "rglru_block",
+           "rwkv6_block", "rwkv6_channel_mix"]
 
 
 # ---------------------------------------------------------------------------
@@ -122,9 +126,12 @@ def _gqa_out(probs, v):
 
 
 def attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
-              positions: torch.Tensor, *, return_kv: bool = False):
+              positions: torch.Tensor, *, window: int = 0,
+              return_kv: bool = False):
     """Causal self-attention, query-chunked: scores exist for
-    ``cfg.attn_chunk`` queries at a time."""
+    ``cfg.attn_chunk`` queries at a time.  ``window`` > 0 is local
+    attention: a query sees the keys less than ``window`` positions
+    back."""
     b, s_len, _ = x.shape
     hd = cfg.hd
     q, k, v = _qkv(x, p, cfg)
@@ -140,8 +147,10 @@ def attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
 
     def attend_chunk(qc, qpos):
         s = _gqa_scores(qc, k).to(torch.float32) * scale   # (B,H,cq,Sk)
-        s = torch.where((qpos[:, None] >= kpos[None, :])[None, None], s,
-                        -1e30)
+        m = qpos[:, None] >= kpos[None, :]
+        if window:
+            m = m & (qpos[:, None] - kpos[None, :] < window)
+        s = torch.where(m[None, None], s, -1e30)
         pr = torch.softmax(s, dim=-1).to(x.dtype)
         return _gqa_out(pr, v)
 
@@ -179,9 +188,11 @@ def decode_mask(pos, s_len: int, window: int = 0,
 
 
 def decode_attention(x: torch.Tensor, p: dict, cfg: ArchConfig, cache: dict,
-                     pos: int):
+                     pos: int, *, window: int = 0):
     """x (B, 1, d); cache {k, v} (B, S_max, Hkv, hd) (+ scales if radix),
-    updated in place at ``pos``.  Returns (out (B, 1, d), cache)."""
+    updated in place at ``pos`` (a ring buffer of ``window`` slots, written
+    at ``pos % window``, when ``window`` > 0).  Returns (out (B, 1, d),
+    cache)."""
     b = x.shape[0]
     hd = cfg.hd
     q, knew, vnew = _qkv(x, p, cfg)
@@ -189,9 +200,10 @@ def decode_attention(x: torch.Tensor, p: dict, cfg: ArchConfig, cache: dict,
         posb = torch.full((b, 1), int(pos), device=x.device)
         q = rope_apply(q, posb, cfg.rope_theta)
         knew = rope_apply(knew, posb, cfg.rope_theta)
-    cache = radix_lib.cache_update(cache, knew, vnew, pos, cfg)
+    cache = radix_lib.cache_update(cache, knew, vnew, pos, cfg,
+                                   window=window)
     s_len = cache["k"].shape[1]
-    valid = decode_mask(int(pos), s_len, device=x.device)
+    valid = decode_mask(int(pos), s_len, window, device=x.device)
     if radix_lib.packed_attn_enabled(cfg):
         # the kernel reads the uint8 levels directly: no (B, S, Hkv, hd)
         # float K/V is materialized
@@ -213,12 +225,247 @@ def decode_attention(x: torch.Tensor, p: dict, cfg: ArchConfig, cache: dict,
 
 
 def ffn(x: torch.Tensor, p: dict, cfg: ArchConfig) -> torch.Tensor:
-    """Gated FFN (SwiGLU or GeGLU; ``jax.nn.gelu``'s tanh form)."""
+    """Dense FFN: gated (SwiGLU, GeGLU), or ungated (``gelu_mlp``,
+    ``relu_sq``); ``jax.nn.gelu`` is the tanh approximation."""
     matmul = functools.partial(radix_lib.maybe_radix_matmul, cfg=cfg)
-    if cfg.act not in ("swiglu", "geglu"):
-        raise NotImplementedError(f"act={cfg.act!r} is not ported yet")
-    g = matmul(x, p["w_gate"])
-    u = matmul(x, p["w_up"])
-    h = (F.silu(g) if cfg.act == "swiglu"
-         else F.gelu(g, approximate="tanh")) * u
-    return matmul(h, p["w_down"])
+    if cfg.act in ("swiglu", "geglu"):
+        g = matmul(x, p["w_gate"])
+        u = matmul(x, p["w_up"])
+        h = (F.silu(g) if cfg.act == "swiglu"
+             else F.gelu(g, approximate="tanh")) * u
+        return matmul(h, p["w_down"])
+    if cfg.act == "gelu_mlp":
+        return matmul(F.gelu(matmul(x, p["w_up"]), approximate="tanh"),
+                      p["w_down"])
+    if cfg.act == "relu_sq":
+        return matmul(torch.square(F.relu(matmul(x, p["w_up"]))),
+                      p["w_down"])
+    raise ValueError(cfg.act)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU recurrent block (Griffin / RecurrentGemma).
+# ---------------------------------------------------------------------------
+
+
+def conv1d_causal(x: torch.Tensor, w: torch.Tensor,
+                  state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv.  x (B, S, C), w (K, C).  With ``state``
+    (B, K-1, C) runs in streaming mode and returns (y, new_state)."""
+    k = w.shape[0]
+    if state is None:
+        pad = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
+                          device=x.device)
+        xp = torch.cat([pad, x], dim=1)
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    s_len = x.shape[1]
+    y = sum(xp[:, i:i + s_len, :] * w[i] for i in range(k))
+    if state is None:
+        return y
+    return y, xp[:, -(k - 1):, :]
+
+
+def _rglru_scan(a: torch.Tensor, bx: torch.Tensor,
+                h0: Optional[torch.Tensor]) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + bx_t over S, (B, S, W), as a log-depth
+    inclusive scan of the reference's combine ``(a1 a2, a2 b1 + b2)``
+    over doubling offsets (Hillis-Steele: ceil(log2 S) rounds of tensor
+    ops).  Its float order differs from ``lax.associative_scan``'s."""
+    if h0 is not None:
+        bx = torch.cat([bx[:, :1] + a[:, :1] * h0[:, None], bx[:, 1:]],
+                       dim=1)
+    s_len, d = a.shape[1], 1
+    while d < s_len:
+        bx = torch.cat([bx[:, :d], a[:, d:] * bx[:, :-d] + bx[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], dim=1)
+        d *= 2
+    return bx
+
+
+def rglru_block(x: torch.Tensor, p: dict, cfg: ArchConfig,
+                state: Optional[dict] = None, *, return_state: bool = False):
+    """Griffin recurrent block: [linear -> conv -> RG-LRU] * gate -> out.
+
+    r, i = sigmoid(W_a u), sigmoid(W_x u); a = a_max^r with
+    log a_max = -8 softplus(lambda); h = a h_- + sqrt(1 - a^2) (i u).
+    Prefill scans over S; decode (``state`` {"conv": (B, K-1, W),
+    "h": (B, W)}, S == 1) is one step."""
+    k = p["conv_w"].shape[0]
+    gate = F.gelu(x @ p["w_gate_branch"], approximate="tanh")   # (B,S,W)
+    u_pre = x @ p["w_rec_in"]
+    if state is None:
+        u = conv1d_causal(u_pre, p["conv_w"])
+        # streaming conv state = the last K-1 raw inputs, zero-padded for
+        # prompts shorter than K-1 (the conv pads with zeros alike)
+        conv_state_new = (
+            F.pad(u_pre, (0, 0, max(k - 1 - u_pre.shape[1], 0), 0))
+            [:, -(k - 1):, :] if return_state else None)
+    else:
+        u, conv_state_new = conv1d_causal(u_pre, p["conv_w"], state["conv"])
+
+    uf = u.to(torch.float32)
+    r = torch.sigmoid(uf @ p["w_a"].to(torch.float32) + p["b_a"])
+    i = torch.sigmoid(uf @ p["w_x"].to(torch.float32) + p["b_x"])
+    log_a_max = -8.0 * F.softplus(p["lambda_p"])             # (W,) < 0
+    a = torch.exp(log_a_max * r)                             # (B,S,W)
+    bx = torch.sqrt(torch.clamp_min(1.0 - torch.square(a), 1e-12)) * (i * uf)
+
+    if state is None:
+        h = _rglru_scan(a, bx, None)
+        new_state = ({"conv": conv_state_new, "h": h[:, -1, :]}
+                     if return_state else None)
+    else:
+        h = a * state["h"][:, None, :] + bx                  # S == 1 decode
+        new_state = {"conv": conv_state_new, "h": h[:, -1, :]}
+
+    y = (h.to(x.dtype) * gate) @ p["w_out"]
+    return (y, new_state) if (state is not None or return_state) else y
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 'Finch' time mix (data-dependent decay) + channel mix.
+# ---------------------------------------------------------------------------
+
+
+def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]):
+    """The x_{t-1} stream.  ``prev`` (B, d) is the carry for decode."""
+    if prev is None:
+        return F.pad(x, (0, 0, 1, 0))[:, :-1, :]
+    return torch.cat([prev[:, None, :], x[:, :-1, :]], dim=1)
+
+
+def _rwkv_chunk_scan(r, k, v, w, u, chunk: int):
+    """Chunked linear recurrence (all (B, H, S, hd), decay w in (0, 1)):
+
+        S_t = diag(w_t) S_{t-1} + k_t v_t^T
+        o_t = r_t . (S_{t-1} + diag(u) k_t v_t^T)
+
+    Per chunk (length C), with L = inclusive cumsum(log w) and E the
+    exclusive one:
+
+        intra:  o_t += sum_{j<t} (r_t . k_j e^{E_t - L_j}) v_j
+        diag:   o_t += (r_t . u k_t) v_t
+        inter:  o_t += (r_t e^{E_t}) . S_in
+        state:  S_out = e^{L_C} . S_in + sum_j (k_j e^{L_C - L_j}) v_j^T
+
+    The intra-chunk decay ``E_t - L_j`` (<= 0 for j < t) is taken in log
+    space, so nothing overflows and no clip is needed.  The chunks run in
+    a Python loop carrying the (B, H, hd, hd) float32 state, as the
+    reference's ``lax.scan`` does.  Returns (o (B, H, S, hd), S_final)."""
+    b, h, s_len, hd = r.shape
+    if s_len % chunk:
+        raise ValueError(f"S={s_len} is not a multiple of chunk={chunk}")
+    n = s_len // chunk
+    rs, ks, vs, ws = (t.reshape(b, h, n, chunk, hd) for t in (r, k, v, w))
+    logw = torch.log(torch.clamp(ws.to(torch.float32), 1e-9, 1.0))
+    cum = torch.cumsum(logw, dim=3)                          # inclusive L
+    exc = cum - logw                                         # exclusive E
+    tri = torch.tril(torch.ones((chunk, chunk), device=r.device),
+                     diagonal=-1)
+    state = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=r.device)
+    outs = []
+    for c in range(n):
+        rf, kf, vf = (t[:, :, c].to(torch.float32) for t in (rs, ks, vs))
+        lc, ec = cum[:, :, c], exc[:, :, c]
+        diff = ec[..., :, None, :] - lc[..., None, :, :]     # (B,H,C,C,hd)
+        dec = torch.exp(torch.where(tri[..., None] > 0, diff, -torch.inf))
+        # a product and a sum over c: as one einsum, (t, j) become batch
+        # dims of a matrix-vector product per pair
+        att = (rf[..., :, None, :] * kf[..., None, :, :] * dec).sum(-1)
+        o = torch.einsum("bhtj,bhjd->bhtd", att, vf)
+        o = o + (rf * u * kf).sum(-1, keepdim=True) * vf     # diag bonus
+        q_ = rf * torch.exp(ec)                              # to chunk start
+        o = o + torch.einsum("bhtc,bhcd->bhtd", q_, state)   # inter-chunk
+        lc_last = lc[..., -1:, :]                            # (B,H,1,hd)
+        k_hat = kf * torch.exp(lc_last - lc)
+        state = (state * torch.exp(lc_last[..., 0, :])[..., :, None]
+                 + torch.einsum("bhjc,bhjd->bhcd", k_hat, vf))
+        outs.append(o)
+    return torch.cat(outs, dim=2), state
+
+
+def _rwkv_step(r, k, v, w, u, s0):
+    """One decode step: inputs (B, H, hd); state ``s0`` (B, H, hd, hd)
+    float32.  Returns (o (B, H, hd), new state)."""
+    rf, kf, vf = (t.to(torch.float32) for t in (r, k, v))
+    wkv = s0 + u[..., :, None] * kf[..., :, None] * vf[..., None, :]
+    o = torch.einsum("bhc,bhcd->bhd", rf, wkv)
+    s1 = (s0 * w.to(torch.float32)[..., :, None]
+          + kf[..., :, None] * vf[..., None, :])
+    return o, s1
+
+
+def rwkv6_block(x: torch.Tensor, p: dict, cfg: ArchConfig,
+                state: Optional[dict] = None, *, chunk: int = 64,
+                return_state: bool = False):
+    """RWKV-6 'Finch' time mix: token shift, per-projection mu mixing,
+    the low-rank data-dependent decay, the wkv recurrence, a per-head
+    groupnorm and the silu(g) gate.  x (B, S, d).
+
+    Decode (``state`` {"last_x": (B, d), "S": (B, H, hd, hd) float32},
+    S == 1) runs one step of the recurrence."""
+    b, s_len, d = x.shape
+    hd = cfg.rwkv_head_dim
+    h = d // hd
+    prev = state["last_x"] if state is not None else None
+    sx = _token_shift(x, prev) - x                           # (B,S,d)
+
+    def mix(tag):
+        return x + sx * p[f"mu_{tag}"].to(x.dtype)
+
+    r = mix("r") @ p["w_r"]
+    k = mix("k") @ p["w_k"]
+    v = mix("v") @ p["w_v"]
+    g = F.silu(mix("g") @ p["w_g"])
+    # Finch decay: w = exp(-exp(w0 + lora)) in (0, 1), data-dependent; the
+    # low-rank factors are float32, so the product runs in float32 (jnp
+    # promotes a bf16 operand; torch's matmul takes one dtype)
+    lora = (torch.tanh(mix("w").to(torch.float32) @ p["w_dec_a"])
+            @ p["w_dec_b"])
+    logit = p["w_dec0"].to(torch.float32) + lora.to(torch.float32)
+    w = torch.exp(-torch.exp(torch.clamp(logit, -20.0, 6.0)))  # (B,S,d)
+
+    def heads(t):
+        return t.reshape(b, s_len, h, hd).permute(0, 2, 1, 3)  # (B,H,S,hd)
+
+    u = p["u_bonus"].to(torch.float32)                       # (H, hd)
+    if state is None:
+        chunk = min(cfg.rwkv_chunk or chunk, s_len)
+        if s_len % chunk:
+            chunk = s_len
+        o, s_fin = _rwkv_chunk_scan(heads(r), heads(k), heads(v), heads(w),
+                                    u[None, :, None, :], chunk)
+        new_state = ({"last_x": x[:, -1, :], "S": s_fin}
+                     if return_state else None)
+    else:
+        o1, s1 = _rwkv_step(heads(r)[:, :, 0], heads(k)[:, :, 0],
+                            heads(v)[:, :, 0], heads(w)[:, :, 0], u[None],
+                            state["S"])
+        o = o1[:, :, None, :]
+        new_state = {"last_x": x[:, -1, :], "S": s1}
+
+    o = o.permute(0, 2, 1, 3).reshape(b, s_len, h, hd)       # (B,S,H,hd)
+    of = o.to(torch.float32)                                 # per-head norm
+    mu = of.mean(-1, keepdim=True)
+    var = of.var(-1, keepdim=True, unbiased=False)
+    o = (of - mu) * torch.rsqrt(var + 1e-5) * p["gn_w"] + p["gn_b"]
+    o = o.reshape(b, s_len, d).to(x.dtype) * g
+    y = o @ p["w_o"]
+    return (y, new_state) if (state is not None or return_state) else y
+
+
+def rwkv6_channel_mix(x: torch.Tensor, p: dict,
+                      state: Optional[dict] = None, *,
+                      return_state: bool = False):
+    """RWKV channel mix: a token-shifted squared-relu MLP with a
+    receptance gate.  Decode carries {"last_x": (B, d)}."""
+    prev = state["last_x"] if state is not None else None
+    sx = _token_shift(x, prev) - x
+    xk = x + sx * p["mu_ck"].to(x.dtype)
+    xr = x + sx * p["mu_cr"].to(x.dtype)
+    kk = torch.square(F.relu(xk @ p["w_ck"]))
+    y = torch.sigmoid(xr @ p["w_cr"]) * (kk @ p["w_cv"])
+    if state is not None or return_state:
+        return y, {"last_x": x[:, -1, :]}
+    return y

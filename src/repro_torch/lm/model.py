@@ -1,5 +1,5 @@
 """Model construction: init / prefill / decode from an ArchConfig (port of
-``repro/lm/model.py``, the serving subset for full-attention stacks).
+``repro/lm/model.py``, the serving subset).
 
 Public surface (functions of param and cache trees):
 
@@ -14,12 +14,14 @@ The trees keep the reference's layout: ``params["segments"]`` is a tuple
 over layer segments of a tuple over pattern slots of dicts whose leaves
 are stacked ``(count, ...)``; caches mirror it.  Where the reference scans
 over a segment, the port loops over its layers in Python.  ``decode_step``
-writes the new token's K/V into ``caches`` in place and returns the same
-trees (see ``lm/radix.py``).
+writes the new token's K/V and every recurrent state into ``caches`` in
+place and returns the same trees (see ``lm/radix.py``).
 
-Only ``attn`` blocks with gated dense FFNs, RoPE or no position embedding
-and token inputs are ported; training, MoE, recurrent blocks, windowed
-attention, ungated FFNs and whisper wait (ROADMAP.md).
+Block types: ``attn``, ``local_attn`` (a ring-buffer cache of ``window``
+slots), ``rglru`` and ``rwkv6``, with the dense FFNs (or RWKV's channel
+mix), RoPE or no position embedding, and token inputs.  Training, MoE,
+whisper's encoder-decoder, embedding inputs, learned positions and M-RoPE
+wait (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from repro_torch.api import _resolve_device
 from repro_torch.lm import blocks, radix as radix_lib
 from repro_torch.lm.config import ArchConfig, segments_for
 from repro_torch.lm.radix import torch_dtype
@@ -61,9 +64,13 @@ def _dt(cfg: ArchConfig) -> torch.dtype:
     return torch_dtype(cfg.dtype)
 
 
+BLOCK_TYPES = ("attn", "local_attn", "rglru", "rwkv6")
+ACTS = ("swiglu", "geglu", "gelu_mlp", "relu_sq")
+
+
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what this port does not run yet."""
-    bad = sorted(set(cfg.layer_types) - {"attn"})
+    bad = sorted(set(cfg.layer_types) - set(BLOCK_TYPES))
     if bad:
         raise NotImplementedError(f"block types {bad} are not ported yet")
     if cfg.moe is not None:
@@ -76,7 +83,7 @@ def check_supported(cfg: ArchConfig) -> None:
             f"pos_embed={cfg.pos_embed!r} is not ported yet")
     if cfg.mrope_sections is not None:
         raise NotImplementedError("M-RoPE is not ported yet")
-    if cfg.act not in ("swiglu", "geglu"):
+    if cfg.act not in ACTS:
         raise NotImplementedError(f"act={cfg.act!r} is not ported yet")
 
 
@@ -100,42 +107,117 @@ def _init_norm(cfg: ArchConfig, count: int, device):
     return {"w": torch.ones(shape, device=device)}
 
 
-def _init_layers(gen, cfg: ArchConfig, count: int, device) -> dict:
-    """``count`` stacked attn + gated-FFN layers, the reference's shapes
-    and init scales."""
-    d, h, hkv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                        cfg.d_ff)
-    dt = _dt(cfg)
-    s_in = d ** -0.5
-    c = (count,)
-    mix = {
+def _init_attn(gen, cfg: ArchConfig, c: tuple, device) -> dict:
+    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dt, s_in = _dt(cfg), d ** -0.5
+    return {
         "wq": _nrm(gen, c + (d, h, hd), s_in, dt, device),
         "wk": _nrm(gen, c + (d, hkv, hd), s_in, dt, device),
         "wv": _nrm(gen, c + (d, hkv, hd), s_in, dt, device),
         "wo": _nrm(gen, c + (h, hd, d), (h * hd * 2 * cfg.n_layers) ** -0.5,
                    dt, device),
     }
-    ffn = {"w_gate": _nrm(gen, c + (d, f), s_in, dt, device),
-           "w_up": _nrm(gen, c + (d, f), s_in, dt, device),
-           "w_down": _nrm(gen, c + (f, d), (f * 2 * cfg.n_layers) ** -0.5,
-                          dt, device)}
+
+
+def _init_ffn(gen, cfg: ArchConfig, c: tuple, device) -> dict:
+    d, f, dt = cfg.d_model, cfg.d_ff, _dt(cfg)
+    s_in, s_out = d ** -0.5, (f * 2 * cfg.n_layers) ** -0.5
+    p = {"w_up": _nrm(gen, c + (d, f), s_in, dt, device),
+         "w_down": _nrm(gen, c + (f, d), s_out, dt, device)}
+    if cfg.act in ("swiglu", "geglu"):
+        p["w_gate"] = _nrm(gen, c + (d, f), s_in, dt, device)
+    return p
+
+
+def _init_rglru(gen, cfg: ArchConfig, c: tuple, device) -> dict:
+    d = cfg.d_model
+    w = cfg.lru_width or d
+    dt, f32 = _dt(cfg), torch.float32
+    s, sw = d ** -0.5, w ** -0.5
+    # lambda_p so that a^8 lies in (0.9, 0.999) at r = 1 (Griffin appendix)
+    a8 = torch.rand(c + (w,), generator=gen, dtype=f32, device=device)
+    lam = torch.log(torch.expm1(-torch.log(0.9 + 0.099 * a8) / 8.0))
+    return {
+        "w_gate_branch": _nrm(gen, c + (d, w), s, dt, device),
+        "w_rec_in": _nrm(gen, c + (d, w), s, dt, device),
+        "conv_w": _nrm(gen, c + (cfg.conv_width, w), 0.25, f32, device),
+        "w_a": _nrm(gen, c + (w, w), sw, f32, device),
+        "b_a": torch.zeros(c + (w,), device=device),
+        "w_x": _nrm(gen, c + (w, w), sw, f32, device),
+        "b_x": torch.zeros(c + (w,), device=device),
+        "lambda_p": lam,
+        "w_out": _nrm(gen, c + (w, d), (w * 2 * cfg.n_layers) ** -0.5, dt,
+                      device),
+    }
+
+
+def _init_rwkv6_mix(gen, cfg: ArchConfig, c: tuple, device) -> dict:
+    d, hd = cfg.d_model, cfg.rwkv_head_dim
+    h = d // hd
+    dt, f32 = _dt(cfg), torch.float32
+    s = d ** -0.5
+    p = {f"mu_{t}": torch.full(c + (d,), 0.5, device=device)
+         for t in ("r", "k", "v", "g", "w")}
+    p.update({
+        "w_r": _nrm(gen, c + (d, d), s, dt, device),
+        "w_k": _nrm(gen, c + (d, d), s, dt, device),
+        "w_v": _nrm(gen, c + (d, d), s, dt, device),
+        "w_g": _nrm(gen, c + (d, d), s, dt, device),
+        "w_o": _nrm(gen, c + (d, d), (d * 2 * cfg.n_layers) ** -0.5, dt,
+                    device),
+        "w_dec_a": _nrm(gen, c + (d, 64), s, f32, device),
+        "w_dec_b": _nrm(gen, c + (64, d), 64 ** -0.5, f32, device),
+        "w_dec0": torch.zeros(c + (d,), device=device),  # w ~ exp(-1)
+        "u_bonus": _nrm(gen, c + (h, hd), 0.5, f32, device),
+        "gn_w": torch.ones(c + (h, hd), device=device),
+        "gn_b": torch.zeros(c + (h, hd), device=device),
+    })
+    return p
+
+
+def _init_rwkv6_cmix(gen, cfg: ArchConfig, c: tuple, device) -> dict:
+    d, f, dt = cfg.d_model, cfg.d_ff, _dt(cfg)
+    return {
+        "mu_ck": torch.full(c + (d,), 0.5, device=device),
+        "mu_cr": torch.full(c + (d,), 0.5, device=device),
+        "w_ck": _nrm(gen, c + (d, f), d ** -0.5, dt, device),
+        "w_cv": _nrm(gen, c + (f, d), (f * 2 * cfg.n_layers) ** -0.5, dt,
+                     device),
+        "w_cr": _nrm(gen, c + (d, d), d ** -0.5, dt, device),
+    }
+
+
+_INIT_MIX = {"attn": _init_attn, "local_attn": _init_attn,
+             "rglru": _init_rglru, "rwkv6": _init_rwkv6_mix}
+
+
+def _init_layers(gen, cfg: ArchConfig, btype: str, count: int,
+                 device) -> dict:
+    """``count`` stacked layers of block type ``btype`` with their channel
+    mix, the reference's shapes, dtypes and init scales."""
+    c = (count,)
+    ffn = _init_rwkv6_cmix if btype == "rwkv6" else _init_ffn
     return {"ln1": _init_norm(cfg, count, device),
-            "ln2": _init_norm(cfg, count, device), "mix": mix, "ffn": ffn}
+            "ln2": _init_norm(cfg, count, device),
+            "mix": _INIT_MIX[btype](gen, cfg, c, device),
+            "ffn": ffn(gen, cfg, c, device)}
 
 
 def init_params(generator: torch.Generator, cfg: ArchConfig, *,
                 device=None) -> dict:
-    """Random parameters drawn from ``generator`` (its device must be
-    ``device``'s), with the reference's tree, shapes and init scales
-    (not its bits: ``carry.lm_params_from_numpy`` brings those across)."""
+    """Random parameters drawn from ``generator`` on its device (or on
+    ``device``, which must then be the generator's), with the reference's
+    tree, shapes, dtypes and init scales (not its bits:
+    ``carry.lm_params_from_numpy`` brings those across)."""
     check_supported(cfg)
-    device = torch.device("cpu" if device is None else device)
+    device = generator.device if device is None else torch.device(device)
     dt = _dt(cfg)
     p: Dict[str, Any] = {
         "embed": _nrm(generator, (cfg.vocab, cfg.d_model),
                       cfg.d_model ** -0.5, dt, device)}
     p["segments"] = tuple(
-        tuple(_init_layers(generator, cfg, count, device) for _ in pattern)
+        tuple(_init_layers(generator, cfg, btype, count, device)
+              for btype in pattern)
         for pattern, count in segments_for(cfg))
     p["final_norm"] = {k: v[0] for k, v in
                        _init_norm(cfg, 1, device).items()}
@@ -209,32 +291,72 @@ def kmajor_params(params):
 
 def _apply_layer(h, lp, btype: str, cfg: ArchConfig, positions, mode: str,
                  cache=None, pos=None, max_len: int = 0):
-    """One block: attention + dense FFN, each with its pre-norm and
-    residual.  ``mode="prefill"`` returns the layer's new cache (K/V
-    padded to ``max_len`` and encoded); ``"decode"`` updates ``cache`` in
-    place.  Returns (h, cache)."""
-    if btype != "attn":
-        raise NotImplementedError(f"block type {btype!r} is not ported yet")
-    hn = blocks.norm(h, lp["ln1"], cfg.norm)
-    if mode == "prefill":
-        mix, (k, v) = blocks.attention(hn, lp["mix"], cfg, positions,
-                                       return_kv=True)
-        pad = max_len - k.shape[1]
-        if pad:
-            z = torch.zeros((k.shape[0], pad) + tuple(k.shape[2:]),
-                            dtype=k.dtype, device=k.device)
-            k = torch.cat([k, z], 1)
-            v = torch.cat([v, z], 1)
-        new_cache = radix_lib.encode_cache_bulk(
-            k.to(_dt(cfg)), v.to(_dt(cfg)), cfg, _dt(cfg))
-    elif mode == "decode":
-        mix, new_cache = blocks.decode_attention(hn, lp["mix"], cfg, cache,
-                                                 pos)
-    else:
+    """One block: temporal mix + channel mix, each with its pre-norm and
+    residual.  ``mode="prefill"`` returns the layer's new cache;
+    ``"decode"`` consumes ``cache`` and returns the block's new state
+    (an attention cache is updated in place and returned as is).
+
+    Cache structure by block type:
+      attn / local_attn : {"k", "v"(, "k_scale", "v_scale")} of length
+                          max_len (a ring buffer of min(window, max_len)
+                          slots for local_attn)
+      rglru             : {"conv": (B, K-1, W), "h": (B, W)}
+      rwkv6             : {"mix": {"last_x", "S"}, "cmix": {"last_x"}}
+    Returns (h, cache)."""
+    if mode not in ("prefill", "decode"):
         raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+    prefill = mode == "prefill"
+    hn = blocks.norm(h, lp["ln1"], cfg.norm)
+    if btype in ("attn", "local_attn"):
+        window = cfg.window if btype == "local_attn" else 0
+        if prefill:
+            mix, (k, v) = blocks.attention(hn, lp["mix"], cfg, positions,
+                                           window=window, return_kv=True)
+            length = min(window, max_len) if window else max_len
+            if k.shape[1] > length:     # windowed: keep the last positions
+                k, v = k[:, -length:], v[:, -length:]
+            pad = length - k.shape[1]
+            if pad:
+                z = torch.zeros((k.shape[0], pad) + tuple(k.shape[2:]),
+                                dtype=k.dtype, device=k.device)
+                k = torch.cat([k, z], 1)
+                v = torch.cat([v, z], 1)
+            new_mix = radix_lib.encode_cache_bulk(
+                k.to(_dt(cfg)), v.to(_dt(cfg)), cfg, _dt(cfg))
+        else:
+            mix, new_mix = blocks.decode_attention(
+                hn, lp["mix"], cfg, cache, pos, window=window)
+    elif btype == "rglru":
+        mix, new_mix = blocks.rglru_block(
+            hn, lp["mix"], cfg, state=None if prefill else cache,
+            return_state=True)
+    elif btype == "rwkv6":
+        mix, new_mix = blocks.rwkv6_block(
+            hn, lp["mix"], cfg, state=None if prefill else cache["mix"],
+            return_state=True)
+    else:
+        raise ValueError(btype)
     h = h + mix
-    h = h + blocks.ffn(blocks.norm(h, lp["ln2"], cfg.norm), lp["ffn"], cfg)
-    return h, new_cache
+    hn = blocks.norm(h, lp["ln2"], cfg.norm)
+    if btype == "rwkv6":
+        y, new_cm = blocks.rwkv6_channel_mix(
+            hn, lp["ffn"], state=None if prefill else cache["cmix"],
+            return_state=True)
+        new_mix = {"mix": new_mix, "cmix": new_cm}
+    else:
+        y = blocks.ffn(hn, lp["ffn"], cfg)
+    return h + y, new_mix
+
+
+def _write_back(dst, src) -> None:
+    """Copy a decode step's new block state ``src`` into ``dst``, the
+    stacked cache's views for that layer, leaf by leaf (a leaf the block
+    updated in place is ``dst`` itself and is skipped)."""
+    if isinstance(dst, dict):
+        for k, v in dst.items():
+            _write_back(v, src[k])
+    elif dst is not src:
+        dst.copy_(src)
 
 
 def _backbone(params, h, cfg: ArchConfig, positions, mode: str,
@@ -254,6 +376,8 @@ def _backbone(params, h, cfg: ArchConfig, positions, mode: str,
                         if seg_c is not None else None)
                 h, nc = _apply_layer(h, lp, btype, cfg, positions, mode,
                                      cache=c_in, pos=pos, max_len=max_len)
+                if mode == "decode":
+                    _write_back(c_in, nc)
                 ncs.append(nc)
             per_layer.append(tuple(ncs))
         if mode == "decode":
@@ -302,17 +426,42 @@ def _input_h(params, batch, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 
+def _cache_entry(cfg: ArchConfig, btype: str, batch: int, max_len: int,
+                 device) -> dict:
+    dt = _dt(cfg)
+    if btype in ("attn", "local_attn"):
+        length = (min(cfg.window, max_len) if btype == "local_attn"
+                  else max_len)
+        return radix_lib.init_cache_entry(cfg, batch, length, dt,
+                                          device=device)
+    if btype == "rglru":
+        w = cfg.lru_width or cfg.d_model
+        return {"conv": torch.zeros((batch, cfg.conv_width - 1, w),
+                                    dtype=dt, device=device),
+                "h": torch.zeros((batch, w), device=device)}
+    if btype == "rwkv6":
+        d, hd = cfg.d_model, cfg.rwkv_head_dim
+        return {"mix": {"last_x": torch.zeros((batch, d), dtype=dt,
+                                              device=device),
+                        "S": torch.zeros((batch, d // hd, hd, hd),
+                                         device=device)},
+                "cmix": {"last_x": torch.zeros((batch, d), dtype=dt,
+                                               device=device)}}
+    raise ValueError(btype)
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device=None):
-    """Zeros caches, one stacked entry per segment slot."""
+    """Zeros caches, one stacked entry per segment slot, on ``device``
+    (``None`` means CUDA, and raises when there is none)."""
     check_supported(cfg)
+    device = _resolve_device(device)
     caches = []
     for pattern, count in segments_for(cfg):
         slots = []
-        for _ in pattern:
-            e = radix_lib.init_cache_entry(cfg, batch, max_len, _dt(cfg),
-                                           device=device)
-            slots.append({k: v.expand((count,) + tuple(v.shape)).clone()
-                          for k, v in e.items()})
+        for btype in pattern:
+            e = _cache_entry(cfg, btype, batch, max_len, device)
+            slots.append(tree_map(lambda v: v.expand(
+                (count,) + tuple(v.shape)).clone(), e))
         caches.append(tuple(slots))
     return tuple(caches)
 
@@ -326,23 +475,46 @@ def prefill(params, batch, cfg: ArchConfig, max_len: int = 0, *,
     ``max_len`` sizes the decode cache (default: prompt length).
     ``true_len`` gathers the last-token state at ``true_len - 1`` of a
     right-padded prompt (bucketed prefill: exact for pure full-attention
-    stacks, since the causal mask hides the pads)."""
+    stacks, since the causal mask hides the pads; not for recurrent or
+    windowed blocks, whose state would absorb them)."""
     h, _ = _input_h(params, batch, cfg)
     b, s_len = h.shape[0], h.shape[1]
     max_len = max_len or s_len
     positions = _positions(cfg, b, s_len, device=h.device)
     h, caches = _backbone(params, h, cfg, positions, "prefill",
                           max_len=max_len)
+    # ring-buffer alignment: position p must live at slot p % window
+    caches = _roll_window_caches(caches, cfg, s_len)
     idx = s_len if true_len is None else int(true_len)
     h = blocks.norm(h[:, idx - 1:idx, :], params["final_norm"], cfg.norm)
     logits = _lm_head(h, params, cfg)[:, 0]
     return logits, caches
 
 
+def _roll_window_caches(caches, cfg: ArchConfig, s_len: int):
+    """After prefill a windowed (ring) cache holds the last W positions in
+    order from slot 0; decode expects position p at slot p % W."""
+    if "local_attn" not in cfg.layer_types:
+        return caches
+    out = []
+    for (pattern, _), seg_c in zip(segments_for(cfg), caches):
+        slots = []
+        for btype, c in zip(pattern, seg_c):
+            if btype == "local_attn":
+                w = c["k"].shape[2]           # stacked (count, B, W, ...)
+                shift = s_len % w if s_len > w else 0
+                if shift:
+                    c = {k: torch.roll(v, shift, dims=2) if v.ndim >= 3
+                         else v for k, v in c.items()}
+            slots.append(c)
+        out.append(tuple(slots))
+    return tuple(out)
+
+
 def decode_step(params, caches, tokens, pos, cfg: ArchConfig):
     """One decode step.  ``tokens`` (B, 1) ints; ``pos`` the position being
     written (an int).  Returns (logits (B, V), caches) with ``caches``
-    updated in place."""
+    (attention caches and recurrent states) updated in place."""
     h = _embed(params, tokens, cfg)
     h, caches = _backbone(params, h, cfg, None, "decode", caches=caches,
                           pos=int(pos))

@@ -199,10 +199,10 @@ def _decode_kv(q: torch.Tensor, s: torch.Tensor, num_steps: int, dtype):
 
 
 def cache_update(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
-                 pos: int, cfg: ArchConfig) -> dict:
-    """Write one token (B, 1, Hkv, hd) at slot ``pos``, in place; returns
-    ``cache``."""
-    slot = int(pos)
+                 pos: int, cfg: ArchConfig, *, window: int = 0) -> dict:
+    """Write one token (B, 1, Hkv, hd) at slot ``pos`` (the ring slot
+    ``pos % window`` if windowed), in place; returns ``cache``."""
+    slot = int(pos) % window if window else int(pos)
     if _radix_kv(cfg):
         qk, sk = _encode_kv(k_new, cfg.radix_steps)
         qv, sv = _encode_kv(v_new, cfg.radix_steps)

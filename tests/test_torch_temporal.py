@@ -286,7 +286,9 @@ def test_fang_model_and_registry_match_reference():
                 assert p["w"].dtype == torch.float32
                 assert not bool(p["b"].any())
     assert configs.SNN_ARCHS == J_SNN_ARCHS
-    assert configs.LM_ARCHS == ["gemma_2b"]
+    assert configs.LM_ARCHS == ["gemma_2b", "glm4_9b", "gemma_7b",
+                                "deepseek_coder_33b", "recurrentgemma_2b",
+                                "rwkv6_3b"]
     assert configs.get_snn("fang-cnn") is fang.make
     with pytest.raises(ValueError):
         configs.get_snn("gemma_2b")
