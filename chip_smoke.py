@@ -26,8 +26,9 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` and runs:
      shape (B = 8, H = 8, Hkv = 1, hd = 256, S = 512, T = 4 packed, bf16
      query, a mask set with causal prefixes, ring windows and an
      all-masked row, an empty plane in the whole cache), S in {1, 33,
-     129, 300, 512, 4096}, Hkv in {1, 2}, g in {1, 4, 8, 10, 16}, hd in
-     {64, 128, 256, 512}, T = 1 and 8 unpacked and 4 packed, a plane
+     129, 300, 512, 4096}, Hkv in {1, 2, 8}, g in {1, 4, 6, 8, 10, 16}, hd
+     in {64, 112, 128, 256, 512} (Kimi-K2's hd = 112 packs a 56-byte row,
+     not a multiple of 16), T = 1 and 8 unpacked and 4 packed, a plane
      empty in one tile only, ring windows whose middle splits are fully
      masked, bf16 and f32 queries; each with both dataflows and the
      occupancy gate on and off: ``torch.equal``; GLM4-9B's group (g = 16,
@@ -139,10 +140,29 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` and runs:
    in decode one attention per attention layer.  Prefill and decode ms
    by host clock, a profile of one prefill and three decode steps
    (device ms, busy share, attention's share), seconds and peak memory
-   per arch.
+   per arch;
+13. the last four LM archs (``ARCH_PHASES_13``), at full width in bf16 as
+   phase 12 runs them, fused: Grok-1 (4 of its 64 layers: 8 routed
+   experts of 6144 x 32768, 9.66 GB a layer) and Kimi-K2 (1 of its 61:
+   384 experts of 7168 x 2048 and a shared one, 33.8 GB) through
+   ``Accelerator.compile`` at (8, 512), buckets (64, 256) and (64,), a
+   request of 8 x 40 tokens with 8 new; the MoE layers run the ``ref``
+   dispatch (every expert on every token, routed experts exact), and
+   the dense expert products of one layer are timed at the profiled
+   prefill's and decode's token counts for their share of the device
+   time.  Whisper-medium (24 + 24 layers) and Qwen2-VL-72B (12 of its
+   80) through ``lm.model.prefill`` / ``decode_step`` with a batch dict:
+   Whisper 8 x 64 and 2 x 400 tokens (within its 448 positions) over
+   seeded (B, 1500, 1024) frame embeddings, 16 and 8 new, fed its greedy
+   tokens; Qwen2-VL 8 x 256 seeded embeds and 8 decode steps fed seeded
+   (B, 1, d) embeds.  Every step's logits ``torch.equal`` to the plain
+   path, the launches of ``lm_launches`` (routed experts and the MoE
+   unembed none, Kimi's shared expert 3 a position, Whisper's encoder
+   FFNs once a prefill, cross-attention no attention launch), times, a
+   profile, seconds and peak memory per arch.
 
 Launch counters are set to 0 just before each path (phases 3-4, 7, 8, 9,
-10, 11, and each arch of 12) and read just after; so are the GEMM
+10, 11, and each arch of 12 and 13) and read just after; so are the GEMM
 wrappers' per-call weight-transpose counters, which must stay 0 on the
 CNN and LM paths (their plans hold K-major weights).  Every failure raises, so the
 script exits non-zero.
@@ -742,6 +762,13 @@ ATTN_EDGES = [
     ATTN_G16,
     dict(b=2, s=129, hkv=2, g=4, hd=512, t=8, packed=False, q="f32",
          mask="allmasked", empty="tile"),
+    # Grok-1's group (48 query heads over 8 kv heads: g = 6, hd 128) and
+    # Kimi-K2's (64 over 8, hd = 7168 / 64 = 112: a 56-byte packed row,
+    # not a multiple of 16, so the tile loads take the partial-chunk path)
+    dict(b=2, s=300, hkv=8, g=6, hd=128, t=4, packed=True, q="bf16",
+         mask="mixed", empty="tile"),
+    dict(b=2, s=300, hkv=8, g=8, hd=112, t=4, packed=True, q="bf16",
+         mask="ring", empty="cache"),
 ]
 ATTN_LONG = dict(ATTN_DECODE, s=8192)   # Gemma-2B's context
 
@@ -1558,12 +1585,12 @@ def lm_timings(torch, cfg, exe, row, request=LM_REQUESTS[0],
     """Prefill ms per bucket (full batch, prompts filling the bucket),
     decode ms per step and tokens/s, and one ``request`` (prompts, tokens,
     new tokens) through ``generate``; host clock ending in synchronize."""
-    for bucket in LM_BUCKETS:
+    for bucket in exe.buckets:
         prompts = lm_prompts(torch, cfg, LM_BATCH, bucket, SEED + 40)
         ms = host_ms(torch, lambda: exe.prefill(prompts), reps=3, warmup=1)
         row[f"prefill_{bucket}_ms"] = ms
         row[f"prefill_{bucket}_tokens_per_s"] = LM_BATCH * bucket / ms * 1e3
-    state = exe.prefill(lm_prompts(torch, cfg, LM_BATCH, LM_BUCKETS[-1],
+    state = exe.prefill(lm_prompts(torch, cfg, LM_BATCH, exe.buckets[-1],
                                    SEED + 41))
     tok = state["logits"].argmax(-1)[:, None]
     ms = host_ms(torch, lambda: exe.decode(state, tok), reps=10)
@@ -1577,10 +1604,10 @@ def lm_timings(torch, cfg, exe, row, request=LM_REQUESTS[0],
     req_s = time.perf_counter() - t0
     row["request_s"] = req_s
     row["request_tokens_per_s"] = n * new / req_s
-    top = LM_BUCKETS[-1]
+    top = exe.buckets[-1]
     log(f"[{tag}] {exe.dataflow:9s} prefill "
         + ", ".join(f"bucket {b}: {row[f'prefill_{b}_ms']:.2f} ms"
-                    for b in LM_BUCKETS)
+                    for b in exe.buckets)
         + f" ({row[f'prefill_{top}_tokens_per_s']:.0f} prompt tokens/s at "
         f"bucket {top}); decode "
         f"{ms:.3f} ms per step ({row['decode_tokens_per_s']:.1f} tokens/s "
@@ -2310,19 +2337,23 @@ def phase_autotune_lm(torch, arch, results) -> None:
 # ---------------------------------------------------------------------------
 
 # (config module, layers kept (0: all), dataflows, requests as (prompts,
-# tokens, new tokens), served through): DeepSeek-Coder-33B's bf16 tree is
+# tokens or embeds, new tokens), served through ("compile": the
+# ``Accelerator``, "generate": ``launch.serve.generate``, "model":
+# ``lm.model.prefill`` / ``decode_step``), buckets of a compiled arch, else
+# None): DeepSeek-Coder-33B's bf16 tree is
 # ~66.8 GB at its 62 layers, and radixifying a stacked FFN leaf on the card
 # adds its int8 copy (8.5 GB at 62 layers) and float temporaries, so it
 # runs 16 layers; RecurrentGemma's second request (2100 tokens) is longer
 # than its 2048-slot window, so prefill rolls the ring and decode wraps.
 ARCH_PHASES = (
     ("glm4_9b", 0, ("fused", "bitserial"), ((8, 40, 8), (3, 200, 8)),
-     "compile"),
-    ("gemma_7b", 0, ("fused",), ((8, 40, 8),), "compile"),
-    ("deepseek_coder_33b", 16, ("fused",), ((8, 40, 8),), "compile"),
+     "compile", LM_BUCKETS),
+    ("gemma_7b", 0, ("fused",), ((8, 40, 8),), "compile", LM_BUCKETS),
+    ("deepseek_coder_33b", 16, ("fused",), ((8, 40, 8),), "compile",
+     LM_BUCKETS),
     ("recurrentgemma_2b", 0, ("fused",), ((8, 64, 16), (2, 2100, 8)),
-     "generate"),
-    ("rwkv6_3b", 0, ("fused",), ((8, 256, 16),), "generate"),
+     "generate", None),
+    ("rwkv6_3b", 0, ("fused",), ((8, 256, 16),), "generate", None),
 )
 
 
@@ -2338,14 +2369,27 @@ def arch_cfg(name: str, layers: int):
 
 
 def lm_launches(cfg) -> tuple:
-    """(radix_matmul, radix_decode_attn) launches of one forward over one
-    token position: the radix FFN products (RWKV's channel mix has none),
-    an untied unembed, and in decode one attention per attention layer."""
+    """(radix_matmul, radix_decode_attn, encoder radix_matmul) launches,
+    as ``model.radixify_params`` leaves the weights: the first two of one
+    forward over one token position (each layer's radix FFN products:
+    none for RWKV's channel mix or routed MoE experts, the shared
+    experts' for Kimi-K2; an untied unembed outside the MoE family; in
+    decode one attention per self-attention layer, cross-attention being
+    plain), the third of an encoder's FFNs, once per prefill."""
     gated = 3 if cfg.act in ("swiglu", "geglu") else 2
+    ffn = gated if cfg.moe is None or cfg.moe.num_shared else 0
     types = cfg.layer_types
-    mm = sum(gated for t in types if t != "rwkv6")
-    mm += 0 if cfg.tie_embeddings else 1
-    return mm, sum(t in ("attn", "local_attn") for t in types)
+    mm = sum(ffn for t in types if t != "rwkv6")
+    mm += 0 if cfg.tie_embeddings or cfg.family == "moe" else 1
+    return (mm, sum(t in ("attn", "local_attn") for t in types),
+            gated * cfg.encoder_layers)
+
+
+def path_kernels(cfg) -> tuple:
+    """The kernels an arch's path must launch (``lm_launches`` > 0)."""
+    mm, attn, enc = lm_launches(cfg)
+    return tuple(k for k, n in (("radix_matmul", mm + enc),
+                                ("radix_decode_attn", attn)) if n)
 
 
 def arch_params(torch, model, cfg) -> tuple:
@@ -2379,12 +2423,13 @@ def log_arch_profile(name: str, dataflow: str, prof: dict, n_attn: int,
                                      for k, v, c in pr["top"]))
 
 
-def phase_arch_compiled(torch, name, cfg, dataflows, requests,
-                        results) -> None:
-    """A dense GQA arch served through ``Accelerator.compile`` at
-    (batch, max_len) = (8, 512), buckets (64, 256): every request's logits
+def phase_arch_compiled(torch, name, cfg, dataflows, requests, results,
+                        buckets) -> None:
+    """A dense GQA or MoE arch served through ``Accelerator.compile`` at
+    (batch, max_len) = (8, 512) and ``buckets``: every request's logits
     ``torch.equal`` to the plain path at every step, and the launches of
-    ``lm_launches`` per token position."""
+    ``lm_launches`` per token position; for a MoE arch the dense expert
+    products' share of the profiled device time."""
     from repro_torch import api
     from repro_torch.lm import model
 
@@ -2392,17 +2437,17 @@ def phase_arch_compiled(torch, name, cfg, dataflows, requests,
     if DEV == "cuda":
         torch.cuda.reset_peak_memory_stats()
     params, n_params = arch_params(torch, model, cfg)
-    mm, attn = lm_launches(cfg)
+    mm, attn, _ = lm_launches(cfg)
     out = dict(params=n_params, layers=cfg.n_layers,
                launches_per_step=dict(radix_matmul=mm,
                                       radix_decode_attn=attn),
                dataflows={})
     for dataflow in dataflows:
         exe = api.Accelerator(dataflow=dataflow, device=DEV).compile(
-            (params, cfg), (LM_BATCH, LM_MAX_LEN), buckets=LM_BUCKETS)
+            (params, cfg), (LM_BATCH, LM_MAX_LEN), buckets=buckets)
         exe.warmup()
         built = exe.stats()["compiles"]
-        check(built == len(LM_BUCKETS) + 1, f"{name}: warmup built {built}")
+        check(built == len(buckets) + 1, f"{name}: warmup built {built}")
         plain_cfg = dataclasses.replace(exe.cfg, use_kernel=False)
         cmp = []
         for i, (n, s0, new) in enumerate(requests):
@@ -2434,10 +2479,41 @@ def phase_arch_compiled(torch, name, cfg, dataflows, requests,
         lm_timings(torch, cfg, exe, row, request=requests[0],
                    tag=f"arch {name}")
         row["profile"] = profile_lm(torch, exe, lm_prompts(
-            torch, cfg, LM_BATCH, LM_BUCKETS[-1], SEED + 30))
+            torch, cfg, LM_BATCH, buckets[-1], SEED + 30))
         log_arch_profile(name, dataflow, row["profile"], attn, row)
+        if cfg.moe is not None:
+            expert_share(torch, name, cfg, params, row,
+                         LM_BATCH * buckets[-1])
         del exe
     finish_arch(torch, name, out, params, t_phase, results)
+
+
+def expert_share(torch, name, cfg, params, row, n_prefill: int) -> None:
+    """The dense expert products (``moe.expert_outputs``: every expert on
+    every token, the ``ref`` dispatch's three batched products) of one
+    layer at the profiled prefill's and decode step's token counts,
+    device time by the profiler, times the layers, as a share of the
+    profiled device time."""
+    from repro_torch.lm import model, moe
+
+    lp = model.tree_map(lambda t: t[0], params["segments"][0][0]["ffn"])
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 95)
+    for step, n in (("prefill", n_prefill), ("decode", LM_BATCH)):
+        x2 = torch.randn((n, cfg.d_model), generator=gen, device=DEV).to(
+            lp["w_gate"].dtype)
+        with torch.inference_mode():
+            ms = device_ms(torch, lambda: moe.expert_outputs(x2, lp, cfg),
+                           None, reps=3)
+        pr = row["profile"].get(step)
+        share = (None if ms is None or pr is None
+                 else cfg.n_layers * ms / pr["device_ms"])
+        row[f"{step}_expert_ms"], row[f"{step}_expert_share"] = ms, share
+        log(f"[arch] {name} {step}: dense expert products "
+            + ("not measured" if ms is None else
+               f"{ms:.3f} ms a layer at {n} tokens ({cfg.moe.num_experts} "
+               f"experts x {cfg.moe.d_ff_expert} wide)")
+            + (f", {100 * share:.1f}% of the profiled device time over "
+               f"{cfg.n_layers} layers" if share is not None else ""))
 
 
 def phase_arch_generate(torch, name, cfg, requests, results) -> None:
@@ -2456,7 +2532,7 @@ def phase_arch_generate(torch, name, cfg, requests, results) -> None:
     plain_cfg = dataclasses.replace(cfg, use_kernel=False)
     params, n_params = arch_params(torch, model, cfg)
     params = model.kmajor_params(model.radixify_params(params, cfg))
-    mm, attn = lm_launches(cfg)
+    mm, attn, _ = lm_launches(cfg)
     out = dict(params=n_params, layers=cfg.n_layers,
                launches_per_step=dict(radix_matmul=mm,
                                       radix_decode_attn=attn),
@@ -2510,6 +2586,153 @@ def phase_arch_generate(torch, name, cfg, requests, results) -> None:
             f"step, launches {launches}; request {req_s:.3f} s; prefill "
             f"{req['prefill_ms']:.2f} ms "
             f"({n * s0 / req['prefill_ms'] * 1e3:.0f} prompt tokens/s); "
+            f"decode {req['decode_ms']:.3f} ms a step "
+            f"({n / req['decode_ms'] * 1e3:.1f} tokens/s at batch {n})")
+    log_arch_profile(name, "fused", row["profile"], attn, row)
+    finish_arch(torch, name, out, params, t_phase, results)
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the MoE archs, Whisper-medium and Qwen2-VL-72B.
+# ---------------------------------------------------------------------------
+
+# Laid out as ``ARCH_PHASES``, all fused.  Grok-1 keeps 4 of its 64
+# layers (the routed experts are 9.66 GB a layer in bf16: the tree is
+# ~42.6 GB), Kimi-K2 1 of its 61 (384 experts are 33.8 GB a layer, the
+# tree ~38.8 GB; two layers do not fit beside the ``ref`` dispatch's
+# transients), Qwen2-VL-72B 12 of its 80 (~2.48 GB a layer with its int8
+# FFN copy, the tree ~36 GB); Whisper-medium runs all 24 + 24 layers, its
+# requests within the native 448 positions.
+ARCH_PHASES_13 = (
+    ("grok_1_314b", 4, ("fused",), ((8, 40, 8),), "compile", (64, 256)),
+    ("kimi_k2_1t_a32b", 1, ("fused",), ((8, 40, 8),), "compile", (64,)),
+    ("whisper_medium", 0, ("fused",), ((8, 64, 16), (2, 400, 8)), "model",
+     None),
+    ("qwen2_vl_72b", 12, ("fused",), ((8, 256, 8),), "model", None),
+)
+
+
+def model_inputs(torch, cfg, n: int, s0: int, new: int, seed: int):
+    """A request's seeded inputs on the card: (prefill batch dict, the
+    decode steps' (n, new, d) embeds or None).  Token prompts (plus a
+    label column) for a token arch, with (n, encoder_ctx, d) frame
+    embeddings for an encoder-decoder; (n, s0, d) embeds for an
+    embedding-input arch."""
+    from repro_torch.lm.radix import torch_dtype
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    dt = torch_dtype(cfg.dtype)
+    if cfg.embedding_inputs:
+        emb = torch.randn((n, s0 + new, cfg.d_model), generator=gen,
+                          device=DEV).to(dt)
+        return {"embeds": emb[:, :s0]}, emb[:, s0:]
+    tokens = torch.randint(0, cfg.vocab, (n, s0 + 1), generator=gen,
+                           device=DEV)
+    batch = {"tokens": tokens}
+    if cfg.encoder_layers:
+        batch["enc_embeds"] = torch.randn(
+            (n, cfg.encoder_ctx, cfg.d_model), generator=gen,
+            device=DEV).to(dt)
+    return batch, None
+
+
+def run_model(model, params, cfg, batch, s0: int, new: int, feed) -> list:
+    """``model.prefill`` of ``batch`` (cache sized s0 + new), then new - 1
+    ``decode_step``s, step i fed ``feed(i, logits)``; every step's
+    logits."""
+    import torch
+
+    with torch.inference_mode():
+        lg, caches = model.prefill(params, batch, cfg, max_len=s0 + new)
+        out = [lg]
+        for i in range(new - 1):
+            lg, caches = model.decode_step(params, caches, feed(i, lg),
+                                           s0 + i, cfg)
+            out.append(lg)
+    return out
+
+
+def phase_arch_model(torch, name, cfg, requests, results) -> None:
+    """An encoder-decoder or embedding-input arch served through
+    ``lm.model.prefill`` / ``decode_step`` with a batch dict (seeded frame
+    or patch embeddings drawn on the card), radix weights K-major, fused:
+    every step's logits ``torch.equal`` to the plain path (Whisper fed the
+    kernel path's greedy tokens, Qwen2-VL seeded (n, 1, d) embeds), and the
+    launches of ``lm_launches``, the encoder's FFNs once per prefill."""
+    from repro_torch.lm import model
+
+    t_phase = time.perf_counter()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(cfg, quant="radix", use_kernel=True,
+                              kernel_dataflow="fused")
+    plain_cfg = dataclasses.replace(cfg, use_kernel=False)
+    params, n_params = arch_params(torch, model, cfg)
+    params = model.kmajor_params(model.radixify_params(params, cfg))
+    mm, attn, enc = lm_launches(cfg)
+    out = dict(params=n_params, layers=cfg.n_layers,
+               encoder_layers=cfg.encoder_layers,
+               launches_per_step=dict(radix_matmul=mm,
+                                      radix_decode_attn=attn,
+                                      encoder_radix_matmul=enc),
+               dataflows={"fused": {"requests": []}})
+    row = out["dataflows"]["fused"]
+    for i, (n, s0, new) in enumerate(requests):
+        batch, embeds = model_inputs(torch, cfg, n, s0, new, SEED + 90 + i)
+        fed = []
+
+        def feed(j, lg):
+            x = (embeds[:, j:j + 1] if embeds is not None
+                 else lg.to(torch.float32).argmax(-1)[:, None])
+            fed.append(x)
+            return x
+
+        before = counters()
+        t0 = time.perf_counter()
+        logits = run_model(model, params, cfg, batch, s0, new, feed)
+        sync(torch)
+        req_s = time.perf_counter() - t0
+        after = counters()
+        launches = {k: after[k] - before[k] for k in after}
+        want = {"radix_matmul": mm * new + enc,
+                "radix_decode_attn": attn * (new - 1),
+                "radix_conv2d": 0, "spike_encode": 0}
+        check(DEV != "cuda" or launches == want,
+              f"{name} request {i}: launches {launches} != {want}")
+        check(len(logits) == new and all(
+            tuple(x.shape) == (n, cfg.vocab) and bool(torch.isfinite(x).all())
+            for x in logits), f"{name}: output shape / finiteness")
+        plain = run_model(model, params, plain_cfg, batch, s0, new,
+                          lambda j, lg: fed[j])
+        c = compare_logits(torch, logits, plain)
+        check(c["equal"], f"{name} request {i}: logits differ from the "
+              f"plain path {c}")
+        req = dict(request=(n, s0, new), comparison=c, request_s=req_s,
+                   launches=launches)
+        with torch.inference_mode():
+            def prefill():
+                return model.prefill(params, batch, cfg, max_len=s0 + new)
+
+            req["prefill_ms"] = host_ms(torch, prefill, reps=3, warmup=1)
+            caches = prefill()[1]
+            x = fed[0]
+
+            def decode():
+                return model.decode_step(params, caches, x, s0, cfg)
+
+            req["decode_ms"] = host_ms(torch, decode, reps=10)
+            if i == 0:
+                row["profile"] = profile_steps(
+                    torch, prefill, lambda: [decode() for _ in range(3)])
+        row["requests"].append(req)
+        log(f"[arch] {name} fused: {n} x {s0} "
+            + ("embeds" if embeds is not None else "tokens")
+            + (f" over {cfg.encoder_ctx} encoder frames"
+               if cfg.encoder_layers else "")
+            + f" + {new} new through model.prefill / decode_step: logits "
+            f"equal the plain path at every step, launches {launches}; "
+            f"request {req_s:.3f} s; prefill {req['prefill_ms']:.2f} ms "
+            f"({n * s0 / req['prefill_ms'] * 1e3:.0f} prompt positions/s); "
             f"decode {req['decode_ms']:.3f} ms a step "
             f"({n / req['decode_ms'] * 1e3:.1f} tokens/s at batch {n})")
     log_arch_profile(name, "fused", row["profile"], attn, row)
@@ -2654,22 +2877,24 @@ def main() -> int:
     shutil.rmtree(Path(results["autotune"]["table"]).parent,
                   ignore_errors=True)
 
-    t0 = time.perf_counter()
     arch_paths = {}
-    for name, layers, dataflows, requests, served in ARCH_PHASES:
-        cfg = arch_cfg(name, layers)
-        reset_counters()
-        if served == "compile":
-            phase_arch_compiled(torch, name, cfg, dataflows, requests,
-                                results)
-        else:
-            phase_arch_generate(torch, name, cfg, requests, results)
-        paths[name] = counters()
-        copies[name] = transposes()
-        arch_paths[name] = ("radix_matmul", "radix_decode_attn")[
-            :1 + (lm_launches(cfg)[1] > 0)]
-    log(f"[arch] phase 12: {time.perf_counter() - t0:.1f} s (script wall "
-        f"so far {time.perf_counter() - t_start:.1f} s)")
+    for phase, table in ((12, ARCH_PHASES), (13, ARCH_PHASES_13)):
+        t0 = time.perf_counter()
+        for name, layers, dataflows, requests, served, buckets in table:
+            cfg = arch_cfg(name, layers)
+            reset_counters()
+            if served == "compile":
+                phase_arch_compiled(torch, name, cfg, dataflows, requests,
+                                    results, buckets)
+            elif served == "generate":
+                phase_arch_generate(torch, name, cfg, requests, results)
+            else:
+                phase_arch_model(torch, name, cfg, requests, results)
+            paths[name] = counters()
+            copies[name] = transposes()
+            arch_paths[name] = path_kernels(cfg)
+        log(f"[arch] phase {phase}: {time.perf_counter() - t0:.1f} s "
+            f"(script wall so far {time.perf_counter() - t_start:.1f} s)")
 
     results["path_launches"] = paths
     cnn_kernels = ("radix_conv2d", "radix_matmul")
@@ -2730,7 +2955,7 @@ def main() -> int:
     log(f"[done] {results['total_s']:.1f} s; kernel line: conv and matmul "
         "device times summed over one VGG-11 batch-8 fused execution's "
         "launches "
-        "(launches: every path, phases 3-4, 7, 8, 9, 10, 11 and 12); "
+        "(launches: every path, phases 3-4, 7, 8, 9, 10, 11, 12 and 13); "
         "decode attention at the LM "
         "decode shape (packed, fused); encoder at 8x224x224x3, T=4")
     print(smi)

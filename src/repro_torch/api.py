@@ -459,8 +459,9 @@ class LMExecutable:
         if cfg.encoder_layers or cfg.embedding_inputs:
             raise ValueError(
                 "the LM compile path serves token-in/token-out decoder "
-                "stacks; encoder-decoder and embedding-input archs are "
-                "not ported yet")
+                "stacks; encoder-decoder and embedding-input archs run "
+                "via repro_torch.lm.model.prefill / decode_step with a "
+                "batch dict")
         serve_cfg = dataclasses.replace(
             cfg, quant="radix", use_kernel=True,
             kernel_autotune=bool(autotune),

@@ -2,9 +2,10 @@
 
 Each ported LM architecture has a module exporting ``ARCH`` (the
 published configuration) and ``SMOKE`` (a reduced same-family config for
-CPU tests), equal field for field to the reference's.  The dense GQA
-stacks, RecurrentGemma and RWKV-6 are ported; the MoE, Whisper and
-Qwen2-VL archs wait (ROADMAP.md).  The paper's own
+CPU tests), equal field for field to the reference's: all ten of its LM
+archs (dense GQA, RecurrentGemma, RWKV-6, the MoE archs Grok-1 and
+Kimi-K2, the encoder-decoder Whisper-medium and the embedding-input
+Qwen2-VL).  The paper's own
 CNNs (``lenet5``, ``vgg11``, ``fang_cnn``) register their ``make``
 (``get_snn``).
 """
@@ -21,6 +22,10 @@ LM_ARCHS: List[str] = [
     "deepseek_coder_33b",
     "recurrentgemma_2b",
     "rwkv6_3b",
+    "grok_1_314b",
+    "kimi_k2_1t_a32b",
+    "whisper_medium",
+    "qwen2_vl_72b",
 ]
 
 SNN_ARCHS: List[str] = ["lenet5", "vgg11", "fang_cnn"]
@@ -34,8 +39,7 @@ def get_config(name: str, smoke: bool = False):
     """ArchConfig for an LM arch id (dashes or underscores both accepted)."""
     name = canon(name)
     if name not in LM_ARCHS:
-        raise ValueError(f"arch {name!r} is not ported yet (ported: "
-                         f"{LM_ARCHS})")
+        raise ValueError(f"unknown LM arch {name!r} (known: {LM_ARCHS})")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.SMOKE if smoke else mod.ARCH
 

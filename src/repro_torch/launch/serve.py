@@ -7,7 +7,10 @@ radix levels; on the card they run through the CUDA kernels
 (``cfg.use_kernel``).  This driver serves every ported arch, and it is
 the way to serve the recurrent and windowed stacks (RecurrentGemma,
 RWKV-6): ``api.LMExecutable`` right-pads prompts to buckets, which their
-state would absorb.
+state would absorb.  It feeds token prompts only: the encoder-decoder
+(Whisper) and embedding-input (Qwen2-VL) archs take a batch dict of
+embeddings through ``lm.model.prefill`` / ``decode_step``, and raise
+``ValueError`` here (the reference fails there with a ``KeyError``).
 
 Usage (on the card; add ``--device cpu`` to run the kernels' plain
 versions on the CPU)::
@@ -32,7 +35,7 @@ from repro_torch.configs import get_config
 from repro_torch.data.synthetic import synthetic_tokens
 from repro_torch.lm import model
 
-__all__ = ["generate", "main"]
+__all__ = ["check_token_arch", "generate", "main"]
 
 
 def _pick(logits: torch.Tensor, greedy: bool,
@@ -43,6 +46,16 @@ def _pick(logits: torch.Tensor, greedy: bool,
         return logits.argmax(-1)[:, None]
     return torch.multinomial(torch.softmax(logits, dim=-1), 1,
                              generator=generator)
+
+
+def check_token_arch(cfg) -> None:
+    """``ValueError`` for an arch whose inputs are not token prompts."""
+    if cfg.encoder_layers or cfg.embedding_inputs:
+        raise ValueError(
+            f"{cfg.name} takes frame or patch embeddings, not token "
+            "prompts: serve encoder-decoder and embedding-input archs "
+            "through repro_torch.lm.model.prefill / decode_step with a "
+            "batch dict (enc_embeds / embeds)")
 
 
 def generate(cfg, params, prompts, max_new: int, *, greedy: bool = True,
@@ -58,6 +71,7 @@ def generate(cfg, params, prompts, max_new: int, *, greedy: bool = True,
     The reference's loop keeps only the first new token (its output list
     never takes the decode steps' tokens); this returns all of them, as
     its docstring says."""
+    check_token_arch(cfg)
     prompts = torch.as_tensor(prompts, dtype=torch.long)
     if prompts.ndim != 2:
         raise ValueError(
@@ -109,6 +123,7 @@ def main(argv: Optional[Sequence[str]] = None) -> torch.Tensor:
 
     device = api._resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    check_token_arch(cfg)
     cfg = dataclasses.replace(cfg, quant=args.quant,
                               radix_steps=args.radix_steps,
                               use_kernel=device.type == "cuda")

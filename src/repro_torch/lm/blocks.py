@@ -1,23 +1,25 @@
 """Building blocks of the LM zoo (port of ``repro/lm/blocks.py``: norms,
-RoPE, causal query-chunked attention with an optional sliding window,
-decode attention over the KV cache or its ring buffer, the dense FFNs,
-the Griffin RG-LRU block and the RWKV-6 time and channel mix).
+RoPE and Qwen2-VL's M-RoPE, query-chunked attention (causal with an
+optional sliding window, non-causal, or cross-attention over encoder
+K/V), decode attention over the KV cache or its ring buffer and over a
+cross-attention cache, the dense FFNs, the Griffin RG-LRU block and the
+RWKV-6 time and channel mix).
 
 Every function takes (params-dict, inputs) tensors, as the reference
 does.  Layouts are the reference's: activations (B, S, d), q/k/v
 (B, S, H, hd), the KV cache ``{k, v}`` (B, S_max, Hkv, hd) plus radix
-scales, positions (B, S).  Prefill attention is plain tensor code (the
-reference's is plain jnp, not a Pallas kernel); decode attention over a
-radix cache with ``packed_attn`` runs the decode-attention kernel.  The
-recurrences are tensor code too: RG-LRU's prefill is a log-depth scan,
-RWKV-6's a loop over chunks of attention-like products.  M-RoPE and
-cross-attention are not ported yet.
+scales, positions (B, S) or (3, B, S) for M-RoPE.  Prefill attention is
+plain tensor code (the reference's is plain jnp, not a Pallas kernel);
+decode self-attention over a radix cache with ``packed_attn`` runs the
+decode-attention kernel, cross-attention stays plain as in the
+reference.  The recurrences are tensor code too: RG-LRU's prefill is a
+log-depth scan, RWKV-6's a loop over chunks of attention-like products.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -52,7 +54,7 @@ def norm(x: torch.Tensor, p: dict, kind: str) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Rotary embeddings (plain RoPE).
+# Rotary embeddings (RoPE + Qwen2-VL M-RoPE).
 # ---------------------------------------------------------------------------
 
 
@@ -67,11 +69,28 @@ def _rope_angles(positions: torch.Tensor, hd: int, theta: float
     return positions.to(torch.float32)[..., None] * freq
 
 
-def rope_apply(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """Rotate (B, S, H, hd) by positions (B, S)."""
+def rope_apply(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections: Optional[Tuple[int, ...]] = None
+               ) -> torch.Tensor:
+    """Rotate (B, S, H, hd) by positions (B, S), or (3, B, S) for M-RoPE.
+
+    M-RoPE (Qwen2-VL): the hd//2 rotary frequencies are split into
+    sections (temporal, height, width), each taking its angle from its
+    own positional stream; text tokens carry identical streams, so M-RoPE
+    equals RoPE on text."""
     hd = x.shape[-1]
-    ang = _rope_angles(positions, hd, theta)              # (B, S, hd/2)
+    if mrope_sections is not None:
+        if positions.ndim != 3:
+            raise ValueError(f"M-RoPE wants (3, B, S) positions, got "
+                             f"{tuple(positions.shape)}")
+        angles = _rope_angles(positions, hd, theta)       # (3, B, S, hd/2)
+        parts, start = [], 0
+        for i, sec in enumerate(mrope_sections):
+            parts.append(angles[i, ..., start:start + sec])
+            start += sec
+        ang = torch.cat(parts, dim=-1)                    # (B, S, hd/2)
+    else:
+        ang = _rope_angles(positions, hd, theta)          # (B, S, hd/2)
     cos = torch.cos(ang)[..., None, :].to(x.dtype)        # (B, S, 1, hd/2)
     sin = torch.sin(ang)[..., None, :].to(x.dtype)
     x1, x2 = torch.chunk(x, 2, dim=-1)
@@ -79,7 +98,8 @@ def rope_apply(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Attention (prefill): query-chunked, GQA, causal.
+# Attention (prefill, encoder): query-chunked, GQA; causal (optionally
+# windowed), non-causal or cross-attention.
 # ---------------------------------------------------------------------------
 
 
@@ -127,17 +147,27 @@ def _gqa_out(probs, v):
 
 def attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
               positions: torch.Tensor, *, window: int = 0,
-              return_kv: bool = False):
-    """Causal self-attention, query-chunked: scores exist for
-    ``cfg.attn_chunk`` queries at a time.  ``window`` > 0 is local
-    attention: a query sees the keys less than ``window`` positions
-    back."""
+              cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              return_kv: bool = False, causal: bool = True):
+    """Self-attention, or cross-attention over ``cross_kv`` (the encoder's
+    (B, S_enc, Hkv, hd) K and V, never masked), query-chunked: scores
+    exist for ``cfg.attn_chunk`` queries at a time.  ``causal`` masks
+    later keys; ``window`` > 0 is local attention: a query sees the keys
+    less than ``window`` positions back.  Query positions are
+    ``positions[0]``, or ``positions[0, 0]`` of (3, B, S) M-RoPE
+    streams."""
     b, s_len, _ = x.shape
     hd = cfg.hd
-    q, k, v = _qkv(x, p, cfg)
-    if cfg.pos_embed == "rope":
-        q = rope_apply(q, positions, cfg.rope_theta)
-        k = rope_apply(k, positions, cfg.rope_theta)
+    if cross_kv is None:
+        q, k, v = _qkv(x, p, cfg)
+        if cfg.pos_embed == "rope":
+            sec = cfg.mrope_sections
+            q = rope_apply(q, positions, cfg.rope_theta, sec)
+            k = rope_apply(k, positions, cfg.rope_theta, sec)
+    else:
+        q = _attn_proj(x, p["wq"], cfg)
+        k, v = cross_kv
+        causal = False
 
     scale = hd ** -0.5
     chunk = min(cfg.attn_chunk, s_len) if cfg.attn_chunk else s_len
@@ -147,14 +177,15 @@ def attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
 
     def attend_chunk(qc, qpos):
         s = _gqa_scores(qc, k).to(torch.float32) * scale   # (B,H,cq,Sk)
-        m = qpos[:, None] >= kpos[None, :]
-        if window:
-            m = m & (qpos[:, None] - kpos[None, :] < window)
-        s = torch.where(m[None, None], s, -1e30)
+        if causal:
+            m = qpos[:, None] >= kpos[None, :]
+            if window:
+                m = m & (qpos[:, None] - kpos[None, :] < window)
+            s = torch.where(m[None, None], s, -1e30)
         pr = torch.softmax(s, dim=-1).to(x.dtype)
         return _gqa_out(pr, v)
 
-    qpos_all = positions[0]
+    qpos_all = positions[0] if positions.ndim == 2 else positions[0, 0]
     o = torch.cat([attend_chunk(q[:, c0:c0 + chunk], qpos_all[c0:c0 + chunk])
                    for c0 in range(0, s_len, chunk)], dim=1)
     out = _out_proj(o, p["wo"], cfg)
@@ -188,32 +219,41 @@ def decode_mask(pos, s_len: int, window: int = 0,
 
 
 def decode_attention(x: torch.Tensor, p: dict, cfg: ArchConfig, cache: dict,
-                     pos: int, *, window: int = 0):
+                     pos: int, *, window: int = 0, cross: bool = False):
     """x (B, 1, d); cache {k, v} (B, S_max, Hkv, hd) (+ scales if radix),
     updated in place at ``pos`` (a ring buffer of ``window`` slots, written
-    at ``pos % window``, when ``window`` > 0).  Returns (out (B, 1, d),
-    cache)."""
+    at ``pos % window``, when ``window`` > 0).  ``cross``: attend over a
+    cross-attention cache (the encoder's float K/V, which stays float
+    under ``radix_kv``), unmasked and not written.  Returns (out
+    (B, 1, d), cache)."""
     b = x.shape[0]
     hd = cfg.hd
-    q, knew, vnew = _qkv(x, p, cfg)
-    if cfg.pos_embed == "rope":
-        posb = torch.full((b, 1), int(pos), device=x.device)
-        q = rope_apply(q, posb, cfg.rope_theta)
-        knew = rope_apply(knew, posb, cfg.rope_theta)
-    cache = radix_lib.cache_update(cache, knew, vnew, pos, cfg,
-                                   window=window)
-    s_len = cache["k"].shape[1]
-    valid = decode_mask(int(pos), s_len, window, device=x.device)
-    if radix_lib.packed_attn_enabled(cfg):
-        # the kernel reads the uint8 levels directly: no (B, S, Hkv, hd)
-        # float K/V is materialized
-        o = radix_lib.packed_decode_attention(
-            q[:, 0], cache, valid.expand(b, s_len), cfg)
-        o = o[:, None].to(x.dtype)                         # (B,1,H,hd)
-        return _out_proj(o, p["wo"], cfg), cache
-    k, v = radix_lib.cache_read(cache, cfg)
+    if cross:
+        q = _attn_proj(x, p["wq"], cfg)
+        k, v = cache["k"], cache["v"]
+        valid = None
+    else:
+        q, knew, vnew = _qkv(x, p, cfg)
+        if cfg.pos_embed == "rope":
+            shape = (b, 1) if cfg.mrope_sections is None else (3, b, 1)
+            posb = torch.full(shape, int(pos), device=x.device)
+            q = rope_apply(q, posb, cfg.rope_theta, cfg.mrope_sections)
+            knew = rope_apply(knew, posb, cfg.rope_theta, cfg.mrope_sections)
+        cache = radix_lib.cache_update(cache, knew, vnew, pos, cfg,
+                                       window=window)
+        s_len = cache["k"].shape[1]
+        valid = decode_mask(int(pos), s_len, window, device=x.device)
+        if radix_lib.packed_attn_enabled(cfg):
+            # the kernel reads the uint8 levels directly: no
+            # (B, S, Hkv, hd) float K/V is materialized
+            o = radix_lib.packed_decode_attention(
+                q[:, 0], cache, valid.expand(b, s_len), cfg)
+            o = o[:, None].to(x.dtype)                     # (B,1,H,hd)
+            return _out_proj(o, p["wo"], cfg), cache
+        k, v = radix_lib.cache_read(cache, cfg)
     s = _gqa_scores(q, k).to(torch.float32) * hd ** -0.5  # (B,H,1,S)
-    s = torch.where(valid[:, None, None, :], s, -1e30)
+    if valid is not None:
+        s = torch.where(valid[:, None, None, :], s, -1e30)
     pr = torch.softmax(s, dim=-1).to(x.dtype)
     o = _gqa_out(pr, v)                                    # (B,1,H,hd)
     return _out_proj(o, p["wo"], cfg), cache

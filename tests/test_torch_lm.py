@@ -77,8 +77,8 @@ def test_configs_equal_reference(smoke):
     assert tget("gemma_2b", smoke=smoke) is (tgemma.SMOKE if smoke
                                              else tgemma.ARCH)
     assert TCFG.params_total() == JCFG.params_total()
-    with pytest.raises(ValueError, match="not ported"):
-        tget("whisper_medium")
+    with pytest.raises(ValueError, match="unknown LM arch"):
+        tget("whisper_large")
 
 
 def test_init_params_tree_matches_reference(ref_params):

@@ -2,10 +2,14 @@
 DeepSeek-Coder-33B, RecurrentGemma-2B, RWKV-6-3B) against the JAX
 package, on the reference's SMOKE configs and its own weights
 (``init_params(PRNGKey(0))``, carried across with
-``carry.lm_params_from_numpy``).
+``carry.lm_params_from_numpy``).  The MoE archs and Whisper / Qwen2-VL
+have their own files (``test_torch_lm_moe.py``,
+``test_torch_lm_encdec.py``) and join the config, tree and cache tests
+here.
 
-* configs equal field for field; ``init_params`` trees and ``init_cache``
-  equal in structure, shapes and dtypes (caches in value too);
+* the registry holds all ten archs; configs equal field for field;
+  ``init_params`` trees and ``init_cache`` equal in structure, shapes and
+  dtypes (caches in value too);
 * blocks in float32 to 1e-5 relative L2: windowed ``attention`` and
   windowed ``decode_attention``, ``conv1d_causal`` (full and streaming),
   ``_rglru_scan`` (a log-depth scan here, ``lax.associative_scan``
@@ -19,7 +23,8 @@ package, on the reference's SMOKE configs and its own weights
   port's kernel path (the plain versions on the CPU) against the
   reference's kernels backend (Pallas in interpret mode): 1e-3 relative
   L2 and the same greedy tokens at every step;
-* ``check_supported`` still rejects MoE, Whisper and Qwen2-VL.
+* ``check_supported`` rejects what is not ported (MoE mesh dispatch) or
+  unknown (a block type).
 """
 
 import dataclasses
@@ -30,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro import configs as jconfigs
 from repro.configs import get_config as jget
 from repro.lm import blocks as jblocks
 from repro.lm import model as jmodel
@@ -43,6 +49,7 @@ from repro_torch.lm.config import ArchConfig, MoEConfig
 
 ARCHS = ["glm4_9b", "gemma_7b", "deepseek_coder_33b", "recurrentgemma_2b",
          "rwkv6_3b"]
+LATER = ["grok_1_314b", "kimi_k2_1t_a32b", "whisper_medium", "qwen2_vl_72b"]
 B = 2
 RADIX = dict(quant="radix", radix_steps=4, radix_kv_pack=True,
              packed_attn=True)
@@ -111,11 +118,12 @@ def _rng(seed):
 
 
 def test_registry_holds_ported_archs():
-    assert configs.LM_ARCHS == ["gemma_2b"] + ARCHS
+    assert configs.LM_ARCHS == ["gemma_2b"] + ARCHS + LATER
+    assert sorted(configs.LM_ARCHS) == sorted(jconfigs.LM_ARCHS)
 
 
 @pytest.mark.parametrize("smoke", [False, True])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + LATER)
 def test_configs_equal_reference(arch, smoke):
     want, got = jget(arch, smoke=smoke), tget(arch.replace("_", "-"),
                                               smoke=smoke)
@@ -124,7 +132,7 @@ def test_configs_equal_reference(arch, smoke):
     assert got.layer_types == want.layer_types
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + LATER)
 def test_init_params_tree_matches_reference(arch):
     _, want = _weights(arch)
     cfg = tget(arch, smoke=True)
@@ -147,7 +155,7 @@ def test_init_params_tree_matches_reference(arch):
 @pytest.mark.parametrize("kw", [dict(), dict(quant="radix"),
                                 dict(quant="radix", radix_kv_pack=True)],
                          ids=["exact", "radix", "packed"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + LATER)
 def test_init_cache_matches_reference(arch, kw):
     jcfg = dataclasses.replace(jget(arch, smoke=True), **kw)
     tcfg = dataclasses.replace(tget(arch, smoke=True), **kw)
@@ -161,21 +169,30 @@ def test_init_cache_matches_reference(arch, kw):
                                       err_msg=str(path))
 
 
-@pytest.mark.parametrize("arch,match", [
-    ("kimi_k2_1t_a32b", "MoE layers are not ported yet"),
-    ("grok_1_314b", "MoE layers are not ported yet"),
-    ("whisper_medium", "encoder-decoder and embedding-input stacks"),
-    ("qwen2_vl_72b", "encoder-decoder and embedding-input stacks"),
-])
-def test_check_supported_still_rejects(arch, match):
+@pytest.mark.parametrize("arch,change,error,match", [
+    ("kimi_k2_1t_a32b", dict(impl="ep_psum"), NotImplementedError,
+     "'ep_psum' over a device mesh is not ported yet"),
+    ("kimi_k2_1t_a32b", dict(impl="ep_a2a"), NotImplementedError,
+     "'ep_a2a' over a device mesh is not ported yet"),
+    ("grok_1_314b", dict(impl="tp"), NotImplementedError,
+     "'tp' over a device mesh is not ported yet"),
+    ("glm4_9b", dict(block_pattern=("attn", "mamba")), ValueError,
+     "unknown block types"),
+], ids=["ep_psum", "ep_a2a", "tp", "unknown_block"])
+def test_check_supported_still_rejects(arch, change, error, match):
+    """What still raises: the MoE mesh dispatches (ROADMAP.md item 7), on
+    a config built from the reference's fields, and a block type no arch
+    has.  Every reference arch's published config is admitted."""
     fields = dataclasses.asdict(jget(arch, smoke=True))
     if fields["moe"] is not None:
-        fields["moe"] = MoEConfig(**fields["moe"])
+        fields["moe"] = MoEConfig(**dict(fields["moe"], impl=change["impl"]))
+    else:
+        fields.update(change)
     cfg = ArchConfig(**fields)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         tmodel.check_supported(cfg)
-    with pytest.raises(ValueError, match="not ported"):
-        tget(arch)
+    for name in configs.LM_ARCHS:
+        tmodel.check_supported(tget(name))
 
 
 # ---------------------------------------------------------------------------

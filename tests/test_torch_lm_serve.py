@@ -9,7 +9,9 @@ kernels backend (Pallas in interpret mode), the port on ``device="cpu"``
 (the kernels' plain versions).  A prefill of 11 tokens and 4 decode steps
 must give logits within 1e-3 relative L2 at every step and the same
 greedy tokens, equal plan-cache counters, and no plan built after
-``warmup``.  The compile-time rejections carry the reference's messages.
+``warmup``.  The compile-time rejections (a recurrent block, an
+encoder-decoder or embedding-input arch among them) carry the
+reference's messages.
 """
 
 import dataclasses
@@ -106,8 +108,12 @@ REJECTIONS = [
     (dict(input_spec=(2, 16), buckets=(8, 16)), "free decode slot"),
     (dict(prefill=(2, 17)), "exceeds the top sequence bucket"),
     (dict(prefill=(3, 8)), "exceeds compiled batch"),
-    (dict(input_spec=(2, 24), block_pattern=("attn", "rglru")),
+    (dict(input_spec=(2, 24), cfg=dict(block_pattern=("attn", "rglru"))),
      "full-attention"),
+    (dict(input_spec=(2, 24), cfg=dict(encoder_layers=2, encoder_ctx=16)),
+     "encoder-decoder and embedding-input archs run"),
+    (dict(input_spec=(2, 24), cfg=dict(embedding_inputs=True)),
+     "token-in/token-out decoder stacks"),
 ]
 
 
@@ -117,12 +123,10 @@ def test_lm_compile_rejects_like_reference(weights, case, match):
     jparams, nparams = weights
     case = dict(case)
     prefill = case.pop("prefill", None)
-    pattern = case.pop("block_pattern", None)
+    fields = case.pop("cfg", {})
     spec = case.pop("input_spec", (2, 24))
-    jcfg, tcfg = jget("gemma_2b", smoke=True), tget("gemma_2b", smoke=True)
-    if pattern is not None:
-        jcfg = dataclasses.replace(jcfg, block_pattern=pattern)
-        tcfg = dataclasses.replace(tcfg, block_pattern=pattern)
+    jcfg = dataclasses.replace(jget("gemma_2b", smoke=True), **fields)
+    tcfg = dataclasses.replace(tget("gemma_2b", smoke=True), **fields)
     tparams = carry.lm_params_from_numpy(
         nparams, tget("gemma_2b", smoke=True))
     sides = [

@@ -117,6 +117,24 @@ def test_main_needs_a_card_unless_told(monkeypatch):
         tmodel.init_cache(tget("rwkv6_3b", smoke=True), 2, 8)
 
 
+@pytest.mark.parametrize("arch", ["whisper_medium", "qwen2_vl_72b"])
+def test_generate_rejects_embedding_archs(arch):
+    """Token prompts cannot feed Whisper's encoder or Qwen2-VL's embedding
+    inputs: ``generate`` and ``main`` name ``model.prefill`` /
+    ``decode_step`` (the reference fails there with a ``KeyError``)."""
+    cfg = tget(arch, smoke=True)
+    prompts = torch.zeros((2, 4), dtype=torch.long)
+    with pytest.raises(ValueError, match=r"model\.prefill / decode_step"):
+        tserve.generate(cfg, {}, prompts, 2)
+    with pytest.raises(ValueError, match=r"model\.prefill / decode_step"):
+        tserve.main(["--arch", arch, "--smoke", "--device", "cpu"])
+    jparams = jmodel.init_params(jax.random.PRNGKey(0), jget(arch,
+                                                             smoke=True))
+    with pytest.raises(KeyError):
+        jserve.generate(jget(arch, smoke=True), jparams,
+                        jnp.zeros((2, 4), jnp.int32), 2)
+
+
 @pytest.mark.parametrize("arch", RECURRENT)
 def test_lm_executable_names_the_driver(arch):
     jcfg, jparams, tcfg, tparams = _pair(arch, "none")

@@ -288,7 +288,8 @@ def test_fang_model_and_registry_match_reference():
     assert configs.SNN_ARCHS == J_SNN_ARCHS
     assert configs.LM_ARCHS == ["gemma_2b", "glm4_9b", "gemma_7b",
                                 "deepseek_coder_33b", "recurrentgemma_2b",
-                                "rwkv6_3b"]
+                                "rwkv6_3b", "grok_1_314b", "kimi_k2_1t_a32b",
+                                "whisper_medium", "qwen2_vl_72b"]
     assert configs.get_snn("fang-cnn") is fang.make
     with pytest.raises(ValueError):
         configs.get_snn("gemma_2b")
