@@ -161,8 +161,37 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` and runs:
    FFNs once a prefill, cross-attention no attention launch), times, a
    profile, seconds and peak memory per arch.
 
+14. LM serving: Gemma-2B at full width and depth (bf16, T = 4, packed KV
+   and packed attention) behind ``launch.serve_lm``'s ``LMServer`` and
+   ``make_queue`` at batch 8, ``max_len`` 512, buckets (64, 256), prompts
+   of 200 tokens and 16 new: four servers over one weight tree (kernels
+   fused; fused with ``autotune=True``; bitserial with ``radix_attn``;
+   ``backend="jnp"``) take the same 16 seeded requests of 1-8 prompts.
+   Every ticket resolves; the launches equal ``lm_launches`` (plus the
+   QKV/out projections under ``radix_attn``) per ``generate`` (a flush
+   of more prompts than the batch runs one per chunk of it), none on
+   ``jnp``; no plan is built and the health stays healthy; the fused server's tickets equal
+   ``exe.generate``, every server's tickets equal the fused server's
+   (the autotuned one's where its KV split is the default), and each
+   kernels server's logits equal its plain path on one request.  Then a drill of
+   8 requests, one holding the token id ``vocab``: it alone is
+   quarantined and the counters reconcile; then ``serve_lm.main`` once.
+   Tokens/s, p50/p95, flushes, one flush's busy share by profiler and peak
+   memory per server;
+15. the PPA planner: ``api.autoconfigure`` over VGG-11 (224 x 224 x 3,
+   100 classes, avg pool, 32 calibration images) on the card and on the
+   CPU, ``t_range=(3, 4, 5, 6)``, ``units=(1, 2, 4, 8)``, floor 0.5: the
+   two plans equal (candidates, accuracies, modeled PPA, rejections,
+   frontier, winner, summary); the winner (or, with none feasible, the
+   most accurate priced candidate) compiled on the card by
+   ``AutoPlan.compile`` for buckets (1, 8), its logits ``torch.equal`` to
+   both oracles, its launches counted, its ``stats()["ppa"]`` the CPU's;
+   ``Accelerator.compile(auto=)`` on the card gives the same executable
+   (or, with none feasible, the same refusal); then ``serve_cnn.main
+   --auto`` over 16 requests.  The modeled PPA is the paper's FPGA build, not the GPU.
+
 Launch counters are set to 0 just before each path (phases 3-4, 7, 8, 9,
-10, 11, and each arch of 12 and 13) and read just after; so are the GEMM
+10, 11, each arch of 12 and 13, 14 and 15) and read just after; so are the GEMM
 wrappers' per-call weight-transpose counters, which must stay 0 on the
 CNN and LM paths (their plans hold K-major weights).  Every failure raises, so the
 script exits non-zero.
@@ -2755,6 +2784,452 @@ def finish_arch(torch, name, out, params, t_phase, results) -> None:
         f"{out['peak_gb']:.2f} GB allocated")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: LM serving (launch/serve_lm) behind the resilience queue.
+# ---------------------------------------------------------------------------
+
+SERVE_LM_PROMPT, SERVE_LM_NEW = 200, 16
+SERVE_LM_REQUESTS, SERVE_LM_DRILL = 16, 8
+# (server, Accelerator keywords, compile keywords, ArchConfig fields)
+LM_SERVERS = (
+    ("kernels fused", dict(dataflow="fused"), {}, {}),
+    ("kernels fused autotune", dict(dataflow="fused"),
+     dict(autotune=True), {}),
+    ("kernels bitserial radix_attn", dict(dataflow="bitserial"), {},
+     dict(radix_attn=True)),
+    ("jnp", dict(backend="jnp"), {}, {}),
+)
+SERVE_LM_ARGV = ["--arch", "gemma_2b", "--batch", str(LM_BATCH),
+                 "--max-len", str(LM_MAX_LEN), "--buckets",
+                 ",".join(map(str, LM_BUCKETS)), "--prompt-len",
+                 str(SERVE_LM_PROMPT), "--max-new", str(SERVE_LM_NEW),
+                 "--dataflow", "fused", "--requests", "8"]
+
+
+def serve_launches(cfg, backend: str) -> dict:
+    """Launches of one ``generate`` (a prefill and ``SERVE_LM_NEW - 1``
+    decode steps): ``lm_launches`` per token position, plus the QKV/out
+    projections under ``radix_attn``; none on the ``jnp`` backend."""
+    mm, attn, _ = lm_launches(cfg)
+    mm += 4 * cfg.n_layers if cfg.radix_attn else 0
+    on = backend == "kernels"
+    return {"radix_conv2d": 0,
+            "radix_matmul": on * mm * SERVE_LM_NEW,
+            "radix_decode_attn": on * attn * (SERVE_LM_NEW - 1),
+            "spike_encode": 0}
+
+
+def served_launches(server, before: dict, stats0: dict, label: str) -> dict:
+    """The launches since ``before`` (counters) and ``stats0`` (the
+    server's stats): they must equal ``serve_launches`` per ``generate``
+    the server ran; a flush of more prompts than the batch runs one per
+    chunk of it, and each is ``SERVE_LM_NEW`` plan executions."""
+    after, stats = counters(), server.stats()
+    execs = stats["executions"] - stats0["executions"]
+    check(execs % SERVE_LM_NEW == 0,
+          f"{label}: {execs} executions, not whole generates")
+    launches = {k: after[k] - before[k] for k in after}
+    want = {k: v * (execs // SERVE_LM_NEW)
+            for k, v in serve_launches(server.exe.cfg,
+                                       server.exe.backend).items()}
+    check(DEV != "cuda" or launches == want,
+          f"{label}: launches {launches} != {want} "
+          f"({execs // SERVE_LM_NEW} generates)")
+    return launches
+
+
+def profile_flush(torch, server, rows) -> dict:
+    """Device time over the profiled wall time of one queue flush of
+    ``rows`` (a full batch), by ``torch.profiler``; None when no trace
+    holds device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve_lm
+
+    queue = serve_lm.make_queue(server)
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            queue.submit(rows)
+            queue.flush()
+            sync(torch)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms = sum(_dev_us(e) for e in prof.key_averages()
+                      if str(e.device_type).endswith("CUDA")) / 1e3
+        if busy_ms:
+            return dict(wall_ms=wall_ms, device_ms=busy_ms,
+                        busy_share=busy_ms / wall_ms)
+    return None
+
+
+def serve_lm_stream(torch, server, sizes, seed: int, label: str) -> dict:
+    """``run_prompt_stream`` of ``sizes`` through a fresh ``make_queue``:
+    every ticket resolves; no ``infer`` call raises (so no flush is
+    bisected); the launches equal ``serve_launches`` per ``generate``; no
+    plan is built.  Returns the tickets' tokens, rates,
+    latency percentiles, flushes and peak memory."""
+    from repro_torch.launch import serve_cnn, serve_lm
+
+    exe = server.exe
+    built = exe.stats()["compiles"]
+    queue = serve_lm.make_queue(server)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        base_gb = torch.cuda.memory_allocated() / 1e9
+    faults = []
+
+    def infer(x, _infer=server.infer):
+        try:
+            return _infer(x)
+        except Exception as err:
+            faults.append(repr(err))
+            raise
+
+    server.infer = infer
+    before, stats0 = counters(), server.stats()
+    t0 = time.perf_counter()
+    tickets = serve_lm.run_prompt_stream(queue, sizes, seed=seed)
+    sync(torch)
+    wall = time.perf_counter() - t0
+    del server.infer
+    check(not faults, f"{label}: infer raised {faults}")
+    launches = served_launches(server, before, stats0, label)
+    check(all(t.ok for t in tickets),
+          f"{label}: failed tickets "
+          f"{[type(t.error).__name__ for t in tickets if not t.ok]}")
+    for t in tickets:
+        check(tuple(t.result.shape) == (t.size, SERVE_LM_NEW),
+              f"{label}: tokens of shape {tuple(t.result.shape)}")
+    stats = server.stats()
+    check(stats["compiles"] == built, f"{label}: plans built in serving")
+    prompts = int(sum(sizes))
+    p50, p95 = serve_cnn._percentiles([t.latency_s * 1e3 for t in tickets])
+    out = dict(tokens=[t.result for t in tickets], wall_s=wall,
+               prompts=prompts, new_tokens=prompts * SERVE_LM_NEW,
+               tokens_per_s=prompts * SERVE_LM_NEW / wall, p50_ms=p50,
+               p95_ms=p95, flushes=queue.flushes, launches=launches,
+               health=queue.health.state,
+               degraded_flushes=stats["degraded_flushes"])
+    if DEV == "cuda":
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["stream_extra_gb"] = out["peak_gb"] - base_gb
+    log(f"[serve_lm] {label}: {len(tickets)} requests / {prompts} prompts "
+        f"-> {out['new_tokens']} tokens in {wall:.3f} s = "
+        f"{out['tokens_per_s']:.1f} tokens/s; latency p50 {p50:.1f} ms p95 "
+        f"{p95:.1f} ms; {queue.flushes} flushes "
+        f"({stats['degraded_flushes']} degraded, health "
+        f"{queue.health.state}); launches {launches}"
+        + (f"; peak {out['peak_gb']:.2f} GB ({out['stream_extra_gb']:.3f} "
+           "GB above the weights and plans)" if DEV == "cuda" else ""))
+    return out
+
+
+def plain_check(torch, model, exe, prompts, label: str) -> None:
+    """One request's logits at every step ``torch.equal`` to the plain
+    path with the executable's config (``use_kernel`` off)."""
+    r = serve_greedy(exe, prompts, SERVE_LM_NEW)
+    plain_cfg = dataclasses.replace(exe.cfg, use_kernel=False)
+    ref = plain_logits(model, exe.params, plain_cfg, prompts, r["tokens"],
+                       exe._cache.bucket_for(prompts.shape[1]))
+    c = compare_logits(torch, r["logits"], ref)
+    check(c["equal"], f"{label}: logits differ from the plain path {c}")
+
+
+def lm_drill(torch, server, vocab: int) -> dict:
+    """``SERVE_LM_DRILL`` seeded requests, one holding the token id
+    ``vocab``: only that request is quarantined (after the retry budget),
+    every other resolves to ``exe.generate``'s tokens, and the launches
+    equal ``serve_launches`` per ``generate``."""
+    import numpy as np
+
+    from repro_torch.launch import serve_lm
+    from repro_torch.runtime import resilience
+
+    exe = server.exe
+    rng = np.random.default_rng(SEED + 142)
+    sizes = rng.integers(1, LM_BATCH + 1, SERVE_LM_DRILL)
+    rows = serve_lm.prompt_rows(sizes, SERVE_LM_PROMPT, vocab,
+                                seed=SEED + 143)
+    bad = SERVE_LM_DRILL // 2
+    rows[bad][0, SERVE_LM_PROMPT // 2] = vocab
+    queue = serve_lm.make_queue(server)
+    before, stats0 = counters(), server.stats()
+    tickets = [queue.submit(r) for r in rows]
+    queue.flush()
+    sync(torch)
+    launches = served_launches(server, before, stats0, "drill")
+    stats1 = server.stats()
+    check([t.ok for t in tickets] ==
+          [i != bad for i in range(SERVE_LM_DRILL)],
+          f"drill: tickets ok {[t.ok for t in tickets]}")
+    check(isinstance(tickets[bad].error, resilience.RequestPoisoned),
+          f"drill: poisoned ticket error {tickets[bad].error!r}")
+    moved = {k: stats1[k] - stats0[k]
+             for k in ("quarantined", "retried", "rejected", "shed")}
+    check(moved == {"quarantined": 1, "retried": 2, "rejected": 0,
+                    "shed": 0}, f"drill: counters moved {moved}")
+    for i, t in enumerate(tickets):
+        if i != bad:
+            check(torch.equal(t.result, exe.generate(rows[i], SERVE_LM_NEW)),
+                  f"drill: ticket {i} != exe.generate")
+    log(f"[serve_lm] drill: {SERVE_LM_DRILL} requests {sizes.tolist()}, "
+        f"request {bad} holds token id {vocab}: quarantined alone after "
+        f"{moved['retried']} retries; {queue.flushes} flushes, launches "
+        f"{launches} reconcile; health {queue.health.state}")
+    return dict(sizes=sizes.tolist(), flushes=queue.flushes, **moved)
+
+
+def phase_lm_serving(torch, arch, results) -> None:
+    """Gemma-2B (full width and depth, bf16, T = 4, packed KV and packed
+    attention) behind ``launch.serve_lm``: four servers over one weight
+    tree take the same seeded prompt stream; then a poison drill and the
+    CLI once."""
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.kernels import autotune as autotune_mod
+    from repro_torch.launch import serve_lm
+    from repro_torch.lm import model
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(arch, radix_steps=T, radix_kv_pack=True,
+                              packed_attn=True)
+    params, n_params = arch_params(torch, model, cfg)
+    sizes = np.random.default_rng(SEED + 140).integers(
+        1, LM_BATCH + 1, SERVE_LM_REQUESTS)
+    prompts = serve_lm.prompt_rows(sizes, SERVE_LM_PROMPT, cfg.vocab,
+                                   seed=SEED + 141)
+    out = dict(params=n_params, sizes=sizes.tolist(), servers={})
+    tokens = {}
+    for name, acc_kw, compile_kw, fields in LM_SERVERS:
+        t0 = time.perf_counter()
+        exe = api.Accelerator(device=DEV, **acc_kw).compile(
+            (params, dataclasses.replace(cfg, **fields)),
+            (LM_BATCH, LM_MAX_LEN), buckets=LM_BUCKETS, **compile_kw)
+        server = serve_lm.LMServer(executable=exe,
+                                   prompt_len=SERVE_LM_PROMPT,
+                                   max_new=SERVE_LM_NEW)
+        server.warmup()
+        build_s = time.perf_counter() - t0
+        row = serve_lm_stream(torch, server, sizes, SEED + 141, name)
+        tokens[name] = row.pop("tokens")
+        row["build_s"] = build_s
+        first = torch.as_tensor(prompts[0], device=DEV).long()
+        if exe.backend == "kernels":
+            plain_check(torch, model, exe, first, name)
+        if name == "kernels fused":
+            for i, t in enumerate(tokens[name]):
+                check(torch.equal(t, exe.generate(prompts[i], SERVE_LM_NEW)),
+                      f"{name}: ticket {i} != exe.generate")
+            out["drill"] = lm_drill(torch, server, cfg.vocab)
+            row["profile"] = profile_flush(
+                torch, server,
+                np.concatenate(prompts)[:LM_BATCH])
+            pr = row["profile"]
+            log(f"[serve_lm] {name}: one flush of {LM_BATCH} prompts "
+                + ("profile: no device time (not measured)" if pr is None
+                   else f"{pr['wall_ms']:.1f} ms wall, device "
+                   f"{pr['device_ms']:.1f} ms ({100 * pr['busy_share']:.1f}"
+                   "% busy)"))
+        if compile_kw.get("autotune"):
+            attn = next(r for r in exe.stats()["autotune"]["layers"]
+                        if r["layer"] == "decode_attn")
+            row["attn_split"] = (attn["split_slots"], attn["max_splits"])
+        out["servers"][name] = row
+        log(f"[serve_lm] {name}: compile and warmup {build_s:.1f} s")
+        del server, exe
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+
+    ref = tokens["kernels fused"]
+
+    def same(name):
+        return [torch.equal(a, b) for a, b in zip(tokens[name], ref)]
+
+    # jnp computes the fused server's function exactly; the tuned server
+    # too at the default KV split (another split adds the softmax in
+    # another order); radix_attn also quantizes the QKV/out projections,
+    # another function, whose greedy tokens these seeded weights leave
+    # unchanged (and whose logits are held to its own plain path above)
+    default = (autotune_mod.KernelConfig().split_slots,
+               autotune_mod.KernelConfig().max_splits)
+    tuned = out["servers"]["kernels fused autotune"]["attn_split"]
+    for name in tokens:
+        agree = same(name)
+        out["servers"][name]["tickets_equal_fused"] = sum(agree)
+        check(all(agree) or (name == "kernels fused autotune"
+                             and tuned != default),
+              f"{name}: tokens != kernels fused's: {agree}")
+        log(f"[serve_lm] {name}: {sum(agree)} of {len(agree)} tickets' "
+            "tokens torch.equal to the kernels fused server's"
+            + (f" (tuned KV split {tuned}, default {default})"
+               if name == "kernels fused autotune" else ""))
+    del params
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cli = serve_lm.main(SERVE_LM_ARGV)
+    check(cli["ok"] == cli["requests"] and cli["steady_compiles"] == 0,
+          f"serve_lm.main: {cli['ok']} of {cli['requests']} served, "
+          f"{cli['steady_compiles']} steady-state plans")
+    out["cli"] = {k: v for k, v in cli.items() if k != "stats"}
+    out["cli"]["s"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - t_phase
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    results["lm_serving"] = out
+    log(f"[serve_lm] phase 14: {out['phase_s']:.1f} s (CLI "
+        f"{out['cli']['s']:.1f} s: {cli['tokens_per_s']:.1f} tokens/s, p50 "
+        f"{cli['p50_ms']:.1f} ms p95 {cli['p95_ms']:.1f} ms)")
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the PPA planner (api.autoconfigure) on VGG-11, card and CPU.
+# ---------------------------------------------------------------------------
+
+PLAN_KW = dict(accuracy_floor=0.5, t_range=(3, 4, 5, 6), units=(1, 2, 4, 8))
+PLAN_CALIB = 32
+SERVE_CNN_AUTO_ARGV = ["--arch", "vgg11", "--auto", "--pool-mode", "avg",
+                       "--accuracy-floor", str(PLAN_KW["accuracy_floor"]),
+                       "--requests", "16", "--buckets", "1,8"]
+
+
+def plan_view(plan) -> dict:
+    """What two searches must agree on: every candidate (label, accuracy,
+    modeled PPA, rejections), the frontier, the winner and the summary."""
+    return dict(
+        candidates=[(c.label, c.backend, c.dataflow, c.units, c.accuracy,
+                     None if c.ppa is None else c.ppa.to_dict(), c.rejected)
+                    for c in plan.candidates],
+        frontier=[c.label for c in plan.frontier],
+        winner=None if plan.winner is None else plan.winner.label,
+        summary=plan.summary())
+
+
+def phase_planner(torch, results) -> None:
+    """``api.autoconfigure`` over VGG-11 (224 x 224 x 3, 100 classes, avg
+    pool) on the card and on the CPU: equal plans; the winner (or, with
+    none feasible, the most accurate priced candidate) compiled on the
+    card, its logits ``torch.equal`` to both oracles, its launches
+    counted, its ``stats()["ppa"]`` the CPU's; then ``serve_cnn --auto``."""
+    from repro_torch import api
+    from repro_torch.launch import serve_cnn
+
+    t_phase = time.perf_counter()
+    static, params, item, calib = serve_cnn.build_float_net(
+        "vgg11", smoke=False, pool_mode="avg", calib_batch=PLAN_CALIB,
+        seed=SEED)
+    out = {}
+    plans = {}
+    for dev in (DEV, "cpu"):
+        t0 = time.perf_counter()
+        plans[dev] = api.autoconfigure((static, params), item, calib=calib,
+                                       device=dev, **PLAN_KW)
+        sync(torch)
+        out[f"search_{dev}_s"] = time.perf_counter() - t0
+    plan, cpu_plan = plans[DEV], plans["cpu"]
+    view, cpu_view = plan_view(plan), plan_view(cpu_plan)
+    if view != cpu_view:
+        for key in view:
+            if view[key] != cpu_view[key]:
+                log(f"[plan] card and CPU differ in {key}")
+    check(view == cpu_view, "the card's plan != the CPU's")
+    accs = sorted({(c.spec.name, c.spec.num_steps, c.accuracy)
+                   for c in plan.candidates if c.accuracy is not None},
+                  key=lambda a: -a[2])
+    log(f"[plan] VGG-11 search: {len(plan.candidates)} candidates, "
+        f"{sum(c.feasible for c in plan.candidates)} feasible; card "
+        f"{out[f'search_{DEV}_s']:.2f} s, CPU {out['search_cpu_s']:.2f} s; "
+        "plans equal; accuracy by spec: "
+        + ", ".join(f"{n}/T={t} {a:.3f}" for n, t, a in accs))
+    for line in plan.summary().splitlines()[:4]:
+        log(f"[plan] {line}")
+    top = plan.winner
+    if top is None:
+        top = max((c for c in plan.candidates if c.ppa is not None),
+                  key=lambda c: (c.accuracy, -c.ppa.energy_uj))
+        log(f"[plan] no candidate passes {PLAN_KW['accuracy_floor']}; best "
+            f"accuracy {top.accuracy:.3f}; rejections: "
+            + "; ".join(sorted({r for c in plan.candidates
+                                for r in c.rejected})))
+    cpu_top = cpu_plan.candidates[plan.candidates.index(top)]
+    exe = plan.compile(candidate=top, buckets=BUCKETS)
+    cpu_exe = cpu_plan.compile(candidate=cpu_top, buckets=BUCKETS)
+    qnet = exe.qnet
+    x = torch.rand((max(REQUESTS),) + item,
+                   generator=torch.Generator().manual_seed(SEED + 150)
+                   ).to(DEV)
+    want = api.oracle(qnet, x, mode="snn")
+    check(torch.equal(want, api.oracle(qnet, x, mode="packed")),
+          "planner: snn != packed oracle")
+    before = counters()
+    rounds = serve_rounds(torch, exe, x, want, f"planner {top.label}")
+    after = counters()
+    execs = rounds[1]["executions"]
+    n_conv = sum(1 for k, _ in static if k == "conv")
+    n_lin = sum(1 for k, _ in static if k == "linear")
+    on = exe.backend == "kernels"
+    launches = {k: after[k] - before[k] for k in after}
+    want_l = {"radix_conv2d": on * n_conv * execs,
+              "radix_matmul": on * n_lin * execs, "radix_decode_attn": 0,
+              "spike_encode": 0}
+    check(DEV != "cuda" or launches == want_l,
+          f"planner: launches {launches} != {want_l}")
+    ppa = exe.stats()["ppa"]
+    check(ppa == cpu_exe.stats()["ppa"], "planner: stats()['ppa'] card != "
+          "CPU")
+    # the same search through the compile entry point, on the card
+    auto = dict(PLAN_KW, calib=calib)
+    try:
+        auto_exe = api.Accelerator(device=DEV).compile(
+            (static, params), item, buckets=BUCKETS, auto=auto)
+    except ValueError as err:
+        check(plan.winner is None and "no feasible configuration"
+              in str(err), f"compile(auto=): {err}")
+        out["compile_auto"] = "no feasible configuration"
+    else:
+        check(auto_exe.auto_plan.winner.label == top.label
+              and torch.equal(auto_exe(x), want),
+              "compile(auto=) != the plan's winner")
+        out["compile_auto"] = auto_exe.auto_plan.winner.label
+        del auto_exe
+    log(f"[plan] compile(auto=) on the card: {out['compile_auto']}")
+    out.update(winner=None if plan.winner is None else plan.winner.label,
+               compiled=top.label, backend=exe.backend, accuracy=top.accuracy,
+               executions=execs, launches=launches, ppa=ppa,
+               candidates=len(plan.candidates),
+               feasible=sum(c.feasible for c in plan.candidates))
+    log(f"[plan] compiled {top.label} ({exe.backend}): requests "
+        f"{REQUESTS} x 2 rounds torch.equal to both oracles, {execs} "
+        f"executions, launches {launches}; modeled FPGA build (not the "
+        f"GPU) at {top.ppa.units} units: {top.ppa.latency_us:.1f} us, "
+        f"{top.ppa.energy_uj:.1f} uJ, {top.ppa.klut:.1f} kLUT; stats()"
+        f"['ppa'] (the default {ppa['units']}-unit build) "
+        f"{ppa['latency_us']:.1f} us, {ppa['energy_uj']:.1f} uJ")
+    del exe, cpu_exe, plans, plan, cpu_plan
+    t0 = time.perf_counter()
+    try:
+        cli = serve_cnn.main(SERVE_CNN_AUTO_ARGV)
+    except ValueError as err:
+        check(out["winner"] is None and "no feasible configuration"
+              in str(err), f"serve_cnn --auto: {err}")
+        out["cli"] = "no feasible configuration"
+        log("[plan] serve_cnn --auto: no feasible configuration, as the "
+            "search above found")
+    else:
+        check(cli["ok"] == cli["requests"],
+              f"serve_cnn --auto served {cli['ok']} of {cli['requests']}")
+        out["cli"] = dict(winner=cli["plan"].winner.label,
+                          images_per_s=cli["images"] / cli["wall_s"],
+                          p50_ms=cli["p50_ms"], p95_ms=cli["p95_ms"])
+    out["cli_s"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - t_phase
+    results["planner"] = out
+    log(f"[plan] phase 15: {out['phase_s']:.1f} s (serve_cnn --auto "
+        f"{out['cli_s']:.1f} s)")
+
+
 def main() -> int:
     try:
         import torch
@@ -2896,6 +3371,16 @@ def main() -> int:
         log(f"[arch] phase {phase}: {time.perf_counter() - t0:.1f} s "
             f"(script wall so far {time.perf_counter() - t_start:.1f} s)")
 
+    reset_counters()
+    phase_lm_serving(torch, gemma_2b.ARCH, results)
+    paths["lm_serving"] = counters()
+    copies["lm_serving"] = transposes()
+    reset_counters()
+    phase_planner(torch, results)
+    paths["planner"] = counters()
+    copies["planner"] = transposes()
+    log(f"[plan] script wall so far {time.perf_counter() - t_start:.1f} s")
+
     results["path_launches"] = paths
     cnn_kernels = ("radix_conv2d", "radix_matmul")
     for path, names in (("cnn", cnn_kernels),
@@ -2906,6 +3391,11 @@ def main() -> int:
                         ("cnn_autotune", cnn_kernels),
                         ("lm_autotune", ("radix_matmul",
                                          "radix_decode_attn")),
+                        ("lm_serving", ("radix_matmul",
+                                        "radix_decode_attn")),
+                        ("planner", cnn_kernels
+                         if results["planner"]["backend"] == "kernels"
+                         else ()),
                         *arch_paths.items()):
         check(all(paths[path][k] > 0 for k in names),
               f"a kernel of the {path} path was not launched: "
@@ -2955,7 +3445,8 @@ def main() -> int:
     log(f"[done] {results['total_s']:.1f} s; kernel line: conv and matmul "
         "device times summed over one VGG-11 batch-8 fused execution's "
         "launches "
-        "(launches: every path, phases 3-4, 7, 8, 9, 10, 11, 12 and 13); "
+        "(launches: every path, phases 3-4, 7, 8, 9, 10, 11, 12, 13, 14 "
+        "and 15); "
         "decode attention at the LM "
         "decode shape (packed, fused); encoder at 8x224x224x3, T=4")
     print(smi)

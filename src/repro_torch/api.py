@@ -33,8 +33,13 @@ bucketed prefill plus one decode-step plan over the radix KV cache.
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (where the kernels' plain versions run).
 ``compile(..., autotune=True)`` picks each kernel launch by timing
-``kernels.autotune``'s candidates at compile time.  Not ported:
-``parallel > 1``, ``auto=`` and the PPA stats provider (ROADMAP.md).
+``kernels.autotune``'s candidates at compile time.  :func:`autoconfigure`
+searches the (encoding, T, dataflow, units) lattice under accuracy /
+latency / energy constraints on the paper's calibrated FPGA model
+(``repro_torch.ppa``), and ``compile(..., auto=...)`` compiles its winner;
+every CNN :class:`Executable` reports that model's PPA under
+``stats()["ppa"]`` (modeled FPGA numbers, not GPU measurements).  Not
+ported: ``parallel > 1`` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -76,6 +81,7 @@ __all__ = [
     "LMExecutable",
     "convert",
     "oracle",
+    "autoconfigure",
 ]
 
 BACKENDS = ("kernels", "jnp")
@@ -132,6 +138,36 @@ def oracle(qnet: conversion.QuantizedNet, x, *, mode: str = "snn",
     with torch.no_grad():
         return engine._forward(qnet, torch.as_tensor(x, dtype=torch.float32),
                                spec, mode)
+
+
+def autoconfigure(net, item_shape, *, calib, accuracy_floor,
+                  latency_slo_us=None, energy_budget_uj=None, **kwargs):
+    """Search the legal (encoding, T, dataflow, units) lattice for a float
+    ``(static, params)`` net under PPA constraints; returns a
+    :class:`~repro_torch.ppa.search.AutoPlan` (winner, Pareto frontier and
+    each candidate's rejection reasons).  ``kwargs`` go to
+    :func:`repro_torch.ppa.search.autoconfigure` (``labels``, ``t_range``,
+    ``units``, ``freq_mhz``, ``objective``, ``device``, ...)."""
+    from repro_torch.ppa import search as ppa_search
+
+    return ppa_search.autoconfigure(
+        net, item_shape, calib=calib, accuracy_floor=accuracy_floor,
+        latency_slo_us=latency_slo_us, energy_budget_uj=energy_budget_uj,
+        **kwargs)
+
+
+def _attach_ppa(exe: "Executable") -> "Executable":
+    """Attach the modeled-PPA stats provider (``stats()["ppa"]``) to a
+    freshly compiled executable.  A net the hardware model cannot cost (a
+    layer kind or item shape it does not describe) gets no provider, and
+    its stats lack the key, as the reference's do."""
+    from repro_torch.ppa import model as ppa_model
+
+    try:
+        provider = ppa_model.stats_provider(exe)
+    except (ValueError, KeyError, TypeError):
+        return exe
+    return exe.attach_stats(provider)
 
 
 def _merge_stat_providers(d: dict, providers) -> dict:
@@ -249,8 +285,11 @@ class Executable:
         ``padded_rows``/``pruned``/``failures``), the sparsity-prepass
         counters ``plane_passes_skipped``/``plane_passes_total`` (zeros on
         the ``jnp`` backend), an ``autotune`` sub-dict (``enabled``, the
-        winner table's counters, each (bucket, kernel layer)'s launch),
-        and any :meth:`attach_stats` dicts."""
+        winner table's counters, each (bucket, kernel layer)'s launch), a
+        ``ppa`` sub-dict with the modeled latency / energy / area of this
+        (encoding, dataflow) pairing on the paper's FPGA build (absent for
+        nets the model cannot cost), and any :meth:`attach_stats`
+        dicts."""
         from repro_torch.kernels import autotune as autotune_mod
 
         d = self._cache.stats.as_dict()
@@ -320,20 +359,43 @@ class Accelerator:
         winners (``kernels.autotune``); every candidate gives the same
         logits.
 
+        ``auto=`` hands the configuration to the PPA planner: a dict of
+        :func:`autoconfigure` keywords (``calib`` and ``accuracy_floor``
+        required) with a *float* ``(static, params)`` pair in place of a
+        converted net.  The search runs on this accelerator's device
+        (unless the dict names ``device``), and its winner is converted
+        and compiled there (its backend and dataflow supersede this
+        accelerator's; the plan is ``exe.auto_plan``).
+
         Raises ``RuntimeError`` when the device is CUDA and none exists,
         ``ValueError`` for an encoding/backend/dataflow/pool mismatch (and
         for ``parallel > 1`` or ``autotune=True`` off the kernels
-        backend, as the reference does), and ``NotImplementedError`` for
-        ``parallel > 1`` or ``auto=`` on the kernels backend.
+        backend, as the reference does; with ``auto=``, for a
+        ``dataflow`` or ``encoding`` the planner owns, or a search that
+        satisfies no constraint), and ``NotImplementedError`` for
+        ``parallel > 1`` on the kernels backend.
         """
         if _is_lm_net(qnet):
             return self._compile_lm(qnet, input_spec, encoding=encoding,
                                     parallel=parallel, buckets=buckets,
                                     autotune=autotune, auto=auto)
         if auto is not None:
-            raise NotImplementedError(
-                "auto= (the PPA planner) is not ported yet (ROADMAP.md, "
-                "queue 1 item 5)")
+            if self.dataflow is not None:
+                raise ValueError(
+                    "auto= searches the dataflow axis; leave "
+                    "Accelerator.dataflow=None")
+            if encoding is not None:
+                raise ValueError(
+                    "auto= searches the encoding axis; drop the "
+                    "encoding= override")
+            from repro_torch.ppa import search as ppa_search
+
+            plan = ppa_search.autoconfigure(
+                qnet, input_spec, **{"device": self.device, **dict(auto)})
+            exe = plan.compile(parallel=parallel, buckets=buckets,
+                               autotune=autotune)
+            exe.auto_plan = plan
+            return exe
         spec = _resolve_spec(qnet, encoding)
         if self.backend not in spec.backends:
             raise ValueError(
@@ -357,9 +419,10 @@ class Accelerator:
                     "backend='kernels'")
         spec.validate_static(qnet.static)
         device = _resolve_device(self.device)
-        return Executable(qnet, input_spec, spec, self.backend, dataflow,
-                          engine.DEFAULT_BUCKETS if buckets is None
-                          else buckets, device, autotune=autotune)
+        return _attach_ppa(Executable(
+            qnet, input_spec, spec, self.backend, dataflow,
+            engine.DEFAULT_BUCKETS if buckets is None else buckets, device,
+            autotune=autotune))
 
     def _compile_lm(self, qnet, input_spec, *, encoding, parallel, buckets,
                     autotune, auto) -> "LMExecutable":
@@ -373,15 +436,6 @@ class Accelerator:
         (``radix_steps`` = T, ``radix_kv`` / ``radix_kv_pack``,
         ``packed_attn``, ``radix_attn``)."""
         params, cfg = qnet
-        if autotune and self.backend != "kernels":
-            raise ValueError(
-                "autotune sweeps kernel strategies and requires "
-                "backend='kernels'")
-        if self.backend != "kernels":
-            raise NotImplementedError(
-                "the LM path's jnp backend (the reference's int8 "
-                "dot_general twin) is not ported yet (ROADMAP.md, queue 1 "
-                "item 3.7); use backend='kernels'")
         if auto is not None:
             raise ValueError(
                 "auto= (the PPA planner) prices the paper's CNN lattice, "
@@ -394,6 +448,10 @@ class Accelerator:
             raise ValueError(
                 "parallel bucket sharding is a CNN-plan feature; LM "
                 "plans shard via the model's mesh instead")
+        if autotune and self.backend != "kernels":
+            raise ValueError(
+                "autotune sweeps kernel strategies and requires "
+                "backend='kernels'")
         if self.dataflow is not None and self.dataflow not in (
                 "bitserial", "fused"):
             raise ValueError(
@@ -418,8 +476,9 @@ class Accelerator:
                 b *= 2
             buckets = tuple(sorted(ladder))
         return LMExecutable(params, cfg, batch=batch, max_len=max_len,
-                            seq_buckets=buckets, dataflow=self.dataflow,
-                            device=device, autotune=autotune)
+                            seq_buckets=buckets, backend=self.backend,
+                            dataflow=self.dataflow, device=device,
+                            autotune=autotune)
 
 
 class LMExecutable:
@@ -427,11 +486,14 @@ class LMExecutable:
 
     Produced by :meth:`Accelerator.compile` from a ``(params, ArchConfig)``
     pair; do not construct directly.  The FFN matmuls (and the QKV/out
-    projections under ``cfg.radix_attn``) run as radix matmuls through the
-    CUDA kernel, the KV cache holds radix levels, and with
-    ``cfg.packed_attn`` every decode step's attention runs the
-    decode-attention kernel on those levels (``repro_torch.lm.radix``).
-    On ``device="cpu"`` the kernels' plain versions run.
+    projections under ``cfg.radix_attn``) run as radix matmuls, the KV
+    cache holds radix levels, and with ``cfg.packed_attn`` every decode
+    step's attention runs on those levels (``repro_torch.lm.radix``):
+    through the CUDA kernels on ``backend="kernels"``, or on
+    ``backend="jnp"`` (the reference's int8 ``dot_general`` twin) through
+    the exact float64 integer product and the plain decode attention, on
+    any device.  The two backends give the same int32 accumulators and
+    the same logits.  On ``device="cpu"`` the kernels' plain versions run.
 
     Serving shape contract (an :class:`~repro_torch.core.engine.LMPlanCache`):
     prompts right-pad to a fixed sequence-bucket ladder (one prefill plan
@@ -444,8 +506,9 @@ class LMExecutable:
     """
 
     def __init__(self, params, cfg: ArchConfig, *, batch: int, max_len: int,
-                 seq_buckets: Sequence[int], dataflow: Optional[str],
-                 device: torch.device, autotune: bool = False):
+                 seq_buckets: Sequence[int], backend: str,
+                 dataflow: Optional[str], device: torch.device,
+                 autotune: bool = False):
         from repro_torch.lm import model as lm_model
 
         bad = sorted(set(cfg.layer_types) - {"attn"})
@@ -463,13 +526,15 @@ class LMExecutable:
                 "via repro_torch.lm.model.prefill / decode_step with a "
                 "batch dict")
         serve_cfg = dataclasses.replace(
-            cfg, quant="radix", use_kernel=True,
+            cfg, quant="radix", use_kernel=(backend == "kernels"),
             kernel_autotune=bool(autotune),
             kernel_dataflow=dataflow or cfg.kernel_dataflow)
         lm_model.check_supported(serve_cfg)
         self.cfg = serve_cfg
         self.arch = cfg.name
-        self.dataflow = serve_cfg.kernel_dataflow
+        self.backend = backend
+        self.dataflow = (serve_cfg.kernel_dataflow if backend == "kernels"
+                         else None)
         self.autotune = bool(autotune)
         self.device = device
         self.batch = int(batch)
@@ -508,6 +573,7 @@ class LMExecutable:
         self._tuned_rows: list = []
         if self.autotune:
             self._tuned_rows = self._sweep()
+        self._stat_providers: list = []
 
     def _sweep(self) -> list:
         """Tune, here at compile time, every radix matmul problem the plans
@@ -596,7 +662,8 @@ class LMExecutable:
 
     def __repr__(self) -> str:
         return (f"LMExecutable({self.arch!r}, T={self.cfg.radix_steps}, "
-                f"dataflow={self.dataflow!r}, batch={self.batch}, "
+                f"backend={self.backend!r}, dataflow={self.dataflow!r}, "
+                f"batch={self.batch}, "
                 f"max_len={self.max_len}, seq_buckets={self.buckets}, "
                 f"device={self.device})")
 
@@ -693,17 +760,24 @@ class LMExecutable:
             torch.cuda.synchronize(self.device)
         return self
 
+    def attach_stats(self, provider) -> "LMExecutable":
+        """Register a stats provider (the contract of
+        :meth:`Executable.attach_stats`); returns self."""
+        self._stat_providers.append(provider)
+        return self
+
     def stats(self) -> dict:
         """LM plan-cache counters (``hits`` / ``compiles`` / ``executions``
         / ``padded_rows`` / ``failures``: ``compiles`` stays flat in
         steady state, one prefill plan per sequence bucket plus one decode
-        plan) and an ``autotune`` sub-dict: whether the compile-time sweep
+        plan), an ``autotune`` sub-dict: whether the compile-time sweep
         ran, the winner table's counters, and one row per swept problem
-        with the launch the plans use."""
+        with the launch the plans use, and any :meth:`attach_stats`
+        dicts."""
         from repro_torch.kernels import autotune as autotune_mod
 
         d = self._cache.stats.as_dict()
         d["autotune"] = {"enabled": self.autotune,
                          **autotune_mod.default_cache().stats.as_dict(),
                          "layers": list(self._tuned_rows)}
-        return d
+        return _merge_stat_providers(d, self._stat_providers)

@@ -13,9 +13,10 @@ tensors live on the device of the params.
 Float op order follows the reference: every division by a scale divides
 by a float32 tensor on the operand's device (CUDA lowers division by a
 host scalar to a reciprocal multiply), and the percentile is the
-reference's float32 linear interpolation over a full sort
-(``torch.quantile`` refuses inputs over 2^24 elements, and VGG-11's first
-activation at 224 x 224, batch 8, has 25.7 M).
+reference's float32 linear interpolation between two order statistics,
+selected with ``topk`` (``torch.quantile`` refuses inputs over 2^24
+elements, and VGG-11's first activation at 224 x 224, batch 8, has
+25.7 M).
 """
 
 from __future__ import annotations
@@ -88,16 +89,30 @@ def float_forward(static: Static, params: Sequence[Optional[dict]],
     return x
 
 
+def _order_stats(a: torch.Tensor, lo_i: int, hi_i: int):
+    """Elements ``lo_i <= hi_i`` of ``a``'s ascending sort (``a`` 1-D),
+    selected from the shorter tail with ``topk`` instead of a full sort:
+    the same two values, in a fraction of the time at the 99.9th
+    percentile of a VGG-11 activation."""
+    n = a.numel()
+    if n - lo_i <= hi_i + 1:
+        top = torch.topk(a, n - lo_i).values          # descending
+        return top[n - 1 - lo_i], top[n - 1 - hi_i]
+    low = torch.topk(a, hi_i + 1, largest=False).values   # ascending
+    return low[lo_i], low[hi_i]
+
+
 def _percentile(a: torch.Tensor, percentile: float) -> float:
-    """The reference's float32 linear-interpolation percentile, over a sort.
+    """The reference's float32 linear-interpolation percentile, over the
+    two order statistics it reads.
 
     XLA compiles the reference's arithmetic as the position
     ``percentile * (0.01 * (n - 1))`` (``n`` is a compile-time constant)
     and the interpolation as ``fma(hi, w_hi, lo * w_lo)``, all float32;
     this repeats those steps, the fused multiply-add as one float64 sum
     (the float32 product is exact there) rounded once to float32."""
-    s = torch.sort(a.reshape(-1)).values
-    n = s.numel()
+    a = a.reshape(-1)
+    n = a.numel()
     f32 = dict(dtype=torch.float32)
     last = torch.tensor(float(n), **f32) - 1
     q = torch.tensor(percentile, **f32) * (
@@ -107,7 +122,7 @@ def _percentile(a: torch.Tensor, percentile: float) -> float:
     low_w = 1 - high_w
     lo_i = int(torch.clamp(low, 0, n - 1))
     hi_i = int(torch.clamp(high, 0, n - 1))
-    lo_v, hi_v = s[[lo_i, hi_i]].cpu()
+    lo_v, hi_v = (v.cpu() for v in _order_stats(a, lo_i, hi_i))
     fused = hi_v.double() * high_w.double() + (lo_v * low_w).double()
     return float(fused.float())
 
@@ -191,7 +206,16 @@ def convert(static: Static, params, calib_x: torch.Tensor, *,
             f"num_steps={num_steps} contradicts "
             f"encoding.num_steps={spec.num_steps}")
     spec.validate_static(static)
-    scales = calibrate(static, params, calib_x, percentile)
+    return _fold(static, params, calibrate(static, params, calib_x,
+                                           percentile),
+                 spec, weight_bits, per_channel)
+
+
+def _fold(static: Static, params, scales: List[float], spec: EncodingSpec,
+          weight_bits: int, per_channel: bool) -> QuantizedNet:
+    """:func:`convert` after calibration: ``scales`` are
+    :func:`calibrate`'s, which no spec changes, so a search over specs
+    calibrates once."""
     scales = [s * spec.scale_factor for s in scales]
     lvlp1 = spec.levels
 

@@ -300,11 +300,12 @@ def occupancy_rows(k_q: torch.Tensor, v_q: torch.Tensor, num_steps: int,
 def _attend_split(qq, qs, qsum, kq, ks, vq, vs, mask, occk, occv, *,
                   num_steps: int, q_bits: int, hd: int, method: str,
                   packed: bool):
-    """One split's streaming-softmax state (m, l, o), un-normalized: its
-    ``SLOTS``-slot tiles in order from :func:`osm_init`, only the current
-    tile's levels unpacked, in the kernel's float order.  ``qq`` (N, g,
-    hd) int32, ``qs``/``qsum`` (N, g, 1); the split's ``kq``/``vq`` (N,
-    s, hdp) uint8, ``ks``/``vs`` (N, s) f32, ``mask`` (N, s) bool."""
+    """Each row's streaming-softmax state (m, l, o), un-normalized (a row
+    is one KV split): its ``SLOTS``-slot tiles in order from
+    :func:`osm_init`, only the current tile's levels unpacked, in the
+    kernel's float order.  ``qq`` (N, g, hd) int32, ``qs``/``qsum`` (N,
+    g, 1); the splits' ``kq``/``vq`` (N, s, hdp) uint8, ``ks``/``vs``
+    (N, s) f32, ``mask`` (N, s) bool."""
     n, g, _ = qq.shape
     lvl = (1 << num_steps) - 1
     state = osm_init((n, g, 1), (n, g, hd), device=qq.device)
@@ -375,7 +376,12 @@ def radix_decode_attn_plain(q: torch.Tensor, k_q: torch.Tensor,
     max_splits)``, default the module's) through the tile loop, then
     :func:`combine_splits`.  With ``sparsity`` the plane passes are gated
     on ``occupancy`` (K and V ``(1, OCC_LANES)`` rows), by default the
-    whole cache's (:func:`occupancy_rows`)."""
+    whole cache's (:func:`occupancy_rows`).
+
+    The splits run side by side, as rows of one batch (the last one
+    padded with masked, zero slots): a masked slot adds an exact 0 to
+    every sum and a fully masked tile rescales by exp(0) = 1, so each
+    split's state is the one the split alone would give."""
     if method not in ("fused", "bitserial"):
         raise ValueError(f"unknown method {method!r}")
     splits = check_splits(*(splits or (None, None)))
@@ -401,13 +407,24 @@ def radix_decode_attn_plain(q: torch.Tensor, k_q: torch.Tensor,
             k_q, v_q, num_steps, packed)
         occk, occv = rows[0][0], rows[1][0]
     step = split_slots(s_len, *splits)
-    states = [_attend_split(qq, qs, qsum, kq[:, j0:j0 + step],
-                            ks[:, j0:j0 + step], vq[:, j0:j0 + step],
-                            vs[:, j0:j0 + step], maskn[:, j0:j0 + step],
-                            occk, occv, num_steps=num_steps, q_bits=q_bits,
-                            hd=hd, method=method, packed=packed)
-              for j0 in range(0, s_len, step)]
-    m, l, o = (torch.stack(part, dim=1) for part in zip(*states))
+    nsplit = -(-s_len // step)
+    pad = nsplit * step - s_len
+
+    def split_rows(a):                # (N, S, ·) -> (N * nsplit, step, ·)
+        if pad:
+            a = torch.cat([a, a.new_zeros((n, pad) + tuple(a.shape[2:]))],
+                          dim=1)
+        return a.reshape((n * nsplit, step) + tuple(a.shape[2:]))
+
+    def per_split(a):                 # (N, ·) -> (N * nsplit, ·)
+        return a.repeat_interleave(nsplit, dim=0)
+
+    state = _attend_split(
+        per_split(qq), per_split(qs), per_split(qsum), *(
+            split_rows(a) for a in (kq, ks, vq, vs, maskn)),
+        occk, occv, num_steps=num_steps, q_bits=q_bits, hd=hd,
+        method=method, packed=packed)
+    m, l, o = (t.reshape((n, nsplit) + tuple(t.shape[1:])) for t in state)
     return combine_splits(m, l, o).reshape(b, h, hd)
 
 

@@ -29,8 +29,11 @@ device's work.
 Weights are drawn with numpy from ``--seed`` (the reference draws them
 with ``jax.random``, so one seed gives other weights in the two
 packages); the calibration batch is the reference's.  Plans run on the
-CUDA device unless ``--device cpu`` is given.  Not ported: ``--auto``
-(the PPA planner) and ``--data-parallel`` > 1 (ROADMAP.md).
+CUDA device unless ``--device cpu`` is given.  ``--auto`` lets the PPA
+planner (``repro_torch.ppa``) pick the encoding, T, dataflow and unit
+count under ``--accuracy-floor`` / ``--latency-slo`` / ``--energy-budget``
+(the latter two on the paper's modeled FPGA build), searching on the same
+device.  Not ported: ``--data-parallel`` > 1 (ROADMAP.md).
 
 Usage:
   python -m repro_torch.launch.serve_cnn --arch vgg11 --smoke
@@ -40,6 +43,8 @@ Usage:
       --encoding phase --num-steps 8 --periods 2 --dataflow bitserial
   python -m repro_torch.launch.serve_cnn --arch fang_cnn --smoke \\
       --encoding ttfs --pool-mode avg --dataflow bitserial --device cpu
+  python -m repro_torch.launch.serve_cnn --arch lenet5 --smoke --auto \\
+      --pool-mode avg --accuracy-floor 0.3 --device cpu
 """
 
 from __future__ import annotations
@@ -590,7 +595,17 @@ def _parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="not ported: values > 1 raise")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--auto", action="store_true",
-                    help="the PPA planner (not ported: raises)")
+                    help="let the PPA planner pick encoding/T/dataflow/"
+                         "units under the constraints below")
+    ap.add_argument("--accuracy-floor", type=float, default=None,
+                    help="--auto: minimum calibration-batch fidelity vs "
+                         "the float reference (default 0.9)")
+    ap.add_argument("--latency-slo", type=float, default=None,
+                    help="--auto: modeled per-image latency ceiling (us, "
+                         "the paper's FPGA build)")
+    ap.add_argument("--energy-budget", type=float, default=None,
+                    help="--auto: modeled per-image energy ceiling (uJ, "
+                         "the paper's FPGA build)")
     args = ap.parse_args(argv)
 
     if args.auto:
@@ -602,6 +617,24 @@ def _parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
             if val is not None:
                 ap.error(f"{flag} conflicts with --auto (the planner "
                          "owns that axis)")
+        if args.accuracy_floor is None:
+            args.accuracy_floor = 0.9
+        if not 0.0 < args.accuracy_floor <= 1.0:
+            ap.error(f"--accuracy-floor must be in (0, 1], got "
+                     f"{args.accuracy_floor}")
+        if args.latency_slo is not None and args.latency_slo <= 0:
+            ap.error(f"--latency-slo must be positive, got "
+                     f"{args.latency_slo}")
+        if args.energy_budget is not None and args.energy_budget <= 0:
+            ap.error(f"--energy-budget must be positive, got "
+                     f"{args.energy_budget}")
+    else:
+        for flag, val in (("--accuracy-floor", args.accuracy_floor),
+                          ("--latency-slo", args.latency_slo),
+                          ("--energy-budget", args.energy_budget)):
+            if val is not None:
+                ap.error(f"{flag} is a planner constraint and requires "
+                         "--auto")
     if args.encoding is None:
         args.encoding = "radix"
     if args.num_steps is None:
@@ -641,25 +674,38 @@ def _parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Serve a seeded request stream; prints the summary and returns it
-    (requests, images, wall seconds, p50/p95 ms, stats, health)."""
+    (requests, images, wall seconds, p50/p95 ms, stats, health, flushes,
+    and the planner's ``AutoPlan`` under ``--auto``, else None)."""
     args = _parse_args(argv)
-    if args.auto:
-        raise NotImplementedError(
-            "--auto (the PPA planner) is not ported yet (ROADMAP.md, "
-            "queue 1 item 5)")
     if args.data_parallel is not None and args.data_parallel > 1:
         raise NotImplementedError(
             "--data-parallel > 1 (multi-GPU bucket plans) is not ported "
             "yet (ROADMAP.md, queue 1 item 7)")
     buckets = args.bucket_ladder
-    spec = make_encoding(args.encoding, args.num_steps, periods=args.periods)
-    backend = args.backend or ("kernels" if "kernels" in spec.backends
-                               else "jnp")
-    qnet, item = build_qnet(args.arch, smoke=args.smoke,
-                            pool_mode=args.pool_mode, encoding=spec,
-                            seed=args.seed, device=args.device)
-    server = CNNServer(qnet, item, buckets=buckets, backend=backend,
-                       dataflow=args.dataflow, device=args.device)
+    plan = None
+    if args.auto:
+        static, params, item, calib = build_float_net(
+            args.arch, smoke=args.smoke, pool_mode=args.pool_mode,
+            calib_batch=64, seed=args.seed)
+        plan = api.autoconfigure(
+            (static, params), item, calib=calib,
+            accuracy_floor=args.accuracy_floor,
+            latency_slo_us=args.latency_slo,
+            energy_budget_uj=args.energy_budget, device=args.device)
+        print("[serve_cnn] " + plan.summary().replace("\n", "\n[serve_cnn] "))
+        exe = plan.compile(buckets=buckets, parallel=args.data_parallel)
+        server = CNNServer(exe.qnet, item, executable=exe)
+        spec, backend = exe.encoding, exe.backend
+    else:
+        spec = make_encoding(args.encoding, args.num_steps,
+                             periods=args.periods)
+        backend = args.backend or ("kernels" if "kernels" in spec.backends
+                                   else "jnp")
+        qnet, item = build_qnet(args.arch, smoke=args.smoke,
+                                pool_mode=args.pool_mode, encoding=spec,
+                                seed=args.seed, device=args.device)
+        server = CNNServer(qnet, item, buckets=buckets, backend=backend,
+                           dataflow=args.dataflow, device=args.device)
     print(f"[serve_cnn] {args.arch} {spec} backend={backend} item={item} "
           f"buckets={buckets} device={server.exe.device}")
     t0 = time.monotonic()
@@ -698,7 +744,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
           f"failures={stats['failures']}")
     return dict(requests=len(tickets), ok=len(ok), images=images,
                 wall_s=wall, p50_ms=p50, p95_ms=p95, stats=stats,
-                health=queue.health.state, flushes=queue.flushes)
+                health=queue.health.state, flushes=queue.flushes, plan=plan)
 
 
 if __name__ == "__main__":

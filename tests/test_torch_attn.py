@@ -441,6 +441,37 @@ def test_split_override_on_exact_inputs_equals_default(s_len):
                                           want.shape).astype(np.float32))
 
 
+@pytest.mark.parametrize("s_len", [97, 301, 1025])
+def test_batched_splits_bit_equal_reference_on_exact_inputs(s_len):
+    """The plain version runs its KV splits side by side as rows of one
+    batch, the last padded with masked zero slots.  On the exact inputs
+    above it is bit for bit the reference's kernel (Pallas, interpret
+    mode) at the default split and every named one: 2 to 17 splits, each
+    with a padded last split, packed and not, both methods."""
+    b, hkv, g, hd, t = 2, 1, 3, 8, 1
+    q, k_q, _, v_q, _, mask = _problem(s_len, b, s_len, hkv, g, hd, t,
+                                       "allmasked", False)
+    zeros = np.zeros((b, s_len, hkv), np.float32)
+    splits_seen = set()
+    for packed in (False, True):
+        kc, vc = (_pack4(k_q), _pack4(v_q)) if packed else (k_q, v_q)
+        args = (q, kc, zeros, vc, zeros + 1.0, mask)
+        targs = [torch.from_numpy(a) for a in args]
+        for method in ("fused", "bitserial"):
+            want = np.asarray(jops.radix_decode_attention(
+                *map(jnp.asarray, args), t, packed=packed, method=method))
+            for splits in [None] + SPLIT_OVERRIDES[:-1]:
+                step = tra.split_slots(s_len, *(splits or ()))
+                nsplit = -(-s_len // step)
+                assert nsplit >= 2 and s_len % step, (splits, step)
+                splits_seen.add(nsplit)
+                got = tra.radix_decode_attn_plain(
+                    *targs, num_steps=t, method=method, packed=packed,
+                    splits=splits)
+                np.testing.assert_array_equal(got.numpy(), want)
+    assert len(splits_seen) >= 2
+
+
 @pytest.mark.parametrize("splits", SPLIT_OVERRIDES)
 def test_split_override_matches_reference(splits):
     """Every named split of a random problem (S = 300, GQA, ring mask)

@@ -133,12 +133,27 @@ def test_float_forward_and_calibrate_match_reference():
 
 
 def test_percentile_matches_reference_on_exact_input():
-    """On identical float32 input the sort-based percentile is the
-    reference's, bit for bit (no forward in between)."""
+    """On identical float32 input the percentile is the reference's, bit
+    for bit (no forward in between)."""
     a = np.random.default_rng(0).gamma(2.0, 1.0, 100_003).astype(np.float32)
     for pct in (99.9, 99.0, 50.0, 0.1):
         want = float(jnp.percentile(jnp.asarray(a), pct))
         assert tconv._percentile(torch.from_numpy(a), pct) == want
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 1000, 100_003])
+def test_order_stats_equal_a_full_sort(n):
+    """The two order statistics the percentile reads, selected from either
+    tail, are the elements of a full sort (ties and ReLU zeros included)."""
+    rng = np.random.default_rng(n)
+    a = torch.from_numpy(np.maximum(rng.normal(size=n), 0).round(2)
+                         .astype(np.float32))
+    s = torch.sort(a).values
+    for lo in sorted({0, n // 3, n // 2, n - 2, n - 1} - {-1}):
+        for hi in {lo, min(lo + 1, n - 1)}:
+            got = tconv._order_stats(a, lo, hi)
+            assert (float(got[0]), float(got[1])) == \
+                (float(s[lo]), float(s[hi]))
 
 
 def test_quantize_weights_matches_reference():

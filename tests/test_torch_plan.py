@@ -162,10 +162,12 @@ def test_compile_rejects_what_is_not_ported(vgg_net):
     acc = api.Accelerator(device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         acc.compile(tnet, hw, parallel=2)
-    # autotune is ported (kernels/autotune.py); the planner is not, and
-    # autotune off the kernels backend is refused as the reference does
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        acc.compile(tnet, hw, auto={"objective": "latency"})
+    # the planner is ported (ppa/): auto= without its required keywords
+    # fails as the reference's does; autotune off the kernels backend is
+    # refused as the reference does
+    for accel, net in ((acc, tnet), (japi.Accelerator(), _to_jax(tnet))):
+        with pytest.raises(TypeError, match="calib"):
+            accel.compile(net, hw, auto={"objective": "latency"})
     with pytest.raises(ValueError, match="backend='kernels'"):
         api.Accelerator(backend="jnp", device="cpu").compile(
             tnet, hw, autotune=True)

@@ -11,8 +11,9 @@ resilience layer (``repro_torch.runtime``) against the JAX package.
   marker): quarantine in O(log n) flushes with healthy tickets equal to
   the oracle, retries reconciled with injected faults, deadlines, the
   admission bound, the health machine.
-* The CLI: argument errors exit 2, ``--auto`` and ``--data-parallel`` > 1
-  raise ``NotImplementedError``, and a CPU run serves every request.
+* The CLI: argument errors exit 2, ``--auto`` at its default floor finds
+  no configuration as the reference's does, ``--data-parallel`` > 1
+  raises ``NotImplementedError``, and a CPU run serves every request.
 
 Every comparison is exact; latencies are fake-clock times.
 """
@@ -632,8 +633,12 @@ def test_cli_argument_errors_exit_2(case):
 
 def test_cli_refuses_what_is_not_ported():
     base = ["--arch", "lenet5", "--smoke", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_cnn.main(base + ["--auto"])
+    # --auto is ported: at its default floor (0.9) the planner finds no
+    # configuration for the seeded smoke LeNet, and says so as the
+    # reference does for its own seeded weights
+    for run, argv in ((serve_cnn.main, base), (jserve.main, base[:3])):
+        with pytest.raises(ValueError, match="no feasible configuration"):
+            run(argv + ["--auto", "--requests", "2"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         serve_cnn.main(base + ["--data-parallel", "2"])
     with pytest.raises(ValueError, match="phase coding only"):
