@@ -190,8 +190,35 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` and runs:
    (or, with none feasible, the same refusal); then ``serve_cnn.main
    --auto`` over 16 requests.  The modeled PPA is the paper's FPGA build, not the GPU.
 
+16. training on the card, then trained weights on the kernels' path:
+   LeNet-5 (full width) trained by ``train.trainer.train_ann`` on
+   ``SyntheticVision`` with the reference's table-1 recipe (300 steps,
+   batch 128, lr 1e-2): ANN accuracy over 8 x 256 held-out images at
+   least 0.8; ``convert`` (radix T = 4) of the trained weights on the
+   card equal to the CPU's (``w_q``, ``b_int``, ``mult``); compiled fused
+   and bitserial with buckets (1, 8): 8 held-out images' logits
+   ``torch.equal`` to both oracles, SNN accuracy over the same 2048
+   images, launches = layers x executions.  VGG-11 (224 x 224 x 3, 100
+   classes, avg pool) trained with the trainer's step at batch 32 for a
+   wall budget on prefetched batches: the loss finite and falling (mean
+   of the last 10 steps below the first 10), images/s, a profile of 5
+   steps, ANN accuracy, radix T = 4 fused logits ``torch.equal`` to the
+   oracle and SNN accuracy, whether TTFS and rate logits at T = 4 vary
+   across images (recorded).  A restart drill: LeNet-5's step under
+   ``runtime.RestartableRun``, 17 steps, a checkpoint every 4, a fault at
+   step 9, resumed: ``torch.equal`` to the uninterrupted run (cuDNN
+   deterministic for the drill).  Gemma-2B at full width and depth in
+   bf16: ``launch.train.train_loop`` (adafactor, lr 3e-3, batch 8 x 512
+   ``synthetic_tokens``) for 10 steps with a checkpoint every 5, the
+   checkpoint restored equal to the state bit for bit, a second call
+   resumed to 12; ``lm.model.make_train_step`` with adam on one repeated
+   batch for 8 steps (the loss falls; step ms, tokens/s, peak memory, a
+   profiled step); the trained weights through ``Accelerator.compile``
+   fused at (8, 512), bucket 64, 8 x 40 tokens and 8 new: logits
+   ``torch.equal`` to the plain path, the launches of ``lm_launches``.
+
 Launch counters are set to 0 just before each path (phases 3-4, 7, 8, 9,
-10, 11, each arch of 12 and 13, 14 and 15) and read just after; so are the GEMM
+10, 11, each arch of 12 and 13, 14, 15 and 16) and read just after; so are the GEMM
 wrappers' per-call weight-transpose counters, which must stay 0 on the
 CNN and LM paths (their plans hold K-major weights).  Every failure raises, so the
 script exits non-zero.
@@ -207,6 +234,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -3230,7 +3258,478 @@ def phase_planner(torch, results) -> None:
         f"{out['cli_s']:.1f} s)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: training on the card, and trained weights on the kernels' path.
+# ---------------------------------------------------------------------------
+
+# LeNet-5: the reference's table-1 recipe (benchmarks/table1_timesteps.py)
+LENET_TRAIN = dict(steps=300, batch_size=128, lr=1e-2)
+LENET_ACC_BAR = 0.8            # tests/test_data_train.py's bar
+# VGG-11 at 224 x 224 x 3, 100 classes: trained for a fixed wall budget
+VGG_TRAIN = dict(batch_size=32, lr=2e-3, budget_s=30.0, eval_batches=4,
+                 eval_batch_size=64, calib=32)
+RESTART = dict(steps=17, ckpt_every=4, fault_at=9)
+# Gemma-2B at full width and depth, bf16
+LM_TRAIN = dict(steps=10, resume_to=12, ckpt_every=5, batch=8, seq=512,
+                lr=3e-3, adam_steps=8)
+LM_TRAIN_REQUEST = (8, 40, 8)  # (prompts, tokens, new tokens)
+
+
+def reset_peak(torch) -> None:
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_gb(torch) -> float:
+    return torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda" else 0.0
+
+
+def empty_cache(torch) -> None:
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+
+def train_profile(torch, fn, steps: int) -> dict:
+    """Device time over ``steps`` calls of ``fn`` (one train step each)
+    by ``torch.profiler``, and its share of the profiled wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        sync(torch)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0]
+    busy_ms = sum(_dev_us(e) for e in kernels) / 1e3
+    if busy_ms == 0:
+        return None
+    top = sorted(kernels, key=_dev_us, reverse=True)[:5]
+    return dict(profiled_wall_ms=wall_ms / steps, device_ms=busy_ms / steps,
+                busy_share=busy_ms / wall_ms,
+                top=[(e.key[:60], _dev_us(e) / 1e3 / steps) for e in top])
+
+
+def _profile_text(pr) -> str:
+    if pr is None:
+        return "profile: no device time recorded (not measured)"
+    return (f"profile: device {pr['device_ms']:.2f} ms a step of "
+            f"{pr['profiled_wall_ms']:.2f} ms profiled wall "
+            f"({100 * pr['busy_share']:.1f}% busy); top: "
+            + "; ".join(f"{k} {v:.2f} ms" for k, v in pr["top"]))
+
+
+def snn_accuracy(torch, exe, data, batches: int, batch_size: int) -> float:
+    """The compiled plan's accuracy over the held-out batches
+    ``evaluate_ann`` reads (steps 10 000 + i)."""
+    correct = total = 0
+    for i in range(batches):
+        xb, yb = data.batch(10_000 + i, batch_size)
+        pred = exe(torch.from_numpy(xb).to(DEV)).argmax(-1).cpu().numpy()
+        correct += int((pred == yb).sum())
+        total += batch_size
+    return correct / total
+
+
+def serve_trained(torch, api, name, static, qnet, hw, data, dataflows,
+                  batches: int, batch_size: int) -> dict:
+    """Compile ``qnet`` on the kernels backend for ``dataflows`` with
+    buckets (1, 8); a request of 8 held-out images ``torch.equal`` to both
+    oracles; the SNN accuracy over ``batches`` held-out batches; launches
+    = layers x executions."""
+    n_conv = sum(1 for k, _ in static if k == "conv")
+    n_lin = sum(1 for k, _ in static if k == "linear")
+    x = torch.from_numpy(data.batch(10_000, BATCH)[0]).to(DEV)
+    want_snn = api.oracle(qnet, x, mode="snn")
+    want_packed = api.oracle(qnet, x, mode="packed")
+    check(torch.equal(want_snn, want_packed),
+          f"{name}: snn != packed oracle on the trained net")
+    out = dict(logits_class_std=float(want_snn.std(dim=0).mean()))
+    for dataflow in dataflows:
+        exe = api.Accelerator(dataflow=dataflow, backend="kernels",
+                              device=DEV).compile(qnet, hw, buckets=BUCKETS)
+        before = counters()
+        got = exe(x)
+        check(torch.equal(got, want_snn),
+              f"{name} {dataflow}: trained logits differ from the oracles "
+              f"(max |diff| {(got - want_snn).abs().max()})")
+        acc = snn_accuracy(torch, exe, data, batches, batch_size)
+        sync(torch)
+        after = counters()
+        execs = exe.stats()["executions"]
+        launches = {k: after[k] - before[k] for k in after}
+        check(DEV != "cuda" or (launches["radix_conv2d"] == n_conv * execs
+                                and launches["radix_matmul"]
+                                == n_lin * execs),
+              f"{name} {dataflow}: launches {launches} != ({n_conv} conv, "
+              f"{n_lin} linear) x {execs} executions")
+        out[dataflow] = dict(snn_acc=acc, executions=execs,
+                             launches=launches)
+        log(f"[train] {name} {dataflow}: 8 held-out images equal both "
+            f"oracles; SNN accuracy {acc:.4f} over {batches * batch_size} "
+            f"images; {execs} executions, launches {launches}")
+        del exe
+    return out
+
+
+def phase_train_lenet(torch, np_, results) -> None:
+    """LeNet-5 at full width trained by ``train_ann`` on the table-1
+    recipe; ANN accuracy >= 0.8; conversion on the card equal to the
+    CPU's; both dataflows' logits equal the oracles; SNN accuracy over the
+    same 2048 held-out images."""
+    from repro_torch import api
+    from repro_torch.core.encoding import RadixEncoding
+    from repro_torch.data import SyntheticVision
+    from repro_torch.models import lenet
+    from repro_torch.train.trainer import TrainConfig, evaluate_ann, train_ann
+
+    t0 = time.perf_counter()
+    data = SyntheticVision()
+    static, params, hw = lenet.make(np_.random.default_rng(SEED))
+    cfg = TrainConfig(log_every=100, **LENET_TRAIN)
+    trained, last = train_ann(static, params, data, cfg, log=log, device=DEV)
+    ann_acc = evaluate_ann(static, trained, data, device=DEV)
+    check(ann_acc >= LENET_ACC_BAR,
+          f"lenet5: ANN accuracy {ann_acc:.4f} < {LENET_ACC_BAR}")
+    calib = torch.from_numpy(data.calibration_batch(256))
+    qnet = api.convert(static, trained, calib.to(DEV),
+                       encoding=RadixEncoding(T))
+    cpu = api.convert(static, [None if p is None else
+                               {k: v.cpu() for k, v in p.items()}
+                               for p in trained], calib,
+                      encoding=RadixEncoding(T))
+    differ = []
+    for i, (a, b) in enumerate(zip(qnet.qlayers, cpu.qlayers)):
+        for k in ("w_q", "b_int", "mult") if a is not None else ():
+            x, y = a[k], b[k]
+            if (x is None) != (y is None) or (
+                    x is not None and not torch.equal(x.cpu(), y)):
+                differ.append((i, k, None if x is None or y is None else
+                               float((x.cpu().double() - y.double())
+                                     .abs().max())))
+    check(not differ, f"lenet5: (layer, field, max |diff|) converted "
+          f"differently on the card: {differ}")
+    check(qnet.input_scale == cpu.input_scale,
+          "lenet5: input scale differs card vs CPU")
+    out = dict(train_s=last["wall_s"], last_loss=last["loss"],
+               last_acc=last["acc"], ann_acc=ann_acc,
+               images_per_s=cfg.steps * cfg.batch_size / last["wall_s"],
+               **serve_trained(torch, api, "lenet5", static, qnet, hw, data,
+                               ("fused", "bitserial"), 8, 256))
+    out["phase_s"] = time.perf_counter() - t0
+    results.setdefault("training", {})["lenet5"] = out
+    log(f"[train] lenet5: {cfg.steps} steps of {cfg.batch_size} in "
+        f"{last['wall_s']:.2f} s ({out['images_per_s']:.0f} images/s), "
+        f"ANN accuracy {ann_acc:.4f}, SNN (radix T={T}) fused "
+        f"{out['fused']['snn_acc']:.4f} bitserial "
+        f"{out['bitserial']['snn_acc']:.4f}; card and CPU conversions "
+        f"equal; {out['phase_s']:.1f} s")
+
+
+def phase_train_vgg(torch, np_, results) -> None:
+    """VGG-11 at 224 x 224 x 3, 100 classes, trained with ``train_ann``'s
+    step for ``VGG_TRAIN["budget_s"]`` seconds on prefetched batches: the
+    loss finite and falling; images/s; a profile of 5 steps; ANN accuracy;
+    radix T = 4 fused logits equal the oracle, SNN accuracy; whether TTFS
+    and rate at T = 4 now vary across images (recorded)."""
+    from repro_torch import api
+    from repro_torch.core.encoding import (RadixEncoding, RateEncoding,
+                                           TTFSEncoding)
+    from repro_torch.data import Prefetcher, SyntheticVision
+    from repro_torch.models import vgg
+    from repro_torch.train import optim
+    from repro_torch.train.trainer import (TrainConfig, evaluate_ann,
+                                           make_ann_step)
+    from repro_torch.train.tree import tree_map
+
+    t_phase = time.perf_counter()
+    v = VGG_TRAIN
+    data = SyntheticVision(input_hw=(224, 224, 3), num_classes=100)
+    static, params, hw = vgg.make(np_.random.default_rng(SEED),
+                                  pool_mode="avg", input_hw=(224, 224, 3),
+                                  width_mult=1.0, num_classes=100)
+    cfg = TrainConfig(batch_size=v["batch_size"], lr=v["lr"])
+    opt = optim.sgd(cfg.lr, cfg.momentum, nesterov=True)
+    trainable = [tree_map(lambda t: t.to(DEV), p)
+                 for p in params if p is not None]
+    opt_state = opt.init(trainable)
+    step = make_ann_step(static, params, cfg, opt)
+    losses, t0 = [], time.perf_counter()
+    for s, (xb, yb) in Prefetcher(lambda s: data.batch(s, cfg.batch_size),
+                                  0, 10 ** 6, depth=4):
+        trainable, opt_state, loss, _ = step(
+            trainable, opt_state, torch.from_numpy(xb).to(DEV),
+            torch.from_numpy(yb).to(DEV))
+        losses.append(float(loss))
+        if time.perf_counter() - t0 > v["budget_s"]:
+            break
+    wall = time.perf_counter() - t0
+    check(all(math.isfinite(x) for x in losses),
+          f"vgg11: non-finite training loss {losses[-10:]}")
+    first, last = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+    check(len(losses) >= 20 and last < first,
+          f"vgg11: loss did not fall over {len(losses)} steps "
+          f"({first:.4f} -> {last:.4f})")
+    xb, yb = data.batch(0, cfg.batch_size)
+    xb, yb = torch.from_numpy(xb).to(DEV), torch.from_numpy(yb).to(DEV)
+    state = [trainable, opt_state]
+
+    def one():
+        state[0], state[1], _, _ = step(state[0], state[1], xb, yb)
+
+    one()
+    prof = train_profile(torch, one, 5)
+    trainable = state[0]
+    it = iter(trainable)
+    trained = [next(it) if p is not None else None for p in params]
+    ann_acc = evaluate_ann(static, trained, data, batches=v["eval_batches"],
+                           batch_size=v["eval_batch_size"], device=DEV)
+    calib = torch.from_numpy(data.calibration_batch(v["calib"])).to(DEV)
+    qnet = api.convert(static, trained, calib, encoding=RadixEncoding(T))
+    out = dict(steps=len(losses), train_wall_s=wall,
+               images_per_s=len(losses) * cfg.batch_size / wall,
+               loss_first10=first, loss_last10=last, profile=prof,
+               ann_acc=ann_acc,
+               **serve_trained(torch, api, "vgg11", static, qnet, hw, data,
+                               ("fused",), v["eval_batches"],
+                               v["eval_batch_size"]))
+    x8 = torch.from_numpy(data.batch(10_000, BATCH)[0]).to(DEV)
+    for spec in (TTFSEncoding(T), RateEncoding(T)):
+        q = api.convert(static, trained, calib, encoding=spec)
+        lg = api.oracle(q, x8, mode="snn")
+        out[f"{spec.name}_varies"] = bool(lg.std(dim=0).mean() > 0)
+    out["phase_s"] = time.perf_counter() - t_phase
+    results.setdefault("training", {})["vgg11"] = out
+    log(f"[train] vgg11: {len(losses)} steps of {cfg.batch_size} in "
+        f"{wall:.1f} s ({out['images_per_s']:.1f} images/s with the "
+        f"prefetched host batches), loss {first:.4f} -> {last:.4f} (mean of "
+        f"the first and last 10); {_profile_text(prof)}")
+    log(f"[train] vgg11: ANN accuracy {ann_acc:.4f}, SNN (radix T={T}, "
+        f"fused) {out['fused']['snn_acc']:.4f} over "
+        f"{v['eval_batches'] * v['eval_batch_size']} held-out images; "
+        f"logits at T={T} vary across images: ttfs "
+        f"{out['ttfs_varies']}, rate {out['rate_varies']}; "
+        f"{out['phase_s']:.1f} s")
+
+
+def phase_restart_drill(torch, np_, results) -> None:
+    """LeNet-5's SGD-momentum step under ``RestartableRun``: a fault at
+    step 9 of 17 (checkpoints every 4), resumed; the final state
+    ``torch.equal`` to an uninterrupted run's.  cuDNN's deterministic
+    algorithms for the drill's duration."""
+    import tempfile
+
+    from repro_torch.data import SyntheticVision
+    from repro_torch.models import lenet
+    from repro_torch.runtime import FaultInjected, RestartableRun
+    from repro_torch.train import optim
+    from repro_torch.train.trainer import TrainConfig, make_ann_step
+    from repro_torch.train.tree import leaves, tree_map
+
+    data = SyntheticVision()
+    static, params, _ = lenet.make(np_.random.default_rng(SEED))
+    cfg = TrainConfig(batch_size=LENET_TRAIN["batch_size"],
+                      lr=LENET_TRAIN["lr"])
+    opt = optim.sgd(cfg.lr, cfg.momentum, nesterov=True)
+    step = make_ann_step(static, params, cfg, opt)
+
+    def step_fn(state, batch):
+        p, o, loss, _ = step(state["params"], state["opt"], *batch)
+        return {"params": p, "opt": o}, float(loss)
+
+    def batch_fn(s):
+        xb, yb = data.batch(s, cfg.batch_size)
+        return torch.from_numpy(xb).to(DEV), torch.from_numpy(yb).to(DEV)
+
+    def fresh():
+        p = [tree_map(lambda t: t.to(DEV), q) for q in params
+             if q is not None]
+        return {"params": p, "opt": opt.init(p)}
+
+    r = RESTART
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            ref, _ = RestartableRun(step_fn, batch_fn, f"{tmp}/ref",
+                                    ckpt_every=r["ckpt_every"]).run(
+                fresh(), steps=r["steps"])
+            run = RestartableRun(step_fn, batch_fn, f"{tmp}/crash",
+                                 ckpt_every=r["ckpt_every"])
+            try:
+                run.run(fresh(), steps=r["steps"], fault_at=r["fault_at"])
+                check(False, "restart drill: the fault was not raised")
+            except FaultInjected:
+                pass
+            resumed, _ = run.run(fresh(), steps=r["steps"])
+    finally:
+        torch.backends.cudnn.deterministic = before
+    equal = all(torch.equal(a, b) for a, b in zip(leaves(ref),
+                                                  leaves(resumed)))
+    check(equal, "restart drill: the resumed state differs from the "
+          "uninterrupted run's")
+    results.setdefault("training", {})["restart"] = dict(
+        r, equal=equal, cudnn_deterministic=True)
+    log(f"[train] restart drill: lenet5, {r['steps']} steps, checkpoints "
+        f"every {r['ckpt_every']}, fault at step {r['fault_at']}, resumed: "
+        "final state torch.equal to the uninterrupted run (cuDNN "
+        "deterministic for the drill)")
+
+
+def phase_train_lm(torch, results) -> None:
+    """Gemma-2B at full width and depth in bf16: ``launch.train.train_loop``
+    (adafactor) for 10 steps with a checkpoint every 5, the checkpoint
+    equal to the state bit for bit, a second call resumed to 12; then
+    ``make_train_step`` with adam on one repeated batch for 8 steps (the
+    loss falls; step ms, tokens/s, peak memory, a profiled step); then the
+    trained weights served through ``Accelerator.compile``: logits
+    ``torch.equal`` to the plain path, launches of ``lm_launches``."""
+    import tempfile
+
+    from repro_torch import api
+    from repro_torch.configs import gemma_2b
+    from repro_torch.data import synthetic_tokens
+    from repro_torch.launch import train as train_launch
+    from repro_torch.lm import model
+    from repro_torch.train import checkpoint, optim
+    from repro_torch.train.tree import leaves
+
+    t_phase = time.perf_counter()
+    cfg, lt = gemma_2b.ARCH, LM_TRAIN
+    out = dict(layers=cfg.n_layers, batch=lt["batch"], seq=lt["seq"])
+    reset_peak(torch)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        kw = dict(batch_size=lt["batch"], seq_len=lt["seq"], lr=lt["lr"],
+                  ckpt_dir=tmp, ckpt_every=lt["ckpt_every"], seed=SEED,
+                  log=log, device=DEV)
+        t0 = time.perf_counter()
+        state, hist = train_launch.train_loop(cfg, steps=lt["steps"], **kw)
+        out["loop_s"] = time.perf_counter() - t0
+        out["loop_peak_gb"] = peak_gb(torch)
+        check(checkpoint.latest_step(tmp) == lt["steps"],
+              f"gemma_2b: latest checkpoint {checkpoint.latest_step(tmp)}")
+        saved, _ = checkpoint.restore(tmp, lt["steps"], state)
+        same = all(a.dtype == b.dtype and torch.equal(
+            a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+            b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+            for a, b in zip(leaves(state), leaves(saved)))
+        check(same, "gemma_2b: the restored checkpoint differs from the "
+              "trained state")
+        del state, saved
+        empty_cache(torch)
+        logged = []
+        t0 = time.perf_counter()
+        state, more = train_launch.train_loop(
+            cfg, steps=lt["resume_to"],
+            **dict(kw, log=lambda s: (logged.append(s), log(s))))
+        out["resume_s"] = time.perf_counter() - t0
+        check(logged[0] == f"[train] resumed from step {lt['steps']}"
+              and len(more) == lt["resume_to"] - lt["steps"]
+              and int(state["step"]) == lt["resume_to"],
+              f"gemma_2b: resume: {logged[:1]}, {len(more)} steps")
+        losses = hist + more
+        check(all(math.isfinite(x) for x in losses),
+              f"gemma_2b: non-finite losses {losses}")
+        del state
+    empty_cache(torch)
+    out.update(adafactor_losses=losses, checkpoint_equal=same)
+    log(f"[train] gemma_2b train_loop (adafactor, batch {lt['batch']} x "
+        f"{lt['seq']}): losses {[round(x, 4) for x in losses]}; checkpoint "
+        f"at step {lt['steps']} restored bit for bit; resumed to "
+        f"{lt['resume_to']}; {out['loop_s']:.1f} s + {out['resume_s']:.1f} "
+        f"s, peak {out['loop_peak_gb']:.2f} GB")
+
+    # adam on one repeated batch: the step's time, memory and profile
+    reset_peak(torch)
+    params = model.init_params(
+        torch.Generator(device=DEV).manual_seed(SEED), cfg)
+    opt = optim.adam(lt["lr"])
+    st = [{"params": params, "opt": opt.init(params),
+           "step": torch.zeros((), dtype=torch.int32, device=DEV)}]
+    del params
+    step = model.make_train_step(cfg, opt)
+    batch = {"tokens": torch.from_numpy(synthetic_tokens(
+        0, lt["batch"], lt["seq"], cfg.vocab, seed=SEED)).to(DEV)}
+    losses, times = [], []
+    for _ in range(lt["adam_steps"]):
+        t0 = time.perf_counter()
+        st[0], m = step(st[0], batch)
+        losses.append(float(m["loss"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"gemma_2b: adam losses on the repeated batch {losses}")
+    step_ms = statistics.median(times[1:])
+    out.update(adam_losses=losses, step_ms=step_ms, step_ms_all=times,
+               tokens_per_s=lt["batch"] * lt["seq"] / step_ms * 1e3,
+               peak_gb=peak_gb(torch))
+
+    def one():
+        st[0], _ = step(st[0], batch)
+
+    out["profile"] = train_profile(torch, one, 1)
+    log(f"[train] gemma_2b make_train_step (adam, one repeated batch): "
+        f"losses {[round(x, 4) for x in losses]}; step {step_ms:.1f} ms "
+        f"(median of steps 2-{lt['adam_steps']}, host clock), "
+        f"{out['tokens_per_s']:.0f} tokens/s, peak {out['peak_gb']:.2f} GB; "
+        f"{_profile_text(out['profile'])}")
+
+    # the trained weights through the kernels' path
+    params = st[0]["params"]
+    del st
+    empty_cache(torch)
+    serve_cfg = arch_cfg("gemma_2b", 0)
+    mm, attn, _ = lm_launches(serve_cfg)
+    exe = api.Accelerator(dataflow="fused", device=DEV).compile(
+        (params, serve_cfg), (LM_BATCH, LM_MAX_LEN), buckets=(64,))
+    n, s0, new = LM_TRAIN_REQUEST
+    prompts = lm_prompts(torch, serve_cfg, n, s0, SEED + 160)
+    r = serve_greedy(exe, prompts, new)
+    want = {"radix_matmul": mm * new, "radix_decode_attn": attn * (new - 1),
+            "radix_conv2d": 0, "spike_encode": 0}
+    check(DEV != "cuda" or r["launches"] == want,
+          f"gemma_2b trained: launches {r['launches']} != {want}")
+    ref = plain_logits(model, exe.params,
+                       dataclasses.replace(exe.cfg, use_kernel=False),
+                       prompts, r["tokens"], exe._cache.bucket_for(s0))
+    c = compare_logits(torch, r["logits"], ref)
+    check(c["equal"], f"gemma_2b trained: logits differ from the plain "
+          f"path {c}")
+    out["served"] = dict(request=LM_TRAIN_REQUEST, launches=r["launches"],
+                         comparison=c)
+    del exe, params
+    empty_cache(torch)
+    out["phase_s"] = time.perf_counter() - t_phase
+    results.setdefault("training", {})["gemma_2b"] = out
+    log(f"[train] gemma_2b trained weights served fused at "
+        f"({LM_BATCH}, {LM_MAX_LEN}), bucket 64: {n} x {s0} tokens + {new} "
+        f"new, logits equal the plain path at every step, launches "
+        f"{r['launches']}; phase {out['phase_s']:.1f} s")
+
+
+def phase_training(torch, np_, results) -> None:
+    """Phase 16: LeNet-5, VGG-11, the restart drill, Gemma-2B."""
+    t0 = time.perf_counter()
+    empty_cache(torch)
+    if DEV == "cuda":
+        log(f"[train] device memory allocated before phase 16: "
+            f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    (ROOT / "build").mkdir(exist_ok=True)      # checkpoints' temporary dirs
+    phase_train_lenet(torch, np_, results)
+    phase_train_vgg(torch, np_, results)
+    empty_cache(torch)
+    phase_restart_drill(torch, np_, results)
+    phase_train_lm(torch, results)
+    results["training"]["phase_s"] = time.perf_counter() - t0
+    log(f"[train] phase 16: {results['training']['phase_s']:.1f} s")
+
+
 def main() -> int:
+    # phase 16's Adam step on Gemma-2B holds ~65 GB (bf16 weights, float32
+    # moments, their successors, clipped gradients and updates): without
+    # expandable segments the allocator's free blocks fragment past 80 GB
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     try:
         import torch
     except ImportError:
@@ -3381,6 +3880,12 @@ def main() -> int:
     copies["planner"] = transposes()
     log(f"[plan] script wall so far {time.perf_counter() - t_start:.1f} s")
 
+    reset_counters()
+    phase_training(torch, np, results)
+    paths["training"] = counters()
+    copies["training"] = transposes()
+    log(f"[train] script wall so far {time.perf_counter() - t_start:.1f} s")
+
     results["path_launches"] = paths
     cnn_kernels = ("radix_conv2d", "radix_matmul")
     for path, names in (("cnn", cnn_kernels),
@@ -3396,6 +3901,7 @@ def main() -> int:
                         ("planner", cnn_kernels
                          if results["planner"]["backend"] == "kernels"
                          else ()),
+                        ("training", cnn_kernels + ("radix_decode_attn",)),
                         *arch_paths.items()):
         check(all(paths[path][k] > 0 for k in names),
               f"a kernel of the {path} path was not launched: "
@@ -3445,8 +3951,8 @@ def main() -> int:
     log(f"[done] {results['total_s']:.1f} s; kernel line: conv and matmul "
         "device times summed over one VGG-11 batch-8 fused execution's "
         "launches "
-        "(launches: every path, phases 3-4, 7, 8, 9, 10, 11, 12, 13, 14 "
-        "and 15); "
+        "(launches: every path, phases 3-4, 7, 8, 9, 10, 11, 12, 13, 14, "
+        "15 and 16); "
         "decode attention at the LM "
         "decode shape (packed, fused); encoder at 8x224x224x3, T=4")
     print(smi)

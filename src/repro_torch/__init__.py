@@ -1,4 +1,4 @@
-"""repro_torch — the radix SNN accelerator's inference path in PyTorch + CUDA.
+"""repro_torch — the radix SNN accelerator in PyTorch + CUDA.
 
 A second package beside the JAX reference ``repro``; it imports neither
 JAX nor ``repro``.  Each module names its counterpart:
@@ -17,8 +17,12 @@ JAX nor ``repro``.  Each module names its counterpart:
   ``kernels`` and ``jnp`` backends, ``Executable``, ``oracle``,
   ``convert``, the four encoding specs and the support matrix);
 * ``repro_torch.runtime.{resilience,straggler,restart}`` <->
-  ``repro/runtime/*.py`` (the serving part);
-* ``repro_torch.launch.serve_cnn`` <-> ``repro/launch/serve_cnn.py``;
+  ``repro/runtime/*.py`` (all but elastic re-sharding);
+* ``repro_torch.train.{optim,trainer,checkpoint,compression}`` <->
+  ``repro/train/*.py``; ``repro_torch.data.{synthetic,pipeline}`` <->
+  ``repro/data/*.py`` (all but ``ShardedLoader``);
+* ``repro_torch.launch.{serve,serve_cnn,serve_lm,train}`` <->
+  ``repro/launch/*.py`` (on one device);
 * ``repro_torch.carry`` moves float params and converted nets across from
   the JAX package as numpy arrays (the parity tests use it).
 

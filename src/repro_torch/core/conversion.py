@@ -130,12 +130,23 @@ def _percentile(a: torch.Tensor, percentile: float) -> float:
 def calibrate(static: Static, params, calib_x: torch.Tensor,
               percentile: float = 99.9) -> List[float]:
     """Per-requant-point activation scales: ``scales[0]`` the input scale,
-    ``scales[i]`` the scale of the activation feeding affine layer ``i``."""
+    ``scales[i]`` the scale of the activation feeding affine layer ``i``.
+
+    The calibration forward runs in float64 and each activation is
+    rounded once to float32 before its percentile: a float32 convolution
+    sums in another order on cuDNN than on the CPU (and than XLA), so
+    float32 activations, their percentiles and the folded multipliers
+    would depend on the device; the float64 sums round to the same
+    float32 values on any device."""
     with torch.no_grad():
-        _, acts = float_forward(static, params, calib_x,
+        p64 = [None if p is None else
+               {k: v.to(torch.float64) for k, v in p.items()}
+               for p in params]
+        _, acts = float_forward(static, p64, calib_x.to(torch.float64),
                                 return_activations=True)
         scales = [float(max(1.0, float(calib_x.max())))]
         for a in acts:
+            a = a.to(torch.float32)
             if percentile >= 100.0:
                 s = float(a.max())
             else:

@@ -1,1 +1,7 @@
-"""Data sources of the port (``synthetic``: the LM token stream)."""
+"""Data sources of the port: the procedural image set and LM token
+stream (``synthetic``) and the prefetching loader (``pipeline``)."""
+
+from repro_torch.data.pipeline import Prefetcher
+from repro_torch.data.synthetic import SyntheticVision, synthetic_tokens
+
+__all__ = ["SyntheticVision", "synthetic_tokens", "Prefetcher"]

@@ -1,15 +1,61 @@
-"""Deterministic synthetic LM token stream (port of
-``repro/data/synthetic.py:synthetic_tokens``, that function only).
+"""Deterministic procedural datasets (port of ``repro/data/synthetic.py``).
+
+``SyntheticVision`` draws class-conditional glyphs (oriented bar gratings
+plus Gaussian blobs at class-keyed positions) with additive noise: the
+image set the ANN trainer learns and conversion calibrates on.
+``synthetic_tokens`` is an LM token stream with Zipfian unigram
+statistics and a hidden linear-congruential structure.
 
 Pure NumPy with a counter-based key, so a stream is restartable from a
-step index; the output equals the reference's array for array.
+step index; every output equals the reference's array for array.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Tuple
+
 import numpy as np
 
-__all__ = ["synthetic_tokens"]
+__all__ = ["SyntheticVision", "synthetic_tokens"]
+
+
+@dataclasses.dataclass(frozen=True)
+class SyntheticVision:
+    """Class-conditional procedural images in [0, 1], NHWC."""
+
+    input_hw: Tuple[int, int, int] = (32, 32, 1)
+    num_classes: int = 10
+    noise: float = 0.15
+    seed: int = 0
+
+    def batch(self, step: int, batch_size: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Deterministic batch for a global step (restartable)."""
+        rng = np.random.default_rng(np.random.SeedSequence([self.seed, step]))
+        h, w, c = self.input_hw
+        labels = rng.integers(0, self.num_classes, size=batch_size)
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        imgs = np.zeros((batch_size, h, w, c), np.float32)
+        for i, lbl in enumerate(labels):
+            # class-keyed deterministic geometry + per-sample jitter
+            ang = np.pi * (lbl / self.num_classes) + rng.normal(0, 0.06)
+            freq = 2.0 + (lbl % 5) + rng.normal(0, 0.1)
+            phase = rng.uniform(0, 2 * np.pi)
+            grating = 0.5 + 0.5 * np.sin(
+                2 * np.pi * freq / h * (np.cos(ang) * yy + np.sin(ang) * xx) + phase)
+            cy = h * (0.25 + 0.5 * ((lbl * 7919) % self.num_classes) / self.num_classes)
+            cx = w * (0.25 + 0.5 * ((lbl * 104729) % self.num_classes) / self.num_classes)
+            cy += rng.normal(0, 1.0)
+            cx += rng.normal(0, 1.0)
+            blob = np.exp(-(((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * (h / 8) ** 2)))
+            img = 0.55 * grating + 0.8 * blob
+            img = img + rng.normal(0, self.noise, size=(h, w))
+            for ch in range(c):
+                imgs[i, :, :, ch] = img * (1.0 - 0.1 * ch)
+        return np.clip(imgs, 0.0, 1.0), labels.astype(np.int32)
+
+    def calibration_batch(self, batch_size: int = 256) -> np.ndarray:
+        return self.batch(step=2**31 - 1, batch_size=batch_size)[0]
 
 
 def synthetic_tokens(

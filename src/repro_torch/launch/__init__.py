@@ -1,2 +1,3 @@
 """Entry points of the port (``serve``: the uncompiled LM decode driver;
-``serve_cnn``: CNN serving with the resilience queue)."""
+``serve_cnn``: CNN serving with the resilience queue; ``serve_lm``: LM
+serving behind it; ``train``: the LM training loop on one device)."""

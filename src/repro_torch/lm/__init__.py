@@ -1,7 +1,7 @@
-"""LM serving path (port of ``repro/lm``, without training).
+"""LM path (port of ``repro/lm`` on one device).
 
 ``config.ArchConfig`` describes an architecture; ``model.py`` builds
-init / prefill / decode from it; ``blocks.py`` holds the blocks (full,
+init / train / prefill / decode from it; ``blocks.py`` holds the blocks (full,
 local, non-causal and cross attention, RoPE and M-RoPE, RG-LRU, RWKV-6,
 the dense FFNs); ``moe.py`` the MoE experts on one device; ``radix.py`` the
 paper's radix encoding as a serving feature (int8 FFN weights on radix

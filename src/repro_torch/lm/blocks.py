@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.lm import radix as radix_lib
 from repro_torch.lm.config import ArchConfig
@@ -375,7 +376,7 @@ def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]):
     return torch.cat([prev[:, None, :], x[:, :-1, :]], dim=1)
 
 
-def _rwkv_chunk_scan(r, k, v, w, u, chunk: int):
+def _rwkv_chunk_scan(r, k, v, w, u, chunk: int, remat_body: bool = False):
     """Chunked linear recurrence (all (B, H, S, hd), decay w in (0, 1)):
 
         S_t = diag(w_t) S_{t-1} + k_t v_t^T
@@ -392,7 +393,10 @@ def _rwkv_chunk_scan(r, k, v, w, u, chunk: int):
     The intra-chunk decay ``E_t - L_j`` (<= 0 for j < t) is taken in log
     space, so nothing overflows and no clip is needed.  The chunks run in
     a Python loop carrying the (B, H, hd, hd) float32 state, as the
-    reference's ``lax.scan`` does.  Returns (o (B, H, S, hd), S_final)."""
+    reference's ``lax.scan`` does.  ``remat_body`` (``cfg.rwkv_remat_chunk``)
+    recomputes each chunk's (C, C, hd) intra-chunk tensors in the backward
+    (``torch.utils.checkpoint`` over the chunk body) instead of keeping
+    them.  Returns (o (B, H, S, hd), S_final)."""
     b, h, s_len, hd = r.shape
     if s_len % chunk:
         raise ValueError(f"S={s_len} is not a multiple of chunk={chunk}")
@@ -403,11 +407,9 @@ def _rwkv_chunk_scan(r, k, v, w, u, chunk: int):
     exc = cum - logw                                         # exclusive E
     tri = torch.tril(torch.ones((chunk, chunk), device=r.device),
                      diagonal=-1)
-    state = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=r.device)
-    outs = []
-    for c in range(n):
-        rf, kf, vf = (t[:, :, c].to(torch.float32) for t in (rs, ks, vs))
-        lc, ec = cum[:, :, c], exc[:, :, c]
+
+    def body(state, rc, kc, vc, lc, ec):
+        rf, kf, vf = (t.to(torch.float32) for t in (rc, kc, vc))
         diff = ec[..., :, None, :] - lc[..., None, :, :]     # (B,H,C,C,hd)
         dec = torch.exp(torch.where(tri[..., None] > 0, diff, -torch.inf))
         # a product and a sum over c: as one einsum, (t, j) become batch
@@ -421,6 +423,19 @@ def _rwkv_chunk_scan(r, k, v, w, u, chunk: int):
         k_hat = kf * torch.exp(lc_last - lc)
         state = (state * torch.exp(lc_last[..., 0, :])[..., :, None]
                  + torch.einsum("bhjc,bhjd->bhcd", k_hat, vf))
+        return o, state
+
+    remat = remat_body and torch.is_grad_enabled() and r.requires_grad
+    state = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=r.device)
+    outs = []
+    for c in range(n):
+        args = (state, rs[:, :, c], ks[:, :, c], vs[:, :, c], cum[:, :, c],
+                exc[:, :, c])
+        if remat:
+            o, state = torch.utils.checkpoint.checkpoint(
+                body, *args, use_reentrant=False)
+        else:
+            o, state = body(*args)
         outs.append(o)
     return torch.cat(outs, dim=2), state
 
@@ -475,7 +490,8 @@ def rwkv6_block(x: torch.Tensor, p: dict, cfg: ArchConfig,
         if s_len % chunk:
             chunk = s_len
         o, s_fin = _rwkv_chunk_scan(heads(r), heads(k), heads(v), heads(w),
-                                    u[None, :, None, :], chunk)
+                                    u[None, :, None, :], chunk,
+                                    remat_body=cfg.rwkv_remat_chunk)
         new_state = ({"last_x": x[:, -1, :], "S": s_fin}
                      if return_state else None)
     else:

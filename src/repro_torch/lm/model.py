@@ -1,11 +1,14 @@
-"""Model construction: init / prefill / decode from an ArchConfig (port of
-``repro/lm/model.py``, the serving subset).
+"""Model construction: init / train / prefill / decode from an ArchConfig
+(port of ``repro/lm/model.py`` on one device).
 
 Public surface (functions of param and cache trees):
 
     init_params(generator, cfg, device=)   real parameters, seeded
     radixify_params(params, cfg)           paper-technique serving weights
     kmajor_params(params)                  their levels in the kernel's layout
+    forward_train(params, batch, cfg)      -> logits, labels, aux
+    loss_fn(params, batch, cfg)            -> loss, metrics
+    make_train_step(cfg, opt, clip_norm)   -> step(state, batch)
     init_cache(cfg, batch, max_len, device=)
     prefill(params, batch, cfg, max_len=, true_len=) -> last_logits, caches
     decode_step(params, caches, tokens, pos, cfg)    -> logits, caches
@@ -24,32 +27,30 @@ shared experts); RoPE, M-RoPE, learned or no position embedding; token
 or embedding inputs (``batch["embeds"]``); and Whisper's encoder-decoder:
 a non-causal encoder over ``batch["enc_embeds"]`` and a cross-attention
 step in every decoder layer, whose cache is ``{"self", "cross"}``.
-Training waits (ROADMAP.md).
+Training takes gradients by autograd through the same blocks (the
+reference has ``jax.value_and_grad``); ``cfg.remat`` recomputes each
+layer in the backward (``torch.utils.checkpoint``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.api import _resolve_device
 from repro_torch.lm import blocks, moe as moe_lib, radix as radix_lib
 from repro_torch.lm.config import ArchConfig, segments_for
 from repro_torch.lm.radix import torch_dtype
+from repro_torch.train import optim as optim_lib
+from repro_torch.train import tree as tree_lib
+from repro_torch.train.tree import tree_map
 
-__all__ = ["init_params", "radixify_params", "kmajor_params", "init_cache",
+__all__ = ["init_params", "radixify_params", "kmajor_params",
+           "forward_train", "loss_fn", "make_train_step", "init_cache",
            "prefill", "decode_step", "tree_map"]
-
-
-def tree_map(fn: Callable, tree):
-    """Apply ``fn`` to every tensor leaf of a dict/tuple/list tree."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
 
 
 def _stack_trees(trees):
@@ -341,14 +342,15 @@ def kmajor_params(params):
 
 
 def _apply_layer(h, lp, btype: str, cfg: ArchConfig, positions, mode: str,
-                 cache=None, pos=None, max_len: int = 0, enc_h=None):
+                 cache=None, pos=None, max_len: int = 0, enc_h=None,
+                 causal: bool = True):
     """One block: temporal mix (+ cross-attention over the encoder's
     output ``enc_h`` in a layer that has ``xattn``) + channel mix, each
-    with its pre-norm and residual.  ``mode="prefill"`` returns the
-    layer's new cache; ``"decode"`` consumes ``cache`` and returns the
-    block's new state (an attention cache is updated in place and
-    returned as is); ``"encode"`` is the encoder's non-causal attention
-    block, with no cache.
+    with its pre-norm and residual.  ``mode="train"`` runs the sequence
+    with no cache (``causal=False``: the encoder's attention);
+    ``"prefill"`` returns the layer's new cache; ``"decode"`` consumes
+    ``cache`` and returns the block's new state (an attention cache is
+    updated in place and returned as is).
 
     Cache structure by block type:
       attn / local_attn : {"k", "v"(, "k_scale", "v_scale")} of length
@@ -358,19 +360,21 @@ def _apply_layer(h, lp, btype: str, cfg: ArchConfig, positions, mode: str,
       rwkv6             : {"mix": {"last_x", "S"}, "cmix": {"last_x"}}
       whisper decoder   : {"self": <attn>, "cross": {"k", "v"}}, the
                           cross K/V float (B, encoder_ctx, Hkv, hd)
-    Returns (h, cache)."""
-    if mode not in ("prefill", "decode", "encode"):
-        raise ValueError(f"mode must be 'prefill', 'decode' or 'encode', "
+    Returns (h, aux, cache): ``aux`` is a MoE layer's router loss (0.0
+    elsewhere), ``cache`` None in train mode."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode must be 'train', 'prefill' or 'decode', "
                          f"got {mode!r}")
     prefill = mode == "prefill"
+    stateful = mode != "train"
     has_x = "xattn" in lp
     hn = blocks.norm(h, lp["ln1"], cfg.norm)
     new_mix = None
     if btype in ("attn", "local_attn"):
         window = cfg.window if btype == "local_attn" else 0
-        if mode == "encode":
+        if not stateful:
             mix = blocks.attention(hn, lp["mix"], cfg, positions,
-                                   causal=False)
+                                   window=window, causal=causal)
         elif prefill:
             mix, (k, v) = blocks.attention(hn, lp["mix"], cfg, positions,
                                            window=window, return_kv=True)
@@ -390,45 +394,56 @@ def _apply_layer(h, lp, btype: str, cfg: ArchConfig, positions, mode: str,
                 hn, lp["mix"], cfg, cache["self"] if has_x else cache, pos,
                 window=window)
     elif btype == "rglru":
-        mix, new_mix = blocks.rglru_block(
-            hn, lp["mix"], cfg, state=None if prefill else cache,
-            return_state=True)
+        if stateful:
+            mix, new_mix = blocks.rglru_block(
+                hn, lp["mix"], cfg, state=None if prefill else cache,
+                return_state=True)
+        else:
+            mix = blocks.rglru_block(hn, lp["mix"], cfg)
     elif btype == "rwkv6":
-        mix, new_mix = blocks.rwkv6_block(
-            hn, lp["mix"], cfg, state=None if prefill else cache["mix"],
-            return_state=True)
+        if stateful:
+            mix, new_mix = blocks.rwkv6_block(
+                hn, lp["mix"], cfg, state=None if prefill else cache["mix"],
+                return_state=True)
+        else:
+            mix = blocks.rwkv6_block(hn, lp["mix"], cfg)
     else:
         raise ValueError(btype)
     h = h + mix
 
     if has_x:           # whisper decoder: cross-attention before the FFN
         hx = blocks.norm(h, lp["lnx"], cfg.norm)
-        if prefill:
+        if mode == "decode":
+            cross = cache["cross"]
+            xmix, _ = blocks.decode_attention(hx, lp["xattn"], cfg, cross,
+                                              pos, cross=True)
+        else:
             k_enc = torch.einsum("bsd,dhk->bshk", enc_h, lp["xattn"]["wk"])
             v_enc = torch.einsum("bsd,dhk->bshk", enc_h, lp["xattn"]["wv"])
             xmix = blocks.attention(hx, lp["xattn"], cfg, positions,
                                     cross_kv=(k_enc, v_enc))
             cross = {"k": k_enc.to(_dt(cfg)), "v": v_enc.to(_dt(cfg))}
-        else:
-            cross = cache["cross"]
-            xmix, _ = blocks.decode_attention(hx, lp["xattn"], cfg, cross,
-                                              pos, cross=True)
         h = h + xmix
-        new_mix = {"self": new_mix, "cross": cross}
+        if stateful:
+            new_mix = {"self": new_mix, "cross": cross}
 
     hn = blocks.norm(h, lp["ln2"], cfg.norm)
+    aux = 0.0
     if btype == "rwkv6":
-        y, new_cm = blocks.rwkv6_channel_mix(
-            hn, lp["ffn"], state=None if prefill else cache["cmix"],
-            return_state=True)
-        new_mix = {"mix": new_mix, "cmix": new_cm}
+        if stateful:
+            y, new_cm = blocks.rwkv6_channel_mix(
+                hn, lp["ffn"], state=None if prefill else cache["cmix"],
+                return_state=True)
+            new_mix = {"mix": new_mix, "cmix": new_cm}
+        else:
+            y = blocks.rwkv6_channel_mix(hn, lp["ffn"])
     elif cfg.moe is not None:
-        y, _ = moe_lib.moe_ffn(hn, lp["ffn"], cfg)
+        y, aux = moe_lib.moe_ffn(hn, lp["ffn"], cfg)
         if cfg.moe.num_shared:
             y = y + blocks.ffn(hn, lp["ffn"]["shared"], cfg)
     else:
         y = blocks.ffn(hn, lp["ffn"], cfg)
-    return h + y, new_mix
+    return h + y, aux, new_mix
 
 
 def _write_back(dst, src) -> None:
@@ -442,27 +457,50 @@ def _write_back(dst, src) -> None:
         dst.copy_(src)
 
 
+def _unstack(tree, count: int) -> list:
+    """A dict tree of stacked (count, ...) leaves -> ``count`` trees of
+    their slices, one ``unbind`` a leaf: its backward stacks the layers'
+    gradients once, where indexing each layer would add a zero-filled
+    stacked gradient per layer."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, count) for k, v in tree.items()}
+        return [{k: per[k][j] for k in tree} for j in range(count)]
+    return list(tree.unbind(0))
+
+
 def _backbone(params, h, cfg: ArchConfig, positions, mode: str,
               caches=None, pos=None, max_len: int = 0, enc_h=None,
-              segments_key: str = "segments", segments=None):
+              segments_key: str = "segments", segments=None,
+              causal: bool = True):
     """Every layer of ``params[segments_key]`` (laid out as ``segments``,
-    default ``segments_for(cfg)``) in order.  Returns (h, caches): prefill
-    builds stacked caches; decode updates ``caches`` in place and returns
-    it; encode has none."""
+    default ``segments_for(cfg)``) in order.  Returns (h, aux, caches):
+    ``aux`` the layers' summed router losses (float32); prefill builds
+    stacked caches, decode updates ``caches`` in place and returns it,
+    train has none.  In train mode with ``cfg.remat``, each layer runs
+    under ``torch.utils.checkpoint`` (its activations recomputed in the
+    backward; the values do not change)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     new_caches = []
     for i, (pattern, count) in enumerate(segments or segments_for(cfg)):
-        seg_p = params[segments_key][i]
+        seg_p = [_unstack(p, count) for p in params[segments_key][i]]
         seg_c = caches[i] if caches is not None else None
         per_layer = []
         for j in range(count):
             ncs = []
             for si, btype in enumerate(pattern):
-                lp = tree_map(lambda x: x[j], seg_p[si])
+                lp = seg_p[si][j]
                 c_in = (tree_map(lambda x: x[j], seg_c[si])
                         if seg_c is not None else None)
-                h, nc = _apply_layer(h, lp, btype, cfg, positions, mode,
-                                     cache=c_in, pos=pos, max_len=max_len,
-                                     enc_h=enc_h)
+                kw = dict(cache=c_in, pos=pos, max_len=max_len, enc_h=enc_h,
+                          causal=causal)
+                if mode == "train" and cfg.remat and h.requires_grad:
+                    h, a, nc = torch.utils.checkpoint.checkpoint(
+                        _apply_layer, h, lp, btype, cfg, positions, mode,
+                        use_reentrant=False, **kw)
+                else:
+                    h, a, nc = _apply_layer(h, lp, btype, cfg, positions,
+                                            mode, **kw)
+                aux_total = aux_total + a
                 if mode == "decode":
                     _write_back(c_in, nc)
                 ncs.append(nc)
@@ -471,7 +509,7 @@ def _backbone(params, h, cfg: ArchConfig, positions, mode: str,
             new_caches.append(seg_c)
         elif mode == "prefill":
             new_caches.append(_stack_trees(per_layer))
-    return h, tuple(new_caches)
+    return h, aux_total, tuple(new_caches)
 
 
 # ---------------------------------------------------------------------------
@@ -527,10 +565,99 @@ def _encode_whisper(params, enc_embeds, cfg: ArchConfig):
     dt = _dt(cfg)
     h = enc_embeds.to(dt) + params["enc_pos_embed"][None].to(dt)
     pos = _positions(cfg, h.shape[0], h.shape[1], device=h.device)
-    h, _ = _backbone(params, h, cfg, pos, "encode",
-                     segments_key="enc_segments",
-                     segments=((("attn",), cfg.encoder_layers),))
+    h, _, _ = _backbone(params, h, cfg, pos, "train",
+                        segments_key="enc_segments",
+                        segments=((("attn",), cfg.encoder_layers),),
+                        causal=False)
     return blocks.norm(h, params["enc_final_norm"], cfg.norm)
+
+
+# ---------------------------------------------------------------------------
+# Training: forward, loss, train step.
+# ---------------------------------------------------------------------------
+
+
+def forward_train(params, batch, cfg: ArchConfig):
+    """Teacher-forced forward over a batch dict (as :func:`prefill` takes
+    it, ``labels`` too for an embedding-input arch).  Returns (logits
+    (B, S, V), labels (B, S), aux): ``aux`` the MoE layers' summed router
+    loss (0 without MoE)."""
+    h, labels = _input_h(params, batch, cfg)
+    enc_h = None
+    if cfg.encoder_layers:
+        enc_h = _encode_whisper(params, batch["enc_embeds"], cfg)
+    positions = _positions(cfg, h.shape[0], h.shape[1], device=h.device)
+    h, aux, _ = _backbone(params, h, cfg, positions, "train", enc_h=enc_h)
+    h = blocks.norm(h, params["final_norm"], cfg.norm)
+    return _lm_head(h, params, cfg), labels, aux
+
+
+def loss_fn(params, batch, cfg: ArchConfig, aux_weight: float = 0.01):
+    """(loss, {"ce", "aux", "acc"}): token cross-entropy in float32 plus
+    ``aux_weight`` times the router loss.  The gold logit is gathered
+    where the reference contracts a one-hot (the same value for finite
+    logits, without a (B, S, V) one-hot: 4.19 GB at Gemma-2B's vocab and
+    8 x 512 tokens)."""
+    logits, labels, aux = forward_train(params, batch, cfg)
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    ce = (lse - gold).mean()
+    loss = ce + aux_weight * aux
+    acc = (lf.argmax(-1) == labels).to(torch.float32).mean()
+    return loss, {"ce": ce, "aux": aux, "acc": acc}
+
+
+def make_train_step(cfg: ArchConfig, opt: optim_lib.Optimizer,
+                    clip_norm: float = 1.0):
+    """Returns ``step(state, batch) -> (state, metrics)`` with state
+    ``{"params", "opt", "step"}``: gradients by autograd, clipped to
+    ``clip_norm`` global norm, one ``opt`` update.  ``cfg.grad_accum``
+    = A > 1 splits the batch into A microbatches run one after another;
+    their gradients are summed in float32 and divided by A."""
+
+    def grads_of(params, batch):
+        ps = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss, metrics = loss_fn(ps, batch, cfg)
+        grads = torch.autograd.grad(loss, tree_lib.leaves(ps),
+                                    allow_unused=True, materialize_grads=True)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return loss.detach(), metrics, tree_lib.unflatten(ps, grads)
+
+    def step(state, batch):
+        params = state["params"]
+        a = cfg.grad_accum
+        if a == 1:
+            loss, metrics, grads = grads_of(params, batch)
+        else:
+            grads = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            lsum, ms = 0.0, []
+            for i in range(a):
+                mb = {k: v.reshape((a, v.shape[0] // a) + tuple(v.shape[1:]))[i]
+                      for k, v in batch.items()}
+                l, m, g = grads_of(params, mb)
+                grads = tree_map(torch.add, grads, g)
+                lsum = lsum + l
+                ms.append(m)
+            div = torch.tensor(float(a), dtype=torch.float32,
+                               device=lsum.device)
+            grads = tree_map(lambda g: g / div, grads)
+            loss = lsum / div
+            metrics = {k: torch.stack([m[k] for m in ms]).mean()
+                       for k in ms[0]}
+        if clip_norm:
+            grads, gnorm = optim_lib.clip_by_global_norm(grads, clip_norm)
+        else:
+            gnorm = optim_lib.global_norm(grads)
+        updates, new_opt = opt.update(grads, state["opt"], params)
+        del grads                   # before the new parameters exist
+        new_params = optim_lib.apply_updates(params, updates)
+        metrics = dict(metrics, loss=loss, grad_norm=gnorm)
+        return {"params": new_params, "opt": new_opt,
+                "step": state["step"] + 1}, metrics
+
+    return step
 
 
 # ---------------------------------------------------------------------------
@@ -604,8 +731,8 @@ def prefill(params, batch, cfg: ArchConfig, max_len: int = 0, *,
     if cfg.encoder_layers:
         enc_h = _encode_whisper(params, batch["enc_embeds"], cfg)
     positions = _positions(cfg, b, s_len, device=h.device)
-    h, caches = _backbone(params, h, cfg, positions, "prefill",
-                          max_len=max_len, enc_h=enc_h)
+    h, _, caches = _backbone(params, h, cfg, positions, "prefill",
+                             max_len=max_len, enc_h=enc_h)
     # ring-buffer alignment: position p must live at slot p % window
     caches = _roll_window_caches(caches, cfg, s_len)
     idx = s_len if true_len is None else int(true_len)
@@ -646,8 +773,8 @@ def decode_step(params, caches, tokens, pos, cfg: ArchConfig):
         h = _embed(params, tokens, cfg)
     if cfg.pos_embed == "learned":
         h = h + params["pos_embed"][pos:pos + 1][None].to(h.dtype)
-    h, caches = _backbone(params, h, cfg, None, "decode", caches=caches,
-                          pos=pos)
+    h, _, caches = _backbone(params, h, cfg, None, "decode",
+                             caches=caches, pos=pos)
     h = blocks.norm(h, params["final_norm"], cfg.norm)
     logits = _lm_head(h, params, cfg)[:, 0]
     return logits, caches

@@ -1,8 +1,9 @@
-"""Runtime fault tolerance (port of ``repro/runtime``): stragglers and
-serving resilience (admission, deadlines, quarantine, chaos).  Elastic
-re-sharding and ``RestartableRun`` wait for the training slice."""
+"""Runtime fault tolerance (port of ``repro/runtime``): stragglers,
+checkpoint/restart (``RestartableRun``) and serving resilience
+(admission, deadlines, quarantine, chaos).  Elastic re-sharding waits
+for multi-GPU (ROADMAP.md, queue 1 item 7)."""
 
-from repro_torch.runtime.restart import FaultInjected
+from repro_torch.runtime.restart import FaultInjected, RestartableRun
 from repro_torch.runtime.straggler import MitigationPolicy, StragglerMonitor
 from repro_torch.runtime.resilience import (
     AdmissionError,
@@ -18,6 +19,7 @@ from repro_torch.runtime.resilience import (
 
 __all__ = [
     "FaultInjected",
+    "RestartableRun",
     "StragglerMonitor",
     "MitigationPolicy",
     "ServeError",
