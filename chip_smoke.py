@@ -166,7 +166,7 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` and runs:
    ``make_queue`` at batch 8, ``max_len`` 512, buckets (64, 256), prompts
    of 200 tokens and 16 new: four servers over one weight tree (kernels
    fused; fused with ``autotune=True``; bitserial with ``radix_attn``;
-   ``backend="jnp"``) take the same 16 seeded requests of 1-8 prompts.
+   ``backend="jnp"``) take the same 8 seeded requests of 1-8 prompts.
    Every ticket resolves; the launches equal ``lm_launches`` (plus the
    QKV/out projections under ``radix_attn``) per ``generate`` (a flush
    of more prompts than the batch runs one per chunk of it), none on
@@ -180,7 +180,7 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` and runs:
    memory per server;
 15. the PPA planner: ``api.autoconfigure`` over VGG-11 (224 x 224 x 3,
    100 classes, avg pool, 32 calibration images) on the card and on the
-   CPU, ``t_range=(3, 4, 5, 6)``, ``units=(1, 2, 4, 8)``, floor 0.5: the
+   CPU, ``t_range=(3, 4)``, ``units=(1, 2, 4, 8)``, floor 0.5: the
    two plans equal (candidates, accuracies, modeled PPA, rejections,
    frontier, winner, summary); the winner (or, with none feasible, the
    most accurate priced candidate) compiled on the card by
@@ -198,11 +198,15 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` and runs:
    card equal to the CPU's (``w_q``, ``b_int``, ``mult``); compiled fused
    and bitserial with buckets (1, 8): 8 held-out images' logits
    ``torch.equal`` to both oracles, SNN accuracy over the same 2048
-   images, launches = layers x executions.  VGG-11 (224 x 224 x 3, 100
+   images, launches = layers x executions; a second ``train_ann`` run of
+   the same seed gives ``torch.equal`` weights, the same conversion and
+   the same SNN accuracy (training runs with deterministic kernels,
+   ``train.determinism``).  VGG-11 (224 x 224 x 3, 100
    classes, avg pool) trained with the trainer's step at batch 32 for a
    wall budget on prefetched batches: the loss finite and falling (mean
    of the last 10 steps below the first 10), images/s, a profile of 5
-   steps, ANN accuracy, radix T = 4 fused logits ``torch.equal`` to the
+   steps, the step's ms with and without deterministic kernels, ANN
+   accuracy, radix T = 4 fused logits ``torch.equal`` to the
    oracle and SNN accuracy, whether TTFS and rate logits at T = 4 vary
    across images (recorded).  A restart drill: LeNet-5's step under
    ``runtime.RestartableRun``, 17 steps, a checkpoint every 4, a fault at
@@ -213,12 +217,37 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` and runs:
    checkpoint restored equal to the state bit for bit, a second call
    resumed to 12; ``lm.model.make_train_step`` with adam on one repeated
    batch for 8 steps (the loss falls; step ms, tokens/s, peak memory, a
-   profiled step); the trained weights through ``Accelerator.compile``
+   profiled step, the step's ms with and without deterministic kernels);
+   the trained weights through ``Accelerator.compile``
    fused at (8, 512), bucket 64, 8 x 40 tokens and 8 new: logits
    ``torch.equal`` to the plain path, the launches of ``lm_launches``.
+17. the device mesh on a one-rank NCCL world (``init_process_group`` with
+   a file store, destroyed at the end), the (1, 1) ('data', 'model')
+   mesh: (a) VGG-11 radix T = 4 fused, buckets (1, 8), compiled with
+   ``parallel`` None (phase 4's plan), 1 and 2: one shard a bucket on one
+   card, every request ``torch.equal`` to both oracles and the plane
+   counters equal; ``_compile_plan_impl(..., data_parallel=2)`` raises
+   the reference's error; a ``CNNServer(data_parallel=2)`` stream of 16
+   requests equal to the oracle; ``serve_cnn.main(... --data-parallel
+   2)``; with more cards, k = all of them, images/s.  (b) Kimi-K2 (1 of
+   61 layers; ``ep_psum``, ``ep_a2a``) and Grok-1 (4 of 64; ``tp``,
+   ``ep_psum``) at full width, radix T = 4 fused, 8 x 40 tokens and 3
+   decode steps through ``model.prefill`` / ``decode_step(..., mesh)``
+   against ``ref`` on one device: at capacity factor E / top_k nothing
+   drops, one layer within ``MESH_LAYER_BAR``, each prompt whose routes
+   all match ``ref``'s within ``MESH_LOGITS_BAR`` (routes flipped by
+   bf16 near-ties are counted), the two dispatches' logits equal bit for
+   bit; at the config's 1.25 the dropped entries, the errors, and the
+   capacity buffers' expert products' device ms and share of a decode
+   step beside ``ref``'s.  (c) Gemma-2B whole, bf16, 8 x 512:
+   ``launch.train.train_loop`` over the mesh, 3 adafactor steps, losses
+   and weights ``torch.equal`` to the unsharded loop;
+   ``runtime.elastic.reshard_checkpoint`` restores it bit for bit;
+   prefill and decode over the mesh ``torch.equal`` to the unsharded
+   calls.  The phase prints its wall.
 
 Launch counters are set to 0 just before each path (phases 3-4, 7, 8, 9,
-10, 11, each arch of 12 and 13, 14, 15 and 16) and read just after; so are the GEMM
+10, 11, each arch of 12 and 13, 14, 15, 16 and 17) and read just after; so are the GEMM
 wrappers' per-call weight-transpose counters, which must stay 0 on the
 CNN and LM paths (their plans hold K-major weights).  Every failure raises, so the
 script exits non-zero.
@@ -2817,7 +2846,8 @@ def finish_arch(torch, name, out, params, t_phase, results) -> None:
 # ---------------------------------------------------------------------------
 
 SERVE_LM_PROMPT, SERVE_LM_NEW = 200, 16
-SERVE_LM_REQUESTS, SERVE_LM_DRILL = 16, 8
+# 8 requests a stream (16 before), to keep the script inside its limit
+SERVE_LM_REQUESTS, SERVE_LM_DRILL = 8, 8
 # (server, Accelerator keywords, compile keywords, ArchConfig fields)
 LM_SERVERS = (
     ("kernels fused", dict(dataflow="fused"), {}, {}),
@@ -3116,7 +3146,9 @@ def phase_lm_serving(torch, arch, results) -> None:
 # Phase 15: the PPA planner (api.autoconfigure) on VGG-11, card and CPU.
 # ---------------------------------------------------------------------------
 
-PLAN_KW = dict(accuracy_floor=0.5, t_range=(3, 4, 5, 6), units=(1, 2, 4, 8))
+# T in (3, 4) (3-6 before): the CPU's search took 116 s of the script's
+# limit
+PLAN_KW = dict(accuracy_floor=0.5, t_range=(3, 4), units=(1, 2, 4, 8))
 PLAN_CALIB = 32
 SERVE_CNN_AUTO_ARGV = ["--arch", "vgg11", "--auto", "--pool-mode", "avg",
                        "--accuracy-floor", str(PLAN_KW["accuracy_floor"]),
@@ -3374,6 +3406,36 @@ def serve_trained(torch, api, name, static, qnet, hw, data, dataflows,
     return out
 
 
+def determinism_cost(torch, one, steps: int) -> dict:
+    """Median step ms (host clock, each step ended by a synchronize) of
+    ``one()`` without and with ``train.determinism.deterministic``, in
+    turns: plain, deterministic, deterministic, plain, ``steps`` steps
+    each."""
+    from repro_torch.train.determinism import deterministic
+
+    times = {"plain": [], "deterministic": []}
+    for mode in ("plain", "deterministic", "deterministic", "plain"):
+        for _ in range(steps):
+            sync(torch)
+            t0 = time.perf_counter()
+            if mode == "plain":
+                one()
+            else:
+                with deterministic():
+                    one()
+            sync(torch)
+            times[mode].append((time.perf_counter() - t0) * 1e3)
+    out = {f"{k}_ms": statistics.median(v) for k, v in times.items()}
+    out["cost_ms"] = out["deterministic_ms"] - out["plain_ms"]
+    return out
+
+
+def _determinism_text(d: dict) -> str:
+    return (f"{d['plain_ms']:.2f} ms a step plain, {d['deterministic_ms']:.2f}"
+            f" ms with deterministic kernels ({d['cost_ms']:+.2f} ms; "
+            "medians, host clock)")
+
+
 def phase_train_lenet(torch, np_, results) -> None:
     """LeNet-5 at full width trained by ``train_ann`` on the table-1
     recipe; ANN accuracy >= 0.8; conversion on the card equal to the
@@ -3418,6 +3480,27 @@ def phase_train_lenet(torch, np_, results) -> None:
                images_per_s=cfg.steps * cfg.batch_size / last["wall_s"],
                **serve_trained(torch, api, "lenet5", static, qnet, hw, data,
                                ("fused", "bitserial"), 8, 256))
+    # one seed, one result: a second run's weights, conversion and SNN
+    # accuracy equal the first's (train_ann's deterministic kernels)
+    again, _ = train_ann(static, params, data, cfg, log=None, device=DEV)
+    same = all(torch.equal(a[k], b[k]) for a, b in zip(trained, again)
+               if a is not None for k in a)
+    q2 = api.convert(static, again, calib.to(DEV), encoding=RadixEncoding(T))
+    same_q = all(a is None or all(
+        (a[k] is None and b[k] is None) or torch.equal(a[k], b[k])
+        for k in ("w_q", "b_int", "mult"))
+        for a, b in zip(qnet.qlayers, q2.qlayers))
+    exe2 = api.Accelerator(dataflow="fused", device=DEV).compile(
+        q2, hw, buckets=BUCKETS)
+    acc2 = snn_accuracy(torch, exe2, data, 8, 256)
+    check(same and same_q and acc2 == out["fused"]["snn_acc"],
+          f"lenet5: a second train_ann run of seed {SEED} differs: weights "
+          f"equal {same}, converted equal {same_q}, SNN accuracy {acc2} vs "
+          f"{out['fused']['snn_acc']}")
+    out["second_run"] = dict(weights_equal=same, converted_equal=same_q,
+                             snn_acc=acc2)
+    log(f"[train] lenet5: a second train_ann run of the same seed: weights "
+        f"torch.equal, conversion equal, SNN accuracy {acc2:.4f} equal")
     out["phase_s"] = time.perf_counter() - t0
     results.setdefault("training", {})["lenet5"] = out
     log(f"[train] lenet5: {cfg.steps} steps of {cfg.batch_size} in "
@@ -3481,6 +3564,7 @@ def phase_train_vgg(torch, np_, results) -> None:
 
     one()
     prof = train_profile(torch, one, 5)
+    det_ms = determinism_cost(torch, one, 5)
     trainable = state[0]
     it = iter(trainable)
     trained = [next(it) if p is not None else None for p in params]
@@ -3491,6 +3575,7 @@ def phase_train_vgg(torch, np_, results) -> None:
     out = dict(steps=len(losses), train_wall_s=wall,
                images_per_s=len(losses) * cfg.batch_size / wall,
                loss_first10=first, loss_last10=last, profile=prof,
+               determinism=det_ms,
                ann_acc=ann_acc,
                **serve_trained(torch, api, "vgg11", static, qnet, hw, data,
                                ("fused",), v["eval_batches"],
@@ -3506,6 +3591,8 @@ def phase_train_vgg(torch, np_, results) -> None:
         f"{wall:.1f} s ({out['images_per_s']:.1f} images/s with the "
         f"prefetched host batches), loss {first:.4f} -> {last:.4f} (mean of "
         f"the first and last 10); {_profile_text(prof)}")
+    log(f"[train] vgg11 step on one repeated batch: "
+        f"{_determinism_text(det_ms)}")
     log(f"[train] vgg11: ANN accuracy {ann_acc:.4f}, SNN (radix T={T}, "
         f"fused) {out['fused']['snn_acc']:.4f} over "
         f"{v['eval_batches'] * v['eval_batch_size']} held-out images; "
@@ -3669,6 +3756,8 @@ def phase_train_lm(torch, results) -> None:
         st[0], _ = step(st[0], batch)
 
     out["profile"] = train_profile(torch, one, 1)
+    out["determinism"] = determinism_cost(torch, one, 2)
+    log(f"[train] gemma_2b adam step: {_determinism_text(out['determinism'])}")
     log(f"[train] gemma_2b make_train_step (adam, one repeated batch): "
         f"losses {[round(x, 4) for x in losses]}; step {step_ms:.1f} ms "
         f"(median of steps 2-{lt['adam_steps']}, host clock), "
@@ -3725,11 +3814,430 @@ def phase_training(torch, np_, results) -> None:
     log(f"[train] phase 16: {results['training']['phase_s']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the device mesh, on a world of one rank (NCCL).
+# ---------------------------------------------------------------------------
+
+MESH_SERVE_REQUESTS = 16
+# (arch, layers as in phase 13, the mesh dispatches it runs)
+# (arch, layers as in phase 13, the mesh dispatches it runs: on (1, 1)
+# the two give the same logits bit for bit)
+MESH_MOE = (("kimi_k2_1t_a32b", 1, ("ep_psum", "ep_a2a")),
+            ("grok_1_314b", 4, ("tp", "ep_psum")))
+MESH_REQUEST = (8, 40, 4)      # (prompts, tokens, logits steps)
+# bf16 at full width: the capacity combine rounds each gate product and
+# sum to bf16, as the reference's _combine does (y_buf.dtype), where ref
+# contracts in float32; the CPU parity test holds float32 at 1e-5
+MESH_LAYER_BAR = 2e-2          # relative L2, one MoE layer, nothing dropped
+# relative L2 of each prompt's logits at every step, for the prompts whose
+# tokens the dispatch routed to the experts ref routes them to in every
+# layer and step: past a MoE layer bf16 rounding can flip a near-tie of
+# the next layer's random router, and a flipped route changes that
+# prompt's result (attention never mixes prompts); flips are counted
+MESH_LOGITS_BAR = 5e-2
+MESH_TRAIN = dict(steps=3, batch_size=8, seq_len=512, lr=3e-3)
+
+
+def start_world(torch, tmp: str):
+    """A process group of one rank over NCCL (its store a file under
+    ``tmp``) and the (1, 1) ('data', 'model') mesh over it."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(Path(tmp) / "store"), 1), rank=0, world_size=1)
+    return make_test_mesh(data=1, model=1)
+
+
+def rel_l2(torch, got, want) -> float:
+    g, w = got.double(), want.double()
+    return float(torch.linalg.vector_norm(g - w)
+                 / torch.linalg.vector_norm(w))
+
+
+def phase_mesh_cnn(torch, np_, run, hw, results) -> None:
+    """(a) VGG-11 radix T = 4 fused, buckets (1, 8): ``compile`` with
+    ``parallel`` None (phase 4's plan), 1 and 2 serve every request
+    ``torch.equal`` to both oracles with equal plane counters;
+    ``_compile_plan_impl(..., data_parallel=2)`` raises the reference's
+    error on one card; a ``CNNServer(data_parallel=2)`` stream equal to
+    the oracle; ``serve_cnn.main(... --data-parallel 2)``; with more than
+    one card, k = device count, images/s."""
+    from repro_torch import api
+    from repro_torch.core import engine
+    from repro_torch.launch import serve_cnn
+
+    qnet, x, want = run["qnet"], run["x"], run["want"]
+    check(torch.equal(api.oracle(qnet, x, mode="packed"), want),
+          "mesh cnn: packed oracle != snn oracle")
+    ndev = torch.cuda.device_count()
+    out = dict(devices=ndev, plans={})
+    ref = None
+    for par in (None, 1, 2):
+        exe = api.Accelerator(dataflow="fused", device=DEV).compile(
+            qnet, hw, buckets=BUCKETS, parallel=par)
+        rounds = serve_rounds(torch, exe, x, want, f"vgg11 parallel={par}")
+        st = {k: rounds[1][k] for k in ("plane_passes_skipped",
+                                        "plane_passes_total", "executions")}
+        shards = [exe.plan_for(b).data_parallel for b in BUCKETS]
+        check(shards == [math.gcd(b, min(par or ndev, ndev))
+                         for b in BUCKETS],
+              f"vgg11 parallel={par}: shards {shards}")
+        ref = ref or st
+        check(st == ref, f"vgg11 parallel={par}: counters {st} != {ref}")
+        out["plans"][str(par)] = dict(shards=shards, **st)
+    try:
+        engine._compile_plan_impl(qnet, (8,) + tuple(hw), method="fused",
+                                  device=DEV, data_parallel=ndev + 1)
+        check(False, "data_parallel above the devices did not raise")
+    except ValueError as e:
+        want_msg = (f"data_parallel={ndev + 1} exceeds {ndev} visible "
+                    "devices")
+        check(str(e) == want_msg, f"mesh cnn: {e!r} != {want_msg!r}")
+        out["error"] = str(e)
+    server = serve_cnn.CNNServer(qnet, hw, buckets=BUCKETS,
+                                 dataflow="fused", device=DEV,
+                                 data_parallel=2)
+    server.warmup()
+    sizes = np_.random.default_rng(SEED + 17).integers(1, 5,
+                                                       MESH_SERVE_REQUESTS)
+    rng = np_.random.default_rng(SEED + 11)
+    images = [rng.uniform(0, 1, (int(n),) + tuple(hw)).astype(np_.float32)
+              for n in sizes]
+    out["stream"] = serve_stream(
+        torch, np_, server, serve_cnn.MicroBatchQueue(server), sizes,
+        oracle_rows(torch, np_, api, qnet, images),
+        "VGG-11 radix fused, data_parallel=2")
+    cli = serve_cnn.main(CLI_ARGV + ["--data-parallel", "2"])
+    check(cli["ok"] == cli["requests"] and cli["stats"]["failures"] == 0,
+          f"serve_cnn.main --data-parallel 2: {cli['ok']} of "
+          f"{cli['requests']}")
+    out["cli_requests"] = cli["requests"]
+    if ndev > 1:
+        exe = api.Accelerator(dataflow="fused", device=DEV).compile(
+            qnet, hw, buckets=(8 * ndev,), parallel=ndev)
+        xb = x[:1].expand((8 * ndev,) + tuple(x.shape[1:])).contiguous()
+        ms = host_ms(torch, lambda: exe(xb), reps=10)
+        out["multi_card"] = dict(k=ndev, ms=ms,
+                                 images_per_s=8 * ndev / ms * 1e3)
+    results.setdefault("mesh", {})["cnn"] = out
+    log(f"[mesh] vgg11 radix fused: parallel None / 1 / 2 serve "
+        f"{REQUESTS} x 2 rounds equal to both oracles, plane counters "
+        f"{ref} equal, shards per bucket "
+        f"{[out['plans'][k]['shards'] for k in out['plans']]}; "
+        f"data_parallel={ndev + 1}: {out['error']!r}; CNNServer "
+        f"data_parallel=2 stream equal to the oracle; serve_cnn.main "
+        f"--data-parallel 2: {cli['requests']} requests; {ndev} card(s)")
+
+
+def moe_layer_check(torch, moe, lp, cfg, mesh, impl, cf, n, s_len) -> dict:
+    """One MoE layer on seeded hidden states (n, s_len, d): the dispatch
+    ``impl`` at capacity factor ``cf`` against ``ref``: relative L2, the
+    (token, expert) entries dropped, and at decode (s_len 1) the device
+    ms of the capacity buffers' expert products and of ``ref``'s dense
+    ones."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 171)
+    x = torch.randn((n, s_len, cfg.d_model), generator=gen, device=DEV).to(
+        lp["w_gate"].dtype)
+    c = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, impl=impl, capacity_factor=cf))
+    with torch.inference_mode():
+        want, _ = moe._moe_ref(x, lp, cfg)
+        got, _ = moe.moe_ffn(x, lp, c, mesh, decode=s_len == 1)
+        x2 = x.reshape(-1, cfg.d_model)
+        gates, idx, _ = moe._router(x2, lp["router"], c.moe)
+        cap = moe._capacity(x2.shape[0], c.moe)
+        buf, meta = moe._dispatch(x2, idx, gates, 0, c.moe.num_experts, cap)
+        row = dict(rel_l2=rel_l2(torch, got, want), cap=cap,
+                   dropped=int((~meta[2]).sum()), entries=int(idx.numel()))
+        if s_len == 1:
+            row["expert_ms"] = device_ms(torch, lambda: moe._expert_ffn(
+                buf, lp["w_gate"], lp["w_up"], lp["w_down"], c), None,
+                reps=3)
+            row["ref_expert_ms"] = device_ms(
+                torch, lambda: moe.expert_outputs(x2, lp, cfg), None, reps=3)
+    return row
+
+
+class moe_trace:
+    """Within the ``with`` block, each router call of ``moe`` appends its
+    tokens' top-k expert sets to ``routes``, and each capacity dispatch
+    adds its (token, expert) entries and the dropped ones to ``entries``
+    and ``dropped`` (``moe._router`` and ``moe._dispatch`` wrapped, and
+    restored after)."""
+
+    def __init__(self, moe):
+        self.moe = moe
+        self.trace = dict(dropped=0, entries=0, routes=[])
+
+    def __enter__(self):
+        router, dispatch, trace = (self.moe._router, self.moe._dispatch,
+                                   self.trace)
+
+        def routed(x, wr, m):
+            gates, idx, probs = router(x, wr, m)
+            trace["routes"].append(idx.sort(-1).values)
+            return gates, idx, probs
+
+        def counted(x2, idx, gates, e_lo, e_hi, cap):
+            buf, meta = dispatch(x2, idx, gates, e_lo, e_hi, cap)
+            valid = (idx >= e_lo) & (idx < e_hi)
+            trace["entries"] += int(valid.sum())
+            trace["dropped"] += int(valid.sum()) - int(meta[2].sum())
+            return buf, meta
+
+        self.saved = (router, dispatch)
+        self.moe._router, self.moe._dispatch = routed, counted
+        return trace
+
+    def __exit__(self, *exc):
+        self.moe._router, self.moe._dispatch = self.saved
+
+
+def route_flips(torch, a: list, b: list, prompts: int) -> tuple:
+    """Two traces' router calls, in call order: (rows whose top-k expert
+    sets differ, rows, a bool per prompt: any of its rows differed)."""
+    flips, flipped = 0, torch.zeros(prompts, dtype=torch.bool, device=DEV)
+    for x, y in zip(a, b):
+        diff = (x != y).any(-1)
+        flips += int(diff.sum())
+        flipped |= diff.reshape(prompts, -1).any(-1)
+    return flips, sum(x.shape[0] for x in a), flipped
+
+
+def mesh_logits(torch, model, params, cfg, mesh, prompts, tokens) -> list:
+    """Prefill of ``prompts``, then a decode step for each of ``tokens``'
+    columns but the last (fed as given), every step's logits; over
+    ``mesh``, or on one device for None."""
+    n, s0 = prompts.shape
+    with torch.inference_mode():
+        lg, caches = model.prefill(params, {"tokens": torch.nn.functional.pad(
+            prompts, (0, 1))}, cfg, mesh, max_len=s0 + tokens.shape[1])
+        out = [lg]
+        for i in range(tokens.shape[1] - 1):
+            lg, caches = model.decode_step(params, caches, tokens[:, i:i + 1],
+                                           s0 + i, cfg, mesh)
+            out.append(lg)
+    return out
+
+
+def phase_mesh_moe(torch, mesh, name, layers, impls, results) -> None:
+    """(b) A MoE arch at full width, phase 13's depth, radix T = 4 fused
+    (routed experts exact), over the (1, 1) mesh through
+    ``model.prefill`` / ``decode_step``: each named dispatch at capacity
+    factor E / top_k (nothing can drop) within ``MESH_LAYER_BAR`` of
+    ``ref`` on one layer and, end to end, ``MESH_LOGITS_BAR`` for each
+    prompt every one of whose routes is ``ref``'s (flips counted);
+    the two dispatches' logits equal bit for bit; at the config's own
+    factor the entries dropped, the relative error, and the capacity
+    buffers' expert products' device ms and share of a decode step
+    beside ``ref``'s."""
+    from repro_torch.lm import model, moe
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(arch_cfg(name, layers), quant="radix",
+                              use_kernel=True, kernel_dataflow="fused")
+    params, n_params = arch_params(torch, model, cfg)
+    params = model.kmajor_params(model.radixify_params(params, cfg))
+    lp = model.tree_map(lambda t: t[0], params["segments"][0][0]["ffn"])
+    m = cfg.moe
+    generous = m.num_experts / m.top_k
+    n, s0, steps = MESH_REQUEST
+    prompts = lm_prompts(torch, cfg, n, s0, SEED + 172)
+    ref_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(m, impl="ref"))
+    feed = lm_prompts(torch, cfg, n, steps, SEED + 174)
+    with moe_trace(moe) as ref_trace:
+        want = mesh_logits(torch, model, params, ref_cfg, None, prompts,
+                           feed)
+    out = dict(layers=cfg.n_layers, params=n_params, cf_config=m.capacity_factor,
+               cf_generous=generous, impls={})
+    logits = {}
+    for impl in impls:
+        row = out["impls"][impl] = {}
+        for tag, cf in (("generous", generous), ("config", m.capacity_factor)):
+            c = dataclasses.replace(cfg, moe=dataclasses.replace(
+                m, impl=impl, capacity_factor=cf))
+            with moe_trace(moe) as trace:
+                got = logits[impl, tag] = mesh_logits(
+                    torch, model, params, c, mesh, prompts, feed)
+            flips, rows, flipped = route_flips(
+                torch, trace["routes"], ref_trace["routes"], n)
+            kept = (~flipped).nonzero()[:, 0]
+            r = row[tag] = dict(
+                served_dropped=trace["dropped"],
+                served_entries=trace["entries"],
+                route_flips=flips, routed_rows=rows,
+                prompts_flipped=int(flipped.sum()),
+                logits_rel_l2=[rel_l2(torch, g, w) for g, w in zip(got, want)],
+                unflipped_rel_l2=[rel_l2(torch, g[kept], w[kept]) if len(kept)
+                                  else None for g, w in zip(got, want)],
+                prefill=moe_layer_check(torch, moe, lp, cfg, mesh, impl, cf,
+                                        n, s0),
+                decode=moe_layer_check(torch, moe, lp, cfg, mesh, impl, cf,
+                                       n, 1))
+            if tag == "generous":
+                check(r["prefill"]["dropped"] == r["decode"]["dropped"]
+                      == r["served_dropped"] == 0
+                      and max(r["prefill"]["rel_l2"], r["decode"]["rel_l2"])
+                      <= MESH_LAYER_BAR
+                      and len(kept) > 0
+                      and max(r["unflipped_rel_l2"]) <= MESH_LOGITS_BAR
+                      and all(bool(torch.isfinite(g).all()) for g in got),
+                      f"{name} {impl} at capacity factor {cf}: {r}")
+        with torch.inference_mode():
+            c = dataclasses.replace(cfg, moe=dataclasses.replace(m, impl=impl))
+            lg, caches = model.prefill(params, {"tokens": torch.nn.functional.pad(
+                prompts, (0, 1))}, c, mesh, max_len=s0 + 1)
+            row["decode_step_ms"] = device_ms(torch, lambda: model.decode_step(
+                params, caches, feed[:, :1], s0, c, mesh), None, reps=3)
+            lg, caches = model.prefill(params, {"tokens": torch.nn.functional.pad(
+                prompts, (0, 1))}, ref_cfg, None, max_len=s0 + 1)
+            row["ref_decode_step_ms"] = device_ms(
+                torch, lambda: model.decode_step(params, caches, feed[:, :1],
+                                                 s0, ref_cfg), None, reps=3)
+            del caches
+        dec = row["config"]["decode"]
+        for key, ms in (("share", dec["expert_ms"]),
+                        ("ref_share", dec["ref_expert_ms"])):
+            step = row["decode_step_ms" if key == "share"
+                       else "ref_decode_step_ms"]
+            row[key] = (None if ms is None or not step
+                        else cfg.n_layers * ms / step)
+        gen = row["generous"]
+        log(f"[mesh] {name} {impl} ({cfg.n_layers} layers): nothing dropped "
+            f"at capacity factor {generous:g}, one layer within "
+            f"{max(gen['prefill']['rel_l2'], gen['decode']['rel_l2']):.2e} "
+            f"of ref; {gen['route_flips']} of {gen['routed_rows']} routes "
+            f"flipped (in {gen['prompts_flipped']} of {n} prompts), the "
+            f"other prompts' logits within "
+            f"{max(gen['unflipped_rel_l2']):.2e}, all within "
+            f"{max(gen['logits_rel_l2']):.2e}; "
+            f"at the config's {m.capacity_factor:g}: the request dropped "
+            f"{row['config']['served_dropped']} of "
+            f"{row['config']['served_entries']} (token, expert) entries over "
+            f"its layers and steps; on seeded states one layer dropped "
+            f"{row['config']['prefill']['dropped']} of "
+            f"{row['config']['prefill']['entries']} (prefill) and "
+            f"{dec['dropped']} of {dec['entries']} (decode) entries, layer "
+            f"error {row['config']['prefill']['rel_l2']:.3e} / "
+            f"{dec['rel_l2']:.3e}, logits "
+            f"{max(row['config']['logits_rel_l2']):.3e}; decode expert "
+            f"products {dec['expert_ms']} ms a layer (cap {dec['cap']}) vs "
+            f"ref's {dec['ref_expert_ms']} ms; decode step "
+            f"{row['decode_step_ms']} ms device vs ref's "
+            f"{row['ref_decode_step_ms']} ms; expert share "
+            f"{row['share']} vs ref's {row['ref_share']}")
+    if len(impls) == 2:
+        same = all(torch.equal(a, b) for tag in ("generous", "config")
+                   for a, b in zip(logits[impls[0], tag],
+                                   logits[impls[1], tag]))
+        check(same, f"{name}: {impls} differ on the (1, 1) mesh")
+        out["impls_equal"] = same
+    del params, lp, logits
+    empty_cache(torch)
+    out["phase_s"] = time.perf_counter() - t0
+    results.setdefault("mesh", {})[name] = out
+
+
+def phase_mesh_train(torch, mesh, results) -> None:
+    """(c) Gemma-2B at full width and depth, bf16, batch 8 x 512:
+    ``train_loop(cfg, mesh)`` for 3 adafactor steps with its state placed
+    on the (1, 1) mesh, losses and weights ``torch.equal`` to the
+    unsharded ``train_loop`` (both with deterministic kernels);
+    ``reshard_checkpoint`` restores its checkpoint onto the mesh bit for
+    bit; prefill and decode through ``prefill`` / ``decode_step(...,
+    mesh)`` on the trained weights equal to the unsharded calls."""
+    import tempfile
+
+    from repro_torch.configs import gemma_2b
+    from repro_torch.launch import train as train_launch
+    from repro_torch.lm import model
+    from repro_torch.parallel import sharding
+    from repro_torch.runtime import elastic
+    from repro_torch.train import optim
+    from repro_torch.train.tree import leaves
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    t0 = time.perf_counter()
+    cfg, mt = gemma_2b.ARCH, MESH_TRAIN
+    kw = dict(steps=mt["steps"], batch_size=mt["batch_size"],
+              seq_len=mt["seq_len"], lr=mt["lr"], seed=SEED, log=log)
+    plain, plain_losses = train_launch.train_loop(cfg, device=DEV, **kw)
+    split = {"plain_train_s": time.perf_counter() - t0}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t1 = time.perf_counter()
+        state, losses = train_launch.train_loop(cfg, mesh, ckpt_dir=tmp, **kw)
+        split["mesh_train_s"] = time.perf_counter() - t1
+        whole = sharding.gather(state)
+        same = losses == plain_losses and all(
+            torch.equal(bits(a), bits(b))
+            for a, b in zip(leaves(whole), leaves(plain)))
+        check(same, f"gemma_2b: train_loop over the mesh {losses} differs "
+              f"from the unsharded {plain_losses}")
+        t1 = time.perf_counter()
+        restored, _ = elastic.reshard_checkpoint(
+            tmp, mt["steps"], cfg, optim.adafactor(mt["lr"]), mesh)
+        split["reshard_s"] = time.perf_counter() - t1
+        back = all(torch.equal(bits(a.full_tensor()), bits(b))
+                   for a, b in zip(leaves(restored), leaves(whole)))
+        check(back, "gemma_2b: reshard_checkpoint differs from the state")
+        del restored, whole
+    n, s0, steps = MESH_REQUEST
+    prompts = lm_prompts(torch, cfg, n, s0, SEED + 173)
+    feed = lm_prompts(torch, cfg, n, steps, SEED + 175)
+    want = mesh_logits(torch, model, plain["params"], cfg, None, prompts, feed)
+    got = mesh_logits(torch, model, state["params"], cfg, mesh, prompts, feed)
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    check(equal, "gemma_2b: prefill/decode over the mesh differ from the "
+          "unsharded calls")
+    del plain, state
+    empty_cache(torch)
+    out = dict(losses=losses, train_equal=same, reshard_equal=back,
+               serve_equal=equal, phase_s=time.perf_counter() - t0, **split)
+    results.setdefault("mesh", {})["gemma_2b"] = out
+    log(f"[mesh] gemma_2b train_loop over the (1, 1) mesh (adafactor, "
+        f"batch {mt['batch_size']} x {mt['seq_len']}, {mt['steps']} steps): "
+        f"losses {[round(x, 4) for x in losses]} and every weight "
+        f"torch.equal to the unsharded run; reshard_checkpoint restores it "
+        f"bit for bit; prefill + {steps - 1} decode steps over the mesh "
+        f"torch.equal to the unsharded calls; {out['phase_s']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in split.items()) + ")")
+
+
+def phase_mesh(torch, np_, run, hw, results) -> None:
+    """Phase 17: (a) CNN data parallel, (b) the MoE mesh dispatches, (c)
+    mesh training and resharding, on a one-rank NCCL world that is
+    destroyed at the end."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        mesh = start_world(torch, tmp)
+        try:
+            phase_mesh_cnn(torch, np_, run, hw, results)
+            for name, layers, impls in MESH_MOE:
+                phase_mesh_moe(torch, mesh, name, layers, impls, results)
+            phase_mesh_train(torch, mesh, results)
+        finally:
+            dist.destroy_process_group()
+    results["mesh"]["phase_s"] = time.perf_counter() - t0
+    log(f"[mesh] phase 17: {results['mesh']['phase_s']:.1f} s")
+
+
 def main() -> int:
     # phase 16's Adam step on Gemma-2B holds ~65 GB (bf16 weights, float32
     # moments, their successors, clipped gradients and updates): without
     # expandable segments the allocator's free blocks fragment past 80 GB
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    # training's deterministic kernels (train.determinism) need cuBLAS's
+    # workspace fixed; set it before the first cuBLAS call of the process
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -3795,6 +4303,7 @@ def main() -> int:
     phase_quantize(torch, results)
     phase_profile(torch, runs, results)
     tune_run = {k: runs["vgg11"][k] for k in ("qnet", "x", "want")}
+    mesh_run = dict(tune_run)
     del runs
     torch.cuda.empty_cache()
 
@@ -3886,6 +4395,13 @@ def main() -> int:
     copies["training"] = transposes()
     log(f"[train] script wall so far {time.perf_counter() - t_start:.1f} s")
 
+    reset_counters()
+    phase_mesh(torch, np, mesh_run, vgg_hw, results)
+    paths["mesh"] = counters()
+    copies["mesh"] = transposes()
+    del mesh_run
+    log(f"[mesh] script wall so far {time.perf_counter() - t_start:.1f} s")
+
     results["path_launches"] = paths
     cnn_kernels = ("radix_conv2d", "radix_matmul")
     for path, names in (("cnn", cnn_kernels),
@@ -3902,6 +4418,7 @@ def main() -> int:
                          if results["planner"]["backend"] == "kernels"
                          else ()),
                         ("training", cnn_kernels + ("radix_decode_attn",)),
+                        ("mesh", cnn_kernels + ("radix_decode_attn",)),
                         *arch_paths.items()):
         check(all(paths[path][k] > 0 for k in names),
               f"a kernel of the {path} path was not launched: "
@@ -3952,7 +4469,7 @@ def main() -> int:
         "device times summed over one VGG-11 batch-8 fused execution's "
         "launches "
         "(launches: every path, phases 3-4, 7, 8, 9, 10, 11, 12, 13, 14, "
-        "15 and 16); "
+        "15, 16 and 17); "
         "decode attention at the LM "
         "decode shape (packed, fused); encoder at 8x224x224x3, T=4")
     print(smi)

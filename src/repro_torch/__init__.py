@@ -16,13 +16,17 @@ JAX nor ``repro``.  Each module names its counterpart:
 * ``repro_torch.api`` <-> ``repro/api.py`` (``Accelerator`` with the
   ``kernels`` and ``jnp`` backends, ``Executable``, ``oracle``,
   ``convert``, the four encoding specs and the support matrix);
-* ``repro_torch.runtime.{resilience,straggler,restart}`` <->
-  ``repro/runtime/*.py`` (all but elastic re-sharding);
+* ``repro_torch.runtime.{resilience,straggler,restart,elastic}`` <->
+  ``repro/runtime/*.py``;
 * ``repro_torch.train.{optim,trainer,checkpoint,compression}`` <->
-  ``repro/train/*.py``; ``repro_torch.data.{synthetic,pipeline}`` <->
-  ``repro/data/*.py`` (all but ``ShardedLoader``);
-* ``repro_torch.launch.{serve,serve_cnn,serve_lm,train}`` <->
-  ``repro/launch/*.py`` (on one device);
+  ``repro/train/*.py`` (``train.determinism`` scopes the deterministic
+  kernels training runs with); ``repro_torch.data.{synthetic,pipeline}``
+  <-> ``repro/data/*.py``;
+* ``repro_torch.parallel.{sharding,zero}`` <-> ``repro/parallel/``
+  (``parallel.collectives``: the mesh's collectives and their
+  gradients);
+* ``repro_torch.launch.{serve,serve_cnn,serve_lm,train,mesh}`` <->
+  ``repro/launch/*.py``;
 * ``repro_torch.carry`` moves float params and converted nets across from
   the JAX package as numpy arrays (the parity tests use it).
 

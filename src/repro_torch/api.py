@@ -38,8 +38,10 @@ searches the (encoding, T, dataflow, units) lattice under accuracy /
 latency / energy constraints on the paper's calibrated FPGA model
 (``repro_torch.ppa``), and ``compile(..., auto=...)`` compiles its winner;
 every CNN :class:`Executable` reports that model's PPA under
-``stats()["ppa"]`` (modeled FPGA numbers, not GPU measurements).  Not
-ported: ``parallel > 1`` (ROADMAP.md).
+``stats()["ppa"]`` (modeled FPGA numbers, not GPU measurements).
+``compile(..., parallel=k)`` splits each kernels bucket over up to k of
+the visible devices (``engine.visible_devices``: every CUDA device, or
+the one CPU); ``None`` means all of them.
 """
 
 from __future__ import annotations
@@ -222,7 +224,7 @@ class Executable:
                  item_shape: Tuple[int, ...], encoding: EncodingSpec,
                  backend: str, dataflow: Optional[str],
                  buckets: Sequence[int], device: torch.device,
-                 autotune: bool = False):
+                 autotune: bool = False, parallel: Optional[int] = None):
         self.qnet = qnet                     # strong ref: exe keeps net alive
         self.item_shape = tuple(int(d) for d in item_shape)
         self.encoding = encoding
@@ -230,12 +232,13 @@ class Executable:
         self.dataflow = dataflow
         self.device = device
         self.autotune = bool(autotune)
+        self.parallel = parallel
         eager = backend == "jnp"
         self._cache = engine.PlanCache(
             buckets, method="jnp" if eager else dataflow, encoding=encoding,
             device=device, compile_fn=(
                 lambda net, shape: _EagerPlan(net, encoding)) if eager
-            else None, autotune=autotune)
+            else None, autotune=autotune, data_parallel=parallel)
         self.buckets = self._cache.buckets
         self._stat_providers: list = []
 
@@ -372,8 +375,9 @@ class Accelerator:
         for ``parallel > 1`` or ``autotune=True`` off the kernels
         backend, as the reference does; with ``auto=``, for a
         ``dataflow`` or ``encoding`` the planner owns, or a search that
-        satisfies no constraint), and ``NotImplementedError`` for
-        ``parallel > 1`` on the kernels backend.
+        satisfies no constraint).  ``parallel`` (None: every visible
+        device) splits each kernels bucket over ``gcd(bucket,
+        min(parallel, devices))`` devices.
         """
         if _is_lm_net(qnet):
             return self._compile_lm(qnet, input_spec, encoding=encoding,
@@ -403,10 +407,6 @@ class Accelerator:
                 f"{self.backend!r} backend (supported: {spec.backends})")
         dataflow = None
         if self.backend == "kernels":
-            if parallel not in (None, 1):
-                raise NotImplementedError(
-                    "parallel > 1 (multi-GPU bucket plans) is not ported "
-                    "yet (ROADMAP.md, queue 1 item 7)")
             dataflow = spec.validate_dataflow(self.dataflow)
         else:
             if parallel not in (None, 1):
@@ -422,7 +422,7 @@ class Accelerator:
         return _attach_ppa(Executable(
             qnet, input_spec, spec, self.backend, dataflow,
             engine.DEFAULT_BUCKETS if buckets is None else buckets, device,
-            autotune=autotune))
+            autotune=autotune, parallel=parallel))
 
     def _compile_lm(self, qnet, input_spec, *, encoding, parallel, buckets,
                     autotune, auto) -> "LMExecutable":

@@ -1,9 +1,9 @@
 """Grok-1 — 314B MoE, 8 experts top-2 [hf:xai-org/grok-1; unverified].
 64L d_model=6144 48H (GQA kv=8) d_ff=32768 vocab=131072.
 
-On one device the MoE runs the dense ``ref`` dispatch (lm/moe.py); the
-reference's mesh dispatch ('tp': 8 experts under a 16-way model axis)
-waits for multi-GPU.
+On one device the MoE runs the dense ``ref`` dispatch (lm/moe.py); over a
+mesh whose 'model' axis the 8 experts do not divide, ``tp`` (d_ff split
+over 'model').
 """
 
 import dataclasses

@@ -11,7 +11,9 @@
   kernels with activations kept as packed uint8 levels between layers.
 * :class:`PlanCache` — the batch-bucket ladder: requests pad up to the
   smallest bucket or chunk by the top one, and the counters prove zero
-  steady-state recompiles.
+  steady-state recompiles.  ``data_parallel`` splits each bucket over
+  the visible devices (:func:`visible_devices`), one per-shard plan per
+  device.
 * :class:`LMPlanCache` — the LM's sequence-bucket ladder: one prefill plan
   per bucket and one decode-step plan.
 * :func:`memory_report` — the paper's ping-pong buffer sizing and memory
@@ -37,7 +39,17 @@ from repro_torch.core import conversion, encoding, layers
 
 __all__ = ["CompiledPlan", "PlanLayerInfo", "PlanCache", "PlanCacheStats",
            "LMPlanCache", "DEFAULT_BUCKETS", "LayerMem", "MemoryReport",
-           "memory_report"]
+           "memory_report", "visible_devices"]
+
+
+def visible_devices(device) -> List[torch.device]:
+    """The devices a data-parallel plan on ``device`` may shard over:
+    every CUDA device for a CUDA plan, the one CPU for a CPU plan."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
 
 
 # ---------------------------------------------------------------------------
@@ -159,6 +171,7 @@ class CompiledPlan:
     layers: List[PlanLayerInfo]
     device: torch.device
     _fn: Callable = dataclasses.field(repr=False)
+    data_parallel: int = 1          # batch shards, one plan per device
     plane_passes_per_call: int = 0
     _skipped: Optional[torch.Tensor] = dataclasses.field(default=None,
                                                          repr=False)
@@ -204,6 +217,7 @@ def _compile_plan_impl(
     spec: Optional[encoding.EncodingSpec] = None,
     device="cpu",
     autotune: bool = False,
+    data_parallel: int = 1,
 ) -> CompiledPlan:
     """Compile ``qnet`` into a radix-kernel pipeline on ``device``.
 
@@ -233,6 +247,10 @@ def _compile_plan_impl(
     winners.  Every candidate gives the same integers.  ``tuned_tiles``
     records per layer the launch that runs: on CUDA its resolved tile and
     split, with the sweep's times when one ran.
+
+    ``data_parallel=k`` (k > 1) builds the plan for a per-device batch of
+    ``input_shape[0] / k`` on each of the first k :func:`visible_devices`
+    and runs them on the batch's slices (:func:`_data_parallel_plan`).
     """
     from repro_torch.kernels import autotune as autotune_mod
     from repro_torch.kernels import gemm, ops as kops
@@ -245,6 +263,11 @@ def _compile_plan_impl(
     device = torch.device(device)
     spec = spec if spec is not None else qnet.spec
     method = spec.validate_dataflow(method)
+    if data_parallel < 1:
+        raise ValueError(f"data_parallel must be >= 1, got {data_parallel}")
+    if data_parallel > 1:
+        return _data_parallel_plan(qnet, input_shape, method, data_parallel,
+                                   spec, device, autotune)
     sched = spec.kernel_schedule()
     T = sched.packed_bits
     periods = sched.periods
@@ -490,6 +513,49 @@ def _compile_plan_impl(
     )
 
 
+def _data_parallel_plan(qnet, input_shape, method, data_parallel: int, spec,
+                        device, autotune: bool) -> CompiledPlan:
+    """One per-device plan per batch shard (the reference's ``shard_map``
+    over the batch axis): shard i runs rows ``[i * b, (i + 1) * b)`` on
+    the i-th visible device with its own plane-occupancy prepass, and the
+    logits and skip counts come back to ``device`` (logits in shard
+    order, skip counts summed)."""
+    batch = int(input_shape[0])
+    devices = visible_devices(device)
+    if batch % data_parallel:
+        raise ValueError(
+            f"batch {batch} not divisible by data_parallel={data_parallel}")
+    if data_parallel > len(devices):
+        raise ValueError(f"data_parallel={data_parallel} exceeds "
+                         f"{len(devices)} visible devices")
+    shard = batch // data_parallel
+    inner = [_compile_plan_impl(qnet, (shard,) + tuple(input_shape[1:]),
+                                method=method, spec=spec, device=dev,
+                                autotune=autotune)
+             for dev in devices[:data_parallel]]
+
+    def forward(x):
+        outs, skipped = [], []
+        for i, plan in enumerate(inner):
+            out, sk = plan._fn(x[i * shard:(i + 1) * shard].to(plan.device))
+            outs.append(out.to(device))
+            skipped.append(sk.to(device))
+        return torch.cat(outs), torch.stack(skipped).sum(0)
+
+    first = inner[0]
+    infos = [dataclasses.replace(
+        l, out_shape=(l.out_shape[0] * data_parallel,) + l.out_shape[1:],
+        act_write_bytes=l.act_write_bytes * data_parallel,
+        act_write_bytes_int32=l.act_write_bytes_int32 * data_parallel)
+        for l in first.layers]
+    return CompiledPlan(
+        input_shape=tuple(input_shape), num_steps=first.num_steps,
+        method=method, layers=infos, device=device, _fn=forward,
+        data_parallel=data_parallel,
+        plane_passes_per_call=first.plane_passes_per_call * data_parallel,
+        tuned_tiles=first.tuned_tiles)
+
+
 # plan-cache keys hold a weakref to the net: two refs compare equal only
 # while both resolve to the same live net, so a collected net's recycled
 # id() never aliases a stale entry (QuantizedNet hashes by identity)
@@ -548,6 +614,10 @@ class PlanCache:
     compiler; ``api`` passes one for the ``jnp`` backend, whose per-bucket
     plans share the bucketing, chunking and counters with kernel plans.
     ``autotune`` tunes each kernel plan's layers as it is built.
+    ``data_parallel`` (None: all) splits each kernel bucket over
+    ``gcd(bucket, min(data_parallel, visible devices))`` devices, so an
+    indivisible bucket or a single device falls back to fewer shards and
+    never raises.
     A plan is called on the padded batch and has ``plane_stats()``,
     ``reset_plane_stats()`` and ``tuned_tiles``, as ``CompiledPlan`` does.
     """
@@ -556,10 +626,16 @@ class PlanCache:
                  method: str = "fused",
                  encoding: Optional[encoding.EncodingSpec] = None,
                  device="cpu", compile_fn: Optional[Callable] = None,
-                 autotune: bool = False):
+                 autotune: bool = False,
+                 data_parallel: Optional[int] = None):
         bs = tuple(sorted({int(b) for b in buckets}))
         if not bs or bs[0] < 1:
             raise ValueError(f"bucket ladder must be positive, got {buckets}")
+        if data_parallel is not None and data_parallel < 1:
+            raise ValueError(
+                f"data_parallel must be >= 1 (or None for auto), got "
+                f"{data_parallel}")
+        self.data_parallel = data_parallel
         self.buckets = bs
         self.method = method
         self.encoding = encoding
@@ -600,6 +676,12 @@ class PlanCache:
                 for key, (_, plan) in self._plans.items()
                 for row in plan.tuned_tiles]
 
+    def _shards_for(self, bucket: int) -> int:
+        avail = len(visible_devices(self.device))
+        want = avail if self.data_parallel is None else min(
+            self.data_parallel, avail)
+        return math.gcd(bucket, want)
+
     def plan_for(self, qnet: conversion.QuantizedNet, bucket: int,
                  item_shape: Tuple[int, ...]) -> CompiledPlan:
         """Cached plan for one bucket (built on first use)."""
@@ -614,9 +696,10 @@ class PlanCache:
         if self._compile_fn is not None:
             plan = self._compile_fn(qnet, shape)
         else:
-            plan = _compile_plan_impl(qnet, shape, method=self.method,
-                                      spec=self.encoding, device=self.device,
-                                      autotune=self.autotune)
+            plan = _compile_plan_impl(
+                qnet, shape, method=self.method, spec=self.encoding,
+                device=self.device, autotune=self.autotune,
+                data_parallel=self._shards_for(int(bucket)))
         self._plans[key] = (weakref.ref(qnet), plan)
         self.stats.compiles += 1
         return plan

@@ -1,21 +1,57 @@
-"""Prefetching input pipeline (port of ``repro/data/pipeline.py``,
-``Prefetcher``).
+"""Sharded, prefetching input pipeline (port of ``repro/data/pipeline.py``).
+
+``ShardedLoader`` turns a deterministic batch function (step -> numpy
+arrays) into DTensor batches laid out over a device mesh: each rank
+keeps only its piece of every array (cut from the host array here, no
+communication), so the global batch is never on one device.
 
 ``Prefetcher`` overlaps host-side batch synthesis with device compute: a
 background thread fills a depth-bounded queue from a step-indexed loader,
 so the next batch is staged while the current one computes.  Loaders are
 step-indexed, so a run resumed from a checkpoint at step k replays batch
-k + 1 with no pipeline state.  ``ShardedLoader``, which lays a batch out
-over a device mesh, waits for multi-GPU (ROADMAP.md, queue 1 item 7).
+k + 1 with no pipeline state.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable, Iterator, Optional
+from typing import Callable, Iterator, Optional, Sequence, Tuple
 
-__all__ = ["Prefetcher"]
+import numpy as np
+import torch
+
+__all__ = ["ShardedLoader", "Prefetcher"]
+
+BatchFn = Callable[[int], Tuple[np.ndarray, ...]]
+
+
+class ShardedLoader:
+    """step -> tuple of DTensors on ``mesh``, one per array of
+    ``batch_fn(step)``, placed by ``specs`` (one spec each, typically the
+    batch dim over the data axes; ``parallel.sharding.batch_specs``)."""
+
+    def __init__(self, batch_fn: BatchFn, mesh, specs: Sequence[tuple]):
+        self._fn = batch_fn
+        self._mesh = mesh
+        self._specs = [tuple(s) for s in specs]
+        from repro_torch.parallel.sharding import mesh_device
+
+        self._device = mesh_device(mesh)
+
+    def __call__(self, step: int):
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.parallel.sharding import local_slice, placements
+
+        out = []
+        for arr, spec in zip(self._fn(step), self._specs):
+            piece = np.ascontiguousarray(local_slice(np.asarray(arr), spec,
+                                                     self._mesh))
+            out.append(DTensor.from_local(
+                torch.from_numpy(piece).to(self._device), self._mesh,
+                placements(spec, self._mesh), run_check=False))
+        return tuple(out)
 
 
 class Prefetcher:

@@ -33,7 +33,8 @@ CUDA device unless ``--device cpu`` is given.  ``--auto`` lets the PPA
 planner (``repro_torch.ppa``) pick the encoding, T, dataflow and unit
 count under ``--accuracy-floor`` / ``--latency-slo`` / ``--energy-budget``
 (the latter two on the paper's modeled FPGA build), searching on the same
-device.  Not ported: ``--data-parallel`` > 1 (ROADMAP.md).
+device.  ``--data-parallel k`` splits each bucket over up to k visible
+devices (``api.Accelerator.compile(parallel=k)``).
 
 Usage:
   python -m repro_torch.launch.serve_cnn --arch vgg11 --smoke
@@ -592,7 +593,8 @@ def _parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="retry budget for an isolated failing request "
                          "before quarantine")
     ap.add_argument("--data-parallel", type=int, default=None,
-                    help="not ported: values > 1 raise")
+                    help="split each bucket over up to this many visible "
+                         "devices (default: all)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--auto", action="store_true",
                     help="let the PPA planner pick encoding/T/dataflow/"
@@ -677,10 +679,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     (requests, images, wall seconds, p50/p95 ms, stats, health, flushes,
     and the planner's ``AutoPlan`` under ``--auto``, else None)."""
     args = _parse_args(argv)
-    if args.data_parallel is not None and args.data_parallel > 1:
-        raise NotImplementedError(
-            "--data-parallel > 1 (multi-GPU bucket plans) is not ported "
-            "yet (ROADMAP.md, queue 1 item 7)")
     buckets = args.bucket_ladder
     plan = None
     if args.auto:

@@ -1,17 +1,23 @@
-"""LM training loop on one device (port of ``repro/launch/train.py``).
+"""LM training loop (port of ``repro/launch/train.py``).
 
-Wires the training layers together: config -> seeded init -> prefetched
-``synthetic_tokens`` batches -> ``lm.model.make_train_step`` -> async
-checkpoints (``train.checkpoint.CheckpointManager``, resumed from the
-newest) -> the straggler monitor.  The reference lays the same loop over
-a device mesh; the port runs it on one device, and a mesh of more than
-one (``--data``/``--model`` > 1) waits for multi-GPU (ROADMAP.md, queue 1
-item 7).
+Wires the training layers together: config -> seeded init, placed over a
+device mesh when one is given -> prefetched ``synthetic_tokens`` batches
+(``data.pipeline.ShardedLoader`` over a mesh) ->
+``lm.model.make_train_step`` -> async checkpoints
+(``train.checkpoint.CheckpointManager``, resumed from the newest) -> the
+straggler monitor.  Training runs with deterministic kernels
+(``train.determinism``), so one seed gives one result on the card too.
+
+A mesh needs a process group of ``--data`` x ``--model`` ranks, one
+process each (``torch.distributed.init_process_group`` with its store,
+rank and world size; ``launch/mesh.make_test_mesh`` raises without one).
 
 Usage::
 
   python -m repro_torch.launch.train --arch gemma_2b --smoke --steps 100 --device cpu
   python -m repro_torch.launch.train --arch gemma_2b --steps 10 --batch 8 --seq 512
+  (in each of 4 ranks) main(["--arch", "glm4_9b", "--smoke", "--data", "2",
+                             "--model", "2"])
 """
 
 from __future__ import annotations
@@ -20,35 +26,68 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.api import _resolve_device
 from repro_torch.configs import get_config
-from repro_torch.data.pipeline import Prefetcher
+from repro_torch.data.pipeline import Prefetcher, ShardedLoader
 from repro_torch.data.synthetic import synthetic_tokens
 from repro_torch.lm import model as M
+from repro_torch.parallel import sharding as SH
 from repro_torch.runtime.straggler import StragglerMonitor
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train import optim as optim_lib
+from repro_torch.train.determinism import deterministic
 
 __all__ = ["train_loop", "main"]
 
 
-def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
+def train_loop(cfg, mesh=None, *, steps: int, batch_size: int, seq_len: int,
                lr: float = 3e-3, ckpt_dir=None, ckpt_every: int = 50,
                resume: bool = True, log=print, seed: int = 0,
                optimizer: str = "adafactor", device=None):
     """Train ``cfg`` from ``init_params(seed)`` (or the newest checkpoint
-    in ``ckpt_dir`` when ``resume``) to ``steps`` steps on ``device``
-    (``None`` means CUDA, and raises without it).  Returns (state,
-    per-step losses of this call)."""
-    device = _resolve_device(device)
+    in ``ckpt_dir`` when ``resume``) to ``steps`` steps, with
+    deterministic kernels.  ``mesh=None`` runs on ``device`` (``None``
+    means CUDA, and raises without it); a ``DeviceMesh`` runs on its
+    ranks' devices, the state placed by ``parallel.sharding``'s specs
+    (each rank storing its piece) and the batches by ``batch_specs``.
+    Returns (state, per-step losses of this call)."""
+    with deterministic():
+        return _train_loop(cfg, mesh, steps, batch_size, seq_len, lr,
+                           ckpt_dir, ckpt_every, resume, log, seed, optimizer,
+                           device)
+
+
+def _train_loop(cfg, mesh, steps, batch_size, seq_len, lr, ckpt_dir,
+                ckpt_every, resume, log, seed, optimizer, device):
+    device = (_resolve_device(device) if mesh is None
+              else SH.mesh_device(mesh))
     opt = (optim_lib.adafactor(lr) if optimizer == "adafactor"
            else optim_lib.adam(lr))
     gen = torch.Generator(device=device).manual_seed(seed)
     params = M.init_params(gen, cfg)
     state = {"params": params, "opt": opt.init(params),
              "step": torch.zeros((), dtype=torch.int32, device=device)}
-    step_fn = M.make_train_step(cfg, opt)
+    del params
+
+    def batch_fn(s):
+        return (synthetic_tokens(s, batch_size, seq_len, cfg.vocab,
+                                 seed=seed),)
+
+    if mesh is None:
+        def loader(s):
+            return (torch.from_numpy(batch_fn(s)[0]).to(device),)
+    else:
+        pspecs = SH.param_specs(state["params"], cfg, mesh)
+        state = SH.place(state, {
+            "params": pspecs,
+            "opt": SH.opt_state_specs(pspecs, state["opt"], mesh),
+            "step": ()}, mesh)
+        tokens = torch.empty((batch_size, seq_len + 1), device="meta")
+        loader = ShardedLoader(batch_fn, mesh, [SH.batch_specs(
+            {"tokens": tokens}, cfg, mesh)["tokens"]])
+    step_fn = M.make_train_step(cfg, opt, mesh=mesh)
 
     start = 0
     manager = ckpt_lib.CheckpointManager(ckpt_dir) if ckpt_dir else None
@@ -61,12 +100,9 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
 
     monitor = StragglerMonitor()
     history = []
-    pf = Prefetcher(lambda s: torch.from_numpy(synthetic_tokens(
-        s, batch_size, seq_len, cfg.vocab, seed=seed)), start, steps - start,
-        depth=2)
-    for s, tokens in pf:
+    for s, (tokens,) in Prefetcher(loader, start, steps - start, depth=2):
         t0 = time.time()
-        state, metrics = step_fn(state, {"tokens": tokens.to(device)})
+        state, metrics = step_fn(state, {"tokens": tokens})
         loss = float(metrics["loss"])        # waits for the step
         dt = time.time() - t0
         monitor.record(s, dt)
@@ -81,10 +117,15 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
     if manager:
         manager.save(steps, state)
         manager.wait()
+        if mesh is not None:
+            dist.barrier()           # the writer rank's files are complete
     return state, history
 
 
-def main(argv=None) -> None:
+def main(argv=None):
+    """The CLI; returns ``train_loop``'s (state, losses).  ``--data`` x
+    ``--model`` > 1 trains over a mesh of that many ranks (one process
+    each, the process group initialized by the caller)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
@@ -99,15 +140,14 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     args = ap.parse_args(argv)
-    if args.data > 1 or args.model > 1:
-        raise NotImplementedError(
-            f"--data {args.data} --model {args.model}: training over a "
-            "device mesh is not ported yet (ROADMAP.md, queue 1 item 7: "
-            "multi-GPU)")
     cfg = get_config(args.arch, smoke=args.smoke)
-    train_loop(cfg, steps=args.steps, batch_size=args.batch,
-               seq_len=args.seq, lr=args.lr, ckpt_dir=args.ckpt_dir,
-               device=args.device)
+    mesh = None
+    if args.data * args.model > 1:
+        from repro_torch.launch.mesh import make_test_mesh
+        mesh = make_test_mesh(data=args.data, model=args.model)
+    return train_loop(cfg, mesh, steps=args.steps, batch_size=args.batch,
+                      seq_len=args.seq, lr=args.lr, ckpt_dir=args.ckpt_dir,
+                      device=args.device)
 
 
 if __name__ == "__main__":

@@ -6,12 +6,12 @@ Public surface (functions of param and cache trees):
     init_params(generator, cfg, device=)   real parameters, seeded
     radixify_params(params, cfg)           paper-technique serving weights
     kmajor_params(params)                  their levels in the kernel's layout
-    forward_train(params, batch, cfg)      -> logits, labels, aux
-    loss_fn(params, batch, cfg)            -> loss, metrics
-    make_train_step(cfg, opt, clip_norm)   -> step(state, batch)
+    forward_train(params, batch, cfg, mesh)  -> logits, labels, aux
+    loss_fn(params, batch, cfg, mesh)        -> loss, metrics
+    make_train_step(cfg, opt, clip_norm, mesh=) -> step(state, batch)
     init_cache(cfg, batch, max_len, device=)
-    prefill(params, batch, cfg, max_len=, true_len=) -> last_logits, caches
-    decode_step(params, caches, tokens, pos, cfg)    -> logits, caches
+    prefill(params, batch, cfg, mesh, max_len=, true_len=) -> logits, caches
+    decode_step(params, caches, tokens, pos, cfg, mesh)   -> logits, caches
 
 The trees keep the reference's layout: ``params["segments"]`` is a tuple
 over layer segments of a tuple over pattern slots of dicts whose leaves
@@ -30,6 +30,19 @@ step in every decoder layer, whose cache is ``{"self", "cross"}``.
 Training takes gradients by autograd through the same blocks (the
 reference has ``jax.value_and_grad``); ``cfg.remat`` recomputes each
 layer in the backward (``torch.utils.checkpoint``).
+
+``mesh=None`` is one device.  With a ``DeviceMesh`` ('data', 'model',
+optionally 'pod'; ``launch/mesh.py``) the functions run on every rank of
+it: each data rank computes its own batch shard, and the ranks of one
+data group compute the same activations, except inside a MoE layer,
+whose mesh dispatches split the experts, the tokens or d_ff over 'model'
+(``lm/moe.py``).  Dense layers do not split their compute over 'model'
+in this port (GSPMD's partitioning of them is XLA's choice, not the
+reference's code; its residual-stream sharding constraints and RWKV's
+head constraint have no counterpart here).  Parameters and caches may
+be DTensors placed by ``parallel/sharding.py``'s specs: they are
+gathered where they are used (see :func:`make_train_step`,
+:func:`prefill`).
 """
 
 from __future__ import annotations
@@ -44,6 +57,8 @@ from repro_torch.api import _resolve_device
 from repro_torch.lm import blocks, moe as moe_lib, radix as radix_lib
 from repro_torch.lm.config import ArchConfig, segments_for
 from repro_torch.lm.radix import torch_dtype
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel import sharding as SH
 from repro_torch.train import optim as optim_lib
 from repro_torch.train import tree as tree_lib
 from repro_torch.train.tree import tree_map
@@ -74,10 +89,8 @@ POS_EMBEDS = ("rope", "learned", "none")
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``ValueError`` for what no reference arch has (an unknown
-    block type, activation or position embedding) and
-    ``NotImplementedError`` for what this port does not run yet: MoE
-    dispatch over a device mesh (``moe.pick_impl``)."""
+    """Raise ``ValueError`` for what no reference arch has: an unknown
+    block type, activation, position embedding or MoE dispatch."""
     bad = sorted(set(cfg.layer_types) - set(BLOCK_TYPES))
     if bad:
         raise ValueError(f"unknown block types {bad} (known: "
@@ -87,8 +100,9 @@ def check_supported(cfg: ArchConfig) -> None:
     if cfg.pos_embed not in POS_EMBEDS:
         raise ValueError(f"unknown pos_embed {cfg.pos_embed!r} (known: "
                          f"{POS_EMBEDS})")
-    if cfg.moe is not None:
-        moe_lib.pick_impl(cfg)
+    if cfg.moe is not None and cfg.moe.impl not in moe_lib.IMPLS:
+        raise ValueError(f"unknown MoE impl {cfg.moe.impl!r} (known: "
+                         f"{moe_lib.IMPLS})")
 
 
 # ---------------------------------------------------------------------------
@@ -343,7 +357,7 @@ def kmajor_params(params):
 
 def _apply_layer(h, lp, btype: str, cfg: ArchConfig, positions, mode: str,
                  cache=None, pos=None, max_len: int = 0, enc_h=None,
-                 causal: bool = True):
+                 causal: bool = True, mesh=None):
     """One block: temporal mix (+ cross-attention over the encoder's
     output ``enc_h`` in a layer that has ``xattn``) + channel mix, each
     with its pre-norm and residual.  ``mode="train"`` runs the sequence
@@ -438,7 +452,8 @@ def _apply_layer(h, lp, btype: str, cfg: ArchConfig, positions, mode: str,
         else:
             y = blocks.rwkv6_channel_mix(hn, lp["ffn"])
     elif cfg.moe is not None:
-        y, aux = moe_lib.moe_ffn(hn, lp["ffn"], cfg)
+        y, aux = moe_lib.moe_ffn(hn, lp["ffn"], cfg, mesh,
+                                 decode=mode == "decode")
         if cfg.moe.num_shared:
             y = y + blocks.ffn(hn, lp["ffn"]["shared"], cfg)
     else:
@@ -471,15 +486,18 @@ def _unstack(tree, count: int) -> list:
 def _backbone(params, h, cfg: ArchConfig, positions, mode: str,
               caches=None, pos=None, max_len: int = 0, enc_h=None,
               segments_key: str = "segments", segments=None,
-              causal: bool = True):
+              causal: bool = True, mesh=None):
     """Every layer of ``params[segments_key]`` (laid out as ``segments``,
     default ``segments_for(cfg)``) in order.  Returns (h, aux, caches):
-    ``aux`` the layers' summed router losses (float32); prefill builds
+    ``aux`` the layers' summed router losses (float32) in train mode,
+    ``None`` in prefill and decode, which build no loss; prefill builds
     stacked caches, decode updates ``caches`` in place and returns it,
     train has none.  In train mode with ``cfg.remat``, each layer runs
     under ``torch.utils.checkpoint`` (its activations recomputed in the
     backward; the values do not change)."""
-    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    train = mode == "train"
+    aux_total = (torch.zeros((), dtype=torch.float32, device=h.device)
+                 if train else None)
     new_caches = []
     for i, (pattern, count) in enumerate(segments or segments_for(cfg)):
         seg_p = [_unstack(p, count) for p in params[segments_key][i]]
@@ -492,15 +510,16 @@ def _backbone(params, h, cfg: ArchConfig, positions, mode: str,
                 c_in = (tree_map(lambda x: x[j], seg_c[si])
                         if seg_c is not None else None)
                 kw = dict(cache=c_in, pos=pos, max_len=max_len, enc_h=enc_h,
-                          causal=causal)
-                if mode == "train" and cfg.remat and h.requires_grad:
+                          causal=causal, mesh=mesh)
+                if train and cfg.remat and h.requires_grad:
                     h, a, nc = torch.utils.checkpoint.checkpoint(
                         _apply_layer, h, lp, btype, cfg, positions, mode,
                         use_reentrant=False, **kw)
                 else:
                     h, a, nc = _apply_layer(h, lp, btype, cfg, positions,
                                             mode, **kw)
-                aux_total = aux_total + a
+                if train:
+                    aux_total = aux_total + a
                 if mode == "decode":
                     _write_back(c_in, nc)
                 ncs.append(nc)
@@ -558,7 +577,7 @@ def _input_h(params, batch, cfg: ArchConfig):
     return h, labels
 
 
-def _encode_whisper(params, enc_embeds, cfg: ArchConfig):
+def _encode_whisper(params, enc_embeds, cfg: ArchConfig, mesh=None):
     """The encoder: (B, encoder_ctx, d) frame embeddings plus learned
     positions through the non-causal ``enc_segments`` stack, then its
     final norm."""
@@ -568,7 +587,7 @@ def _encode_whisper(params, enc_embeds, cfg: ArchConfig):
     h, _, _ = _backbone(params, h, cfg, pos, "train",
                         segments_key="enc_segments",
                         segments=((("attn",), cfg.encoder_layers),),
-                        causal=False)
+                        causal=False, mesh=mesh)
     return blocks.norm(h, params["enc_final_norm"], cfg.norm)
 
 
@@ -577,28 +596,31 @@ def _encode_whisper(params, enc_embeds, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 
-def forward_train(params, batch, cfg: ArchConfig):
+def forward_train(params, batch, cfg: ArchConfig, mesh=None):
     """Teacher-forced forward over a batch dict (as :func:`prefill` takes
     it, ``labels`` too for an embedding-input arch).  Returns (logits
     (B, S, V), labels (B, S), aux): ``aux`` the MoE layers' summed router
-    loss (0 without MoE)."""
+    loss (0 without MoE).  With a mesh: whole parameters and this rank's
+    batch shard (what :func:`make_train_step` passes)."""
     h, labels = _input_h(params, batch, cfg)
     enc_h = None
     if cfg.encoder_layers:
-        enc_h = _encode_whisper(params, batch["enc_embeds"], cfg)
+        enc_h = _encode_whisper(params, batch["enc_embeds"], cfg, mesh)
     positions = _positions(cfg, h.shape[0], h.shape[1], device=h.device)
-    h, aux, _ = _backbone(params, h, cfg, positions, "train", enc_h=enc_h)
+    h, aux, _ = _backbone(params, h, cfg, positions, "train", enc_h=enc_h,
+                          mesh=mesh)
     h = blocks.norm(h, params["final_norm"], cfg.norm)
     return _lm_head(h, params, cfg), labels, aux
 
 
-def loss_fn(params, batch, cfg: ArchConfig, aux_weight: float = 0.01):
+def loss_fn(params, batch, cfg: ArchConfig, mesh=None,
+            aux_weight: float = 0.01):
     """(loss, {"ce", "aux", "acc"}): token cross-entropy in float32 plus
     ``aux_weight`` times the router loss.  The gold logit is gathered
     where the reference contracts a one-hot (the same value for finite
     logits, without a (B, S, V) one-hot: 4.19 GB at Gemma-2B's vocab and
     8 x 512 tokens)."""
-    logits, labels, aux = forward_train(params, batch, cfg)
+    logits, labels, aux = forward_train(params, batch, cfg, mesh)
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
@@ -608,54 +630,103 @@ def loss_fn(params, batch, cfg: ArchConfig, aux_weight: float = 0.01):
     return loss, {"ce": ce, "aux": aux, "acc": acc}
 
 
+def _data_shard(batch: dict, cfg: ArchConfig, mesh) -> dict:
+    """This rank's rows of a batch dict: global tensors are cut, DTensors
+    (``data.pipeline.ShardedLoader``'s) are gathered over every axis but
+    the data axes (an embedding input's sequence may be split over
+    'model')."""
+    from torch.distributed.tensor import DTensor
+
+    specs = SH.batch_specs(batch, cfg, mesh, seq_shard=False)
+    return {k: (v.redistribute(mesh, SH.placements(specs[k], mesh))
+                .to_local() if isinstance(v, DTensor)
+                else SH.local_slice(v, specs[k], mesh))
+            for k, v in batch.items()}
+
+
+def _mean_over_data(tree, mesh):
+    """Each leaf summed over the data axes and divided by their size (a
+    float32 divisor on the leaf's device); the identity on one data
+    rank."""
+    dp = SH.dp_axes(mesh)
+    n = C.group_size(mesh, dp)
+    if n == 1:
+        return tree
+    pg = C.group(mesh, dp)
+
+    def mean(t):
+        t = C.all_reduce_(t.detach().contiguous().clone(), pg)
+        return t / torch.tensor(float(n), dtype=t.dtype, device=t.device)
+
+    return tree_map(mean, tree)
+
+
 def make_train_step(cfg: ArchConfig, opt: optim_lib.Optimizer,
-                    clip_norm: float = 1.0):
+                    clip_norm: float = 1.0, *, mesh=None):
     """Returns ``step(state, batch) -> (state, metrics)`` with state
     ``{"params", "opt", "step"}``: gradients by autograd, clipped to
     ``clip_norm`` global norm, one ``opt`` update.  ``cfg.grad_accum``
     = A > 1 splits the batch into A microbatches run one after another;
-    their gradients are summed in float32 and divided by A."""
+    their gradients are summed in float32 and divided by A.
+
+    With a ``mesh`` the state's leaves may be DTensors (each rank storing
+    its piece, ``parallel/sharding.place``) and the batch global tensors
+    or ``ShardedLoader`` DTensors.  The step gathers every leaf whole on
+    use (ZeRO-3's gather), computes this data rank's batch shard, averages
+    the gradients, loss and metrics over the data axes (an all-reduce and
+    a divide), runs the clip and the update on whole tensors (Adafactor's
+    factored statistics reduce over whole dims) and keeps only this
+    rank's piece of each new leaf, in its old placement."""
 
     def grads_of(params, batch):
         ps = tree_map(lambda t: t.detach().requires_grad_(True), params)
-        loss, metrics = loss_fn(ps, batch, cfg)
+        loss, metrics = loss_fn(ps, batch, cfg, mesh)
         grads = torch.autograd.grad(loss, tree_lib.leaves(ps),
                                     allow_unused=True, materialize_grads=True)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return loss.detach(), metrics, tree_lib.unflatten(ps, grads)
 
-    def step(state, batch):
-        params = state["params"]
+    def accumulate(params, batch):
         a = cfg.grad_accum
         if a == 1:
-            loss, metrics, grads = grads_of(params, batch)
+            return grads_of(params, batch)
+        grads = tree_map(lambda p: torch.zeros(
+            p.shape, dtype=torch.float32, device=p.device), params)
+        lsum, ms = 0.0, []
+        for i in range(a):
+            mb = {k: v.reshape((a, v.shape[0] // a) + tuple(v.shape[1:]))[i]
+                  for k, v in batch.items()}
+            l, m, g = grads_of(params, mb)
+            grads = tree_map(torch.add, grads, g)
+            lsum = lsum + l
+            ms.append(m)
+        div = torch.tensor(float(a), dtype=torch.float32, device=lsum.device)
+        grads = tree_map(lambda g: g / div, grads)
+        metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
+        return lsum / div, metrics, grads
+
+    def step(state, batch):
+        if mesh is not None:
+            whole = SH.gather(state)
+            loss, metrics, grads = accumulate(whole["params"],
+                                              _data_shard(batch, cfg, mesh))
+            loss, metrics, grads = _mean_over_data((loss, metrics, grads),
+                                                   mesh)
         else:
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            lsum, ms = 0.0, []
-            for i in range(a):
-                mb = {k: v.reshape((a, v.shape[0] // a) + tuple(v.shape[1:]))[i]
-                      for k, v in batch.items()}
-                l, m, g = grads_of(params, mb)
-                grads = tree_map(torch.add, grads, g)
-                lsum = lsum + l
-                ms.append(m)
-            div = torch.tensor(float(a), dtype=torch.float32,
-                               device=lsum.device)
-            grads = tree_map(lambda g: g / div, grads)
-            loss = lsum / div
-            metrics = {k: torch.stack([m[k] for m in ms]).mean()
-                       for k in ms[0]}
+            whole = state
+            loss, metrics, grads = accumulate(state["params"], batch)
+        params = whole["params"]
         if clip_norm:
             grads, gnorm = optim_lib.clip_by_global_norm(grads, clip_norm)
         else:
             gnorm = optim_lib.global_norm(grads)
-        updates, new_opt = opt.update(grads, state["opt"], params)
+        updates, new_opt = opt.update(grads, whole["opt"], params)
         del grads                   # before the new parameters exist
-        new_params = optim_lib.apply_updates(params, updates)
-        metrics = dict(metrics, loss=loss, grad_norm=gnorm)
-        return {"params": new_params, "opt": new_opt,
-                "step": state["step"] + 1}, metrics
+        new = {"params": optim_lib.apply_updates(params, updates),
+               "opt": new_opt, "step": whole["step"] + 1}
+        if mesh is not None:
+            new = tree_map(SH.shard_like, new, state)
+        return new, dict(metrics, loss=loss, grad_norm=gnorm)
 
     return step
 
@@ -711,8 +782,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device=None):
     return tuple(caches)
 
 
-def prefill(params, batch, cfg: ArchConfig, max_len: int = 0, *,
-            true_len: Optional[int] = None):
+def prefill(params, batch, cfg: ArchConfig, mesh=None, max_len: int = 0,
+            *, true_len: Optional[int] = None):
     """Process the prompt; returns (last-token logits (B, V), caches).
 
     ``batch["tokens"]`` is (B, S + 1) (the last column is the label of the
@@ -723,22 +794,72 @@ def prefill(params, batch, cfg: ArchConfig, max_len: int = 0, *,
     ``true_len`` gathers the last-token state at ``true_len - 1`` of a
     right-padded prompt (bucketed prefill: exact for pure full-attention
     stacks, since the causal mask hides the pads; not for recurrent or
-    windowed blocks, whose state would absorb them)."""
+    windowed blocks, whose state would absorb them).
+
+    With a ``mesh``: parameters (DTensors gathered whole on use), the
+    global batch, of which each data rank runs its rows; the logits are
+    gathered whole on every rank, and the caches are DTensors placed by
+    ``parallel.sharding.cache_specs`` (batch over the data axes, the KV
+    sequence over 'model')."""
+    if mesh is not None:
+        logits, caches = _prefill(SH.gather(params),
+                                  _data_shard(batch, cfg, mesh), cfg, mesh,
+                                  max_len, true_len)
+        return (_gather_rows(logits, mesh),
+                tree_map(lambda c, spec: _place_rows(c, spec, mesh), caches,
+                         SH.cache_specs(caches, cfg, mesh)))
+    return _prefill(params, batch, cfg, None, max_len, true_len)
+
+
+def _prefill(params, batch, cfg: ArchConfig, mesh, max_len: int, true_len):
     h, _ = _input_h(params, batch, cfg)
     b, s_len = h.shape[0], h.shape[1]
     max_len = max_len or s_len
     enc_h = None
     if cfg.encoder_layers:
-        enc_h = _encode_whisper(params, batch["enc_embeds"], cfg)
+        enc_h = _encode_whisper(params, batch["enc_embeds"], cfg, mesh)
     positions = _positions(cfg, b, s_len, device=h.device)
     h, _, caches = _backbone(params, h, cfg, positions, "prefill",
-                             max_len=max_len, enc_h=enc_h)
+                             max_len=max_len, enc_h=enc_h, mesh=mesh)
     # ring-buffer alignment: position p must live at slot p % window
     caches = _roll_window_caches(caches, cfg, s_len)
     idx = s_len if true_len is None else int(true_len)
     h = blocks.norm(h[:, idx - 1:idx, :], params["final_norm"], cfg.norm)
     logits = _lm_head(h, params, cfg)[:, 0]
     return logits, caches
+
+
+def _gather_rows(t, mesh):
+    """Every data rank's rows of ``t`` joined in mesh order."""
+    return C.gather_from(t, 0, mesh, SH.dp_axes(mesh))
+
+
+def _data_spec(spec, mesh):
+    """``spec`` with every axis but the data axes dropped."""
+    dp = set(SH.dp_axes(mesh))
+    out = []
+    for e in spec:
+        names = SH.entry_axes(e)
+        if names and set(names) & dp and not set(names) <= dp:
+            raise ValueError(f"spec entry {e!r} mixes data and other axes")
+        out.append(e if names and set(names) <= dp else None)
+    return tuple(out)
+
+
+def _rows_piece(t, spec, mesh):
+    """This rank's piece under ``spec`` of ``t``, its data rank's rows of
+    the global tensor: ``t`` cut along the other axes' dims."""
+    data = _data_spec(spec, mesh)
+    rest = tuple(None if d is not None else e for d, e in zip(data, spec))
+    return SH.local_slice(t, rest, mesh)
+
+
+def _place_rows(t, spec, mesh):
+    """A DTensor placed by ``spec`` from ``t``, this data rank's rows."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(_rows_piece(t, spec, mesh).contiguous(), mesh,
+                              SH.placements(spec, mesh), run_check=False)
 
 
 def _roll_window_caches(caches, cfg: ArchConfig, s_len: int):
@@ -761,11 +882,38 @@ def _roll_window_caches(caches, cfg: ArchConfig, s_len: int):
     return tuple(out)
 
 
-def decode_step(params, caches, tokens, pos, cfg: ArchConfig):
+def decode_step(params, caches, tokens, pos, cfg: ArchConfig, mesh=None):
     """One decode step.  ``tokens`` (B, 1) ints (embeds (B, 1, d) for an
     embedding-input arch); ``pos`` the position being written (an int).
     Returns (logits (B, V), caches) with ``caches`` (attention caches and
-    recurrent states) updated in place."""
+    recurrent states) updated in place.
+
+    With a ``mesh``: ``caches`` are :func:`prefill`'s DTensors.  Each data
+    rank gathers its rows of every cache leaf over 'model' (the KV
+    sequence is gathered on use; a sequence-parallel combine is later
+    work), decodes its rows of ``tokens``, and writes its piece back in
+    place; the logits are gathered whole."""
+    if mesh is None:
+        return _decode(params, caches, tokens, pos, cfg, None), caches
+    specs = tree_map(SH.spec_of, caches)
+    local = tree_map(lambda c, spec: c.redistribute(
+        mesh, SH.placements(_data_spec(spec, mesh), mesh)).to_local(),
+        caches, specs)
+    logits = _decode(SH.gather(params), local,
+                     _data_shard({"t": tokens}, cfg, mesh)["t"], pos, cfg,
+                     mesh)
+
+    def write(c, new, spec):
+        piece = _rows_piece(new, spec, mesh)
+        dst = c.to_local()
+        if dst.data_ptr() != piece.data_ptr():
+            dst.copy_(piece)
+
+    tree_map(write, caches, local, specs)
+    return _gather_rows(logits, mesh), caches
+
+
+def _decode(params, caches, tokens, pos, cfg: ArchConfig, mesh):
     pos = int(pos)
     if cfg.embedding_inputs:
         h = tokens.to(_dt(cfg))
@@ -773,8 +921,7 @@ def decode_step(params, caches, tokens, pos, cfg: ArchConfig):
         h = _embed(params, tokens, cfg)
     if cfg.pos_embed == "learned":
         h = h + params["pos_embed"][pos:pos + 1][None].to(h.dtype)
-    h, _, caches = _backbone(params, h, cfg, None, "decode",
-                             caches=caches, pos=pos)
+    h, _, _ = _backbone(params, h, cfg, None, "decode", caches=caches,
+                        pos=pos, mesh=mesh)
     h = blocks.norm(h, params["final_norm"], cfg.norm)
-    logits = _lm_head(h, params, cfg)[:, 0]
-    return logits, caches
+    return _lm_head(h, params, cfg)[:, 0]

@@ -1,0 +1,195 @@
+"""Collectives over the axes of a ``DeviceMesh``, with the gradients the
+port's sharded steps need.
+
+Inside a sharded step every rank of one data group computes the same
+replicated activations, and a part of the work (a MoE layer's experts or
+d_ff slice, ``lm/moe.py``) is split over 'model'.  The loss is one value
+per data group, held by each of its model ranks, so the autograd rules
+are Megatron's, not a plain transpose (which would count the loss once
+per model rank):
+
+* :func:`copy_to` (a replicated value entering split work): forward
+  identity, backward all-reduce (sum) of the ranks' partial gradients;
+* :func:`reduce_from` (the split work's partial results summed, the
+  reference's ``psum``): forward all-reduce, backward identity;
+* :func:`slice_of` (a replicated value cut to this rank's piece):
+  forward slice, backward all-gather, so every rank holds the whole
+  gradient;
+* :func:`gather_from` (pieces joined into a replicated value): forward
+  all-gather, backward this rank's slice;
+* :func:`all_to_all` (equal splits along dim 0; the reference's
+  ``all_to_all(..., tiled=True)``): backward is the reverse exchange;
+* :func:`mean_over` (the reference's ``pmean``): forward all-reduce over
+  the group and divide by its size, backward the gradient times
+  ``grad_scale``.
+
+A group of one rank skips its communication (every function is then the
+identity, or a slice of the whole).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.parallel.sharding import axis_sizes
+
+__all__ = ["group", "group_size", "group_rank", "copy_to", "reduce_from",
+           "slice_of", "gather_from", "all_to_all", "mean_over",
+           "all_reduce_"]
+
+
+def group(mesh, axes: Sequence[str]):
+    """The process group over ``axes`` of ``mesh`` (several axes: the
+    flattened sub-mesh, ranks in mesh order).  ``None`` for no axes."""
+    axes = tuple(axes)
+    if not axes:
+        return None
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    return mesh[axes]._flatten().get_group()
+
+
+def group_size(mesh, axes: Sequence[str]) -> int:
+    sizes = axis_sizes(mesh)
+    n = 1
+    for a in axes:
+        n *= sizes[a]
+    return n
+
+
+def group_rank(mesh, axes: Sequence[str]) -> int:
+    """This rank's index in the group over ``axes`` (mesh order)."""
+    sizes = axis_sizes(mesh)
+    k = 0
+    for a in axes:
+        k = k * sizes[a] + mesh.get_local_rank(a)
+    return k
+
+
+def _gather(x: torch.Tensor, dim: int, pg, n: int) -> torch.Tensor:
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.contiguous(), group=pg)
+    return torch.cat(parts, dim)
+
+
+def _chunk(x: torch.Tensor, dim: int, n: int, k: int) -> torch.Tensor:
+    return x.chunk(n, dim)[k].contiguous()
+
+
+def all_reduce_(x: torch.Tensor, pg) -> torch.Tensor:
+    """Sum ``x`` over ``pg`` in place (no-op for ``None``); returns x."""
+    if pg is not None:
+        dist.all_reduce(x, group=pg)
+    return x
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pg):
+        ctx.pg = pg
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.contiguous().clone(), ctx.pg), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pg):
+        return all_reduce_(x.contiguous().clone(), pg)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SliceOf(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, pg, n, k):
+        ctx.dim, ctx.pg, ctx.n = dim, pg, n
+        return _chunk(x, dim, n, k)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.dim, ctx.pg, ctx.n), None, None, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, pg, n, k):
+        ctx.dim, ctx.n, ctx.k = dim, n, k
+        return _gather(x, dim, pg, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _chunk(g, ctx.dim, ctx.n, ctx.k), None, None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pg):
+        ctx.pg = pg
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x.contiguous(), group=pg)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out = torch.empty_like(g)
+        dist.all_to_all_single(out, g.contiguous(), group=ctx.pg)
+        return out, None
+
+
+class _MeanOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pg, n, grad_scale):
+        ctx.grad_scale = grad_scale
+        total = all_reduce_(x.contiguous().clone(), pg)
+        return total / torch.tensor(float(n), dtype=x.dtype, device=x.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.grad_scale, None, None, None
+
+
+def _axes_info(mesh, axes) -> Tuple[Optional[object], int, int]:
+    n = group_size(mesh, axes)
+    if n == 1:
+        return None, 1, 0
+    return group(mesh, axes), n, group_rank(mesh, axes)
+
+
+def copy_to(x, mesh, axes):
+    pg, n, _ = _axes_info(mesh, axes)
+    return x if n == 1 else _CopyTo.apply(x, pg)
+
+
+def reduce_from(x, mesh, axes):
+    pg, n, _ = _axes_info(mesh, axes)
+    return x if n == 1 else _ReduceFrom.apply(x, pg)
+
+
+def slice_of(x, dim: int, mesh, axes):
+    pg, n, k = _axes_info(mesh, axes)
+    return x if n == 1 else _SliceOf.apply(x, dim, pg, n, k)
+
+
+def gather_from(x, dim: int, mesh, axes):
+    pg, n, k = _axes_info(mesh, axes)
+    return x if n == 1 else _GatherFrom.apply(x, dim, pg, n, k)
+
+
+def all_to_all(x, mesh, axes):
+    pg, n, _ = _axes_info(mesh, axes)
+    return x if n == 1 else _AllToAll.apply(x, pg)
+
+
+def mean_over(x, mesh, axes, grad_scale: float = 1.0):
+    pg, n, _ = _axes_info(mesh, axes)
+    if n == 1:
+        return x
+    return _MeanOver.apply(x, pg, n, grad_scale)

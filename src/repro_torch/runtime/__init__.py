@@ -1,7 +1,7 @@
 """Runtime fault tolerance (port of ``repro/runtime``): stragglers,
-checkpoint/restart (``RestartableRun``) and serving resilience
-(admission, deadlines, quarantine, chaos).  Elastic re-sharding waits
-for multi-GPU (ROADMAP.md, queue 1 item 7)."""
+checkpoint/restart (``RestartableRun``), elastic re-sharding
+(``elastic``) and serving resilience (admission, deadlines, quarantine,
+chaos)."""
 
 from repro_torch.runtime.restart import FaultInjected, RestartableRun
 from repro_torch.runtime.straggler import MitigationPolicy, StragglerMonitor

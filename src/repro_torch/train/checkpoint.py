@@ -23,6 +23,14 @@ cast from ``'|V2'`` to bfloat16.)
 the only part that must be consistent with the training step, then
 writes the files on a background thread; ``CheckpointManager`` keeps one
 write in flight and the last ``keep`` checkpoints.
+
+Checkpoints hold global arrays, never per-rank pieces, so a run moves
+between meshes by resharding (``runtime/elastic.py``).  A tree of
+DTensors (``parallel.sharding.place``) is gathered whole by every rank
+of its mesh (a collective: every rank saves) and written by global rank
+0 alone.  :func:`restore` puts each leaf where ``like``'s is (a DTensor
+leaf: this rank's piece in its placements); :func:`restore_resharded`
+places each leaf by a new placement on a new mesh.
 """
 
 from __future__ import annotations
@@ -39,8 +47,8 @@ import torch
 
 from repro_torch.train.tree import leaves_with_paths, unflatten
 
-__all__ = ["save", "save_async", "restore", "latest_step",
-           "CheckpointManager"]
+__all__ = ["save", "save_async", "restore", "restore_resharded",
+           "latest_step", "CheckpointManager"]
 
 _SEP = "__"
 _BF16_DESCR = "<V2"
@@ -55,10 +63,20 @@ def _flatten_with_keys(tree):
 
 
 def _snapshot(tree):
-    """(key, host copy) per tensor leaf: copied to the CPU, so later
-    in-place writes of the caller's do not reach the checkpoint."""
-    return [(key, leaf.detach().to("cpu", copy=True))
-            for key, leaf in _flatten_with_keys(tree)]
+    """(key, host copy) per tensor leaf, DTensors gathered whole: copied
+    to the CPU, so later in-place writes of the caller's do not reach the
+    checkpoint.  ``None`` on a rank that does not write (not rank 0 of a
+    DTensor tree's world)."""
+    from torch.distributed.tensor import DTensor
+
+    out, sharded = [], False
+    for key, leaf in _flatten_with_keys(tree):
+        if isinstance(leaf, DTensor):
+            leaf, sharded = leaf.full_tensor(), True
+        out.append((key, leaf.detach().to("cpu", copy=True)))
+    if sharded and torch.distributed.get_rank() != 0:
+        return None
+    return out
 
 
 def _write_leaf(path: str, leaf: torch.Tensor) -> Tuple[list, str]:
@@ -97,18 +115,21 @@ def _write(ckpt_dir: str, step: int, host_leaves, extra) -> str:
 
 
 def save(ckpt_dir: str, step: int, tree: Any,
-         extra: Optional[dict] = None) -> str:
-    """Synchronous checkpoint write.  Returns the final directory."""
-    return _write(ckpt_dir, step, _snapshot(tree), extra)
+         extra: Optional[dict] = None) -> Optional[str]:
+    """Synchronous checkpoint write.  Returns the final directory (None
+    on a rank that does not write)."""
+    host = _snapshot(tree)
+    return None if host is None else _write(ckpt_dir, step, host, extra)
 
 
 def save_async(ckpt_dir: str, step: int, tree: Any,
                extra: Optional[dict] = None) -> threading.Thread:
     """Snapshot now, write in the background.  Join the returned thread
     (or use ``CheckpointManager``) before the process exits."""
-    t = threading.Thread(target=_write,
-                         args=(ckpt_dir, step, _snapshot(tree), extra),
-                         daemon=False)
+    host = _snapshot(tree)
+    t = threading.Thread(target=_write if host is not None else
+                         (lambda *a: None),
+                         args=(ckpt_dir, step, host, extra), daemon=False)
     t.start()
     return t
 
@@ -134,15 +155,16 @@ def _load(path: str, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore(ckpt_dir: str, step: int, like: Any) -> Tuple[Any, dict]:
-    """Restore into the structure of ``like``: each leaf takes the dtype
-    and device of ``like``'s leaf there.  Returns (tree, extra)."""
+def _read(ckpt_dir: str, step: int, like: Any, place) -> Tuple[Any, dict]:
+    """Each leaf of ``like``'s structure read from step ``step``, checked
+    against the global shape of ``like``'s leaf, and passed to
+    ``place(tensor, like_leaf, index)``.  Returns (tree, extra)."""
     final = os.path.join(ckpt_dir, f"step_{step:010d}")
     with open(os.path.join(final, "manifest.json")) as f:
         manifest = json.load(f)
     by_key = {leaf["key"]: leaf for leaf in manifest["leaves"]}
     out = []
-    for key, ref in _flatten_with_keys(like):
+    for i, (key, ref) in enumerate(_flatten_with_keys(like)):
         entry = by_key.get(key)
         if entry is None:
             raise KeyError(f"checkpoint missing leaf {key!r}")
@@ -150,8 +172,55 @@ def restore(ckpt_dir: str, step: int, like: Any) -> Tuple[Any, dict]:
         if tuple(t.shape) != tuple(ref.shape):
             raise ValueError(f"leaf {key!r}: shape {tuple(t.shape)} vs "
                              f"{tuple(ref.shape)}")
-        out.append(t.to(device=ref.device, dtype=ref.dtype))
+        out.append(place(t, ref, i))
     return unflatten(like, out), manifest["extra"]
+
+
+def restore(ckpt_dir: str, step: int, like: Any) -> Tuple[Any, dict]:
+    """Restore into the structure of ``like``: each leaf takes the dtype
+    and device of ``like``'s leaf there (a DTensor leaf: this rank's piece
+    of the global array, in its placements).  Returns (tree, extra)."""
+    from repro_torch.parallel.sharding import shard_like
+
+    def place(t, ref, _):
+        device = getattr(ref, "to_local", lambda: ref)().device
+        return shard_like(t.to(device=device, dtype=ref.dtype), ref)
+
+    return _read(ckpt_dir, step, like, place)
+
+
+def restore_resharded(ckpt_dir: str, step: int, shapes_tree: Any,
+                      shardings_tree: Any, mesh) -> Tuple[Any, dict]:
+    """Restore onto any topology: ``shapes_tree`` gives each leaf's
+    global shape and dtype (meta tensors will do), ``shardings_tree``
+    (laid out as it) its DTensor placements on ``mesh``.  Each rank
+    keeps only its piece of every leaf.  Returns (tree of DTensors,
+    extra).  Used by elastic re-scaling (``runtime/elastic.py``)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.parallel.sharding import (local_slice, mesh_device,
+                                               spec_from)
+
+    device = mesh_device(mesh)
+    placed = [_at(shardings_tree, path)
+              for path, _ in leaves_with_paths(shapes_tree)]
+
+    def place(t, ref, i):
+        pls = placed[i]
+        piece = local_slice(t, spec_from(pls, mesh), mesh)
+        return DTensor.from_local(
+            piece.to(device=device, dtype=ref.dtype).contiguous(), mesh, pls,
+            run_check=False)
+
+    return _read(ckpt_dir, step, shapes_tree, place)
+
+
+def _at(tree, path):
+    """The subtree of ``tree`` at a ``leaves_with_paths`` path."""
+    for p in path:
+        tree = tree[p] if isinstance(tree, dict) or isinstance(p, int) \
+            else getattr(tree, p)
+    return tree
 
 
 class CheckpointManager:

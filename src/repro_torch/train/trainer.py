@@ -20,6 +20,7 @@ from repro_torch.api import _resolve_device
 from repro_torch.core import conversion
 from repro_torch.data.synthetic import SyntheticVision
 from repro_torch.train import optim as optim_lib
+from repro_torch.train.determinism import deterministic
 from repro_torch.train.tree import leaves, tree_map, unflatten
 
 __all__ = ["TrainConfig", "train_ann", "evaluate_ann", "cross_entropy"]
@@ -78,9 +79,16 @@ def train_ann(
     device=None,
 ) -> Tuple[Any, Dict[str, float]]:
     """SGD-momentum training of the float ANN on the procedural dataset,
-    on ``device`` (``None`` means CUDA, and raises without it).  Returns
-    the trained params (on ``device``) and the last step's metrics."""
-    device = _resolve_device(device)
+    on ``device`` (``None`` means CUDA, and raises without it), with
+    deterministic kernels (``train.determinism``: one seed, one result,
+    on the card as in the reference).  Returns the trained params (on
+    ``device``) and the last step's metrics."""
+    with deterministic():
+        return _train_ann(static, params, data, cfg, log,
+                          _resolve_device(device))
+
+
+def _train_ann(static, params, data, cfg, log, device):
     opt = optim_lib.sgd(cfg.lr, cfg.momentum, nesterov=True)
     trainable = [tree_map(lambda t: t.to(device), p)
                  for p in params if p is not None]

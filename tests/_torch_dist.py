@@ -1,0 +1,375 @@
+"""Rank side of the port's multi-rank tests (not collected: no ``test_``
+prefix).  Imports torch and ``repro_torch`` only.
+
+:class:`World` spawns ``size`` processes (the ``spawn`` start method) that
+join one gloo process group through a ``FileStore`` (a file, so no port
+is fixed and parallel test workers cannot collide) and then serve tasks:
+``world.run(name, *args)`` calls the function ``name`` of this module on
+every rank with ``args`` and returns the ranks' results, in rank order.
+Results travel back pickled, so the functions return numpy arrays and
+plain Python values.  A rank that raises fails the call with its
+traceback; a call that outlives its timeout fails with ``TimeoutError``.
+Either way the world is torn down and the next call starts a new one.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import multiprocessing as mp
+import os
+import queue
+import time
+import traceback
+
+import numpy as np
+import torch
+
+_START_S = 120.0
+
+
+class World:
+    def __init__(self, size: int, store_dir: str, timeout: float = 180.0):
+        self.size, self.store_dir, self.timeout = size, store_dir, timeout
+        self._procs, self._in, self._starts = [], [], 0
+        self._fresh = False
+
+    def _start(self):
+        ctx = mp.get_context("spawn")
+        self._starts += 1
+        store = os.path.join(self.store_dir, f"store{self._starts}")
+        self._in = [ctx.Queue() for _ in range(self.size)]
+        self._out = ctx.Queue()
+        self._procs = [ctx.Process(target=_rank_main, daemon=True, args=(
+            r, self.size, store, self._in[r], self._out))
+            for r in range(self.size)]
+        for p in self._procs:
+            p.start()
+        self._fresh = True
+
+    def run(self, name: str, *args, timeout: float = None):
+        if not self._procs:
+            self._start()
+        for q in self._in:
+            q.put((name, args))
+        deadline = time.monotonic() + (timeout or self.timeout) + (
+            _START_S if self._fresh else 0.0)
+        results = [None] * self.size
+        try:
+            for _ in range(self.size):
+                try:
+                    rank, ok, value = self._out.get(
+                        timeout=max(deadline - time.monotonic(), 0.1))
+                except queue.Empty:
+                    raise TimeoutError(f"{name}: no answer from every rank "
+                                       "in time") from None
+                if not ok:
+                    raise RuntimeError(f"{name} failed on rank {rank}:\n"
+                                       f"{value}")
+                results[rank] = value
+        except BaseException:
+            self.close()
+            raise
+        self._fresh = False
+        return results
+
+    def close(self):
+        for q in self._in:
+            try:
+                q.put(None)
+            except (OSError, ValueError):
+                pass
+        for p in self._procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=5)
+        self._procs, self._in = [], []
+
+
+def _rank_main(rank, size, store_path, inbox, outbox):
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store_path, size), rank=rank,
+        world_size=size, timeout=datetime.timedelta(seconds=120))
+    try:
+        while True:
+            task = inbox.get()
+            if task is None:
+                break
+            name, args = task
+            try:
+                outbox.put((rank, True, globals()[name](*args)))
+            except BaseException:
+                outbox.put((rank, False, traceback.format_exc()))
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# Helpers.
+# ---------------------------------------------------------------------------
+
+
+def _mesh(shape, axes=("data", "model")):
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh(shape, axes)
+
+
+def _np(t):
+    return t.detach().to(torch.float32).numpy() if torch.is_tensor(t) else t
+
+
+def _local_shapes_ok(tree, specs, mesh) -> list:
+    """Leaves whose local piece is not the slice their spec gives."""
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train.tree import leaves_with_paths
+
+    bad = []
+    for path, leaf in leaves_with_paths(tree):
+        spec = specs
+        for p in path:
+            spec = spec[p] if isinstance(spec, dict) or isinstance(p, int) \
+                else getattr(spec, p)
+        want = tuple(SH.local_slice(torch.empty(tuple(leaf.shape),
+                                                device="meta"), spec,
+                                    mesh).shape)
+        if tuple(leaf.to_local().shape) != want or SH.spec_of(leaf) != \
+                tuple(spec) + (None,) * (leaf.ndim - len(spec)):
+            bad.append((path, tuple(leaf.to_local().shape), want))
+    return bad
+
+
+def moe_cfg(num_experts, top_k, d, f, cf, impl):
+    from repro_torch.configs import get_config
+    from repro_torch.lm.config import MoEConfig
+
+    return dataclasses.replace(
+        get_config("kimi_k2_1t_a32b", smoke=True), d_model=d,
+        moe=MoEConfig(num_experts=num_experts, top_k=top_k, d_ff_expert=f,
+                      capacity_factor=cf, impl=impl))
+
+
+# ---------------------------------------------------------------------------
+# Tasks (each runs on every rank).
+# ---------------------------------------------------------------------------
+
+
+def moe_case(shape, cfg_kw, p_np, x_np, loss=None):
+    """``moe_ffn`` of this data rank's rows on a ('data', 'model') mesh:
+    (data rank, local y, aux, {leaf: gradient}) with the gradients of
+    ``loss``: "both" sum(y^2) + 0.01 aux, "y2" sum(y^2), "aux" aux, None
+    none."""
+    from repro_torch.lm import moe
+
+    mesh = _mesh(shape)
+    cfg = moe_cfg(**cfg_kw)
+    p = {k: torch.from_numpy(v).requires_grad_(loss is not None)
+         for k, v in p_np.items()}
+    d = mesh.get_local_rank("data")
+    rows = x_np.shape[0] // shape[0]
+    x = torch.from_numpy(x_np[d * rows:(d + 1) * rows])
+    y, aux = moe.moe_ffn(x, p, cfg, mesh)
+    g = {}
+    if loss is not None:
+        objective = {"both": lambda: torch.sum(y ** 2) + 0.01 * aux,
+                     "y2": lambda: torch.sum(y ** 2), "aux": lambda: aux}
+        objective[loss]().backward()
+        g = {k: np.zeros(v.shape, np.float32) if v.grad is None
+             else _np(v.grad) for k, v in p.items()}
+    return d, _np(y), float(aux), g
+
+
+def _train_setup(arch, shape, axes, seq_shard, capacity):
+    from repro_torch.configs import get_config
+    from repro_torch.lm import model as M
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              seq_shard=seq_shard)
+    if cfg.moe is not None and capacity:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity))
+    mesh = _mesh(shape, axes)
+    params = M.init_params(torch.Generator().manual_seed(0), cfg)
+    return cfg, mesh, params
+
+
+def _place_state(cfg, opt, params, mesh):
+    from repro_torch.parallel import sharding as SH
+
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32)}
+    pspecs = SH.param_specs(params, cfg, mesh)
+    specs = {"params": pspecs,
+             "opt": SH.opt_state_specs(pspecs, state["opt"], mesh),
+             "step": ()}
+    return SH.place(state, specs, mesh), specs
+
+
+def train_case(arch, shape, axes, tokens, steps, lr):
+    """``steps`` adafactor steps of the sharded train step: (losses,
+    leaves whose local piece is not their spec's slice)."""
+    from repro_torch.lm import model as M
+    from repro_torch.train import optim
+
+    cfg, mesh, params = _train_setup(arch, shape, axes, True, 8.0)
+    opt = optim.adafactor(lr)
+    state, specs = _place_state(cfg, opt, params, mesh)
+    step = M.make_train_step(cfg, opt, mesh=mesh)
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, {"tokens": torch.from_numpy(tokens)})
+        losses.append(float(m["loss"]))
+    return losses, _local_shapes_ok(state, specs, mesh)
+
+
+def decode_case(arch, shape, tokens, s0, max_len):
+    """Prefill of ``tokens[:, :s0 + 1]`` and one decode step of its last
+    token at position s0, over the mesh: (prefill logits, decode logits,
+    cache leaves whose piece is not their spec's slice)."""
+    from repro_torch.configs import get_config
+    from repro_torch.lm import model as M
+    from repro_torch.parallel import sharding as SH
+
+    cfg = get_config(arch, smoke=True)
+    mesh = _mesh(shape)
+    params = M.init_params(torch.Generator().manual_seed(0), cfg)
+    tok = torch.from_numpy(tokens)
+    last, caches = M.prefill(params, {"tokens": tok[:, :s0 + 1]}, cfg, mesh,
+                             max_len=max_len)
+    specs = SH.cache_specs(caches, cfg, mesh)
+    bad = _local_shapes_ok(caches, specs, mesh)
+    logits, caches = M.decode_step(params, caches, tok[:, s0:s0 + 1], s0,
+                                   cfg, mesh)
+    return _np(last), _np(logits), bad
+
+
+def reshard_case(ckpt_dir, w_np):
+    """``w`` saved from a (2, 2) mesh as ('data', 'model'); restored onto
+    (4, 1) as ('model', 'data') and onto (1, 4) as (('data', 'model'),
+    None): each rank's piece equals its slice of ``w``."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train import checkpoint as ckpt
+
+    mesh = _mesh((2, 2))
+    w = torch.from_numpy(w_np)
+    ckpt.save(ckpt_dir, 1, {"w": SH.place(w, ("data", "model"), mesh)})
+    torch.distributed.barrier()
+    ok = []
+    for shape, spec in (((4, 1), ("model", "data")),
+                        ((1, 4), (("data", "model"), None))):
+        m = _mesh(shape)
+        got, _ = ckpt.restore_resharded(
+            ckpt_dir, 1, {"w": torch.empty(w.shape, device="meta")},
+            {"w": SH.placements(spec, m)}, m)
+        ok.append(isinstance(got["w"], DTensor) and torch.equal(
+            got["w"].to_local(), SH.local_slice(w, spec, m)))
+        ok.append(torch.equal(got["w"].full_tensor(), w))
+    return ok
+
+
+def reference_ckpt_case(ckpt_dir, leaves, specs):
+    """A checkpoint the reference wrote (``leaves``: key -> (global numpy
+    array, dtype name), bf16 as uint16 bits) restored resharded on a
+    (2, 2) mesh by ``specs``: each rank's piece equals its slice."""
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train import checkpoint as ckpt
+
+    mesh = _mesh((2, 2))
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "int32": torch.int32}
+    shapes = {k: torch.empty(a.shape, dtype=dtypes[dt], device="meta")
+              for k, (a, dt) in leaves.items()}
+    got, extra = ckpt.restore_resharded(
+        ckpt_dir, 3, shapes, {k: SH.placements(s, mesh)
+                              for k, s in specs.items()}, mesh)
+    ok = {}
+    for k, (a, dt) in leaves.items():
+        want = torch.from_numpy(a)
+        if dt == "bfloat16":
+            want = want.view(torch.int16).view(torch.bfloat16)
+        local = got[k].to_local()
+        piece = SH.local_slice(want, specs[k], mesh)
+        ok[k] = (local.dtype == want.dtype and torch.equal(
+            local.view(torch.int16) if dt == "bfloat16" else local,
+            piece.view(torch.int16) if dt == "bfloat16" else piece))
+    return ok, extra
+
+
+def elastic_case(ckpt_dir, tokens, lr):
+    """GLM4-9B SMOKE: 4 steps on (2, 2) against 2 steps on (2, 2), a
+    checkpoint, ``reshard_checkpoint`` onto (4, 1) and 2 more steps:
+    (uninterrupted losses, elastic losses, restored pieces equal)."""
+    from repro_torch.lm import model as M
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.runtime import elastic
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optim
+    from repro_torch.train.tree import leaves
+
+    cfg, mesh_a, params = _train_setup("glm4_9b", (2, 2),
+                                       ("data", "model"), True, 0)
+    opt = optim.adafactor(lr)
+    batch = {"tokens": torch.from_numpy(tokens)}
+    step_a = M.make_train_step(cfg, opt, mesh=mesh_a)
+    st, _ = _place_state(cfg, opt, params, mesh_a)
+    ref = []
+    for _ in range(4):
+        st, m = step_a(st, batch)
+        ref.append(float(m["loss"]))
+    st, _ = _place_state(cfg, opt, params, mesh_a)
+    el = []
+    for _ in range(2):
+        st, m = step_a(st, batch)
+        el.append(float(m["loss"]))
+    ckpt.save(ckpt_dir, 2, st, extra={"mesh": [2, 2]})
+    torch.distributed.barrier()
+    whole = SH.gather(st)
+    mesh_b = _mesh((4, 1))
+    restored, extra = elastic.reshard_checkpoint(ckpt_dir, 2, cfg, opt,
+                                                 mesh_b)
+    same = all(torch.equal(a.full_tensor(), b)
+               for a, b in zip(leaves(restored), leaves(whole)))
+    step_b = M.make_train_step(cfg, opt, mesh=mesh_b)
+    for _ in range(2):
+        restored, m = step_b(restored, batch)
+        el.append(float(m["loss"]))
+    return ref, el, same and extra == {"mesh": [2, 2]}
+
+
+def loader_case(world: int):
+    """``ShardedLoader`` over a ('data',) mesh of every rank, through the
+    ``Prefetcher``: (steps seen, local shapes, global shapes, rows equal
+    to this rank's slice)."""
+    from repro_torch.data import Prefetcher, ShardedLoader, synthetic_tokens
+
+    mesh = _mesh((world,), ("data",))
+    loader = ShardedLoader(lambda s: (synthetic_tokens(s, 8, 16, 128),),
+                           mesh, [("data", None)])
+    seen, local, glob, rows = [], [], [], []
+    k = mesh.get_local_rank("data")
+    for s, (tok,) in Prefetcher(loader, start_step=3, num_steps=4, depth=2):
+        seen.append(s)
+        local.append(tuple(tok.to_local().shape))
+        glob.append(tuple(tok.shape))
+        n = 8 // world
+        rows.append(np.array_equal(tok.to_local().numpy(),
+                                   synthetic_tokens(s, 8, 16, 128)[
+                                       k * n:(k + 1) * n]))
+    return seen, local, glob, rows
+
+
+def train_main_case(ckpt_dir, argv):
+    """``launch.train.main(argv)`` over the world: (losses, the state's
+    step, the checkpoint's newest step)."""
+    from repro_torch.launch import train
+    from repro_torch.train import checkpoint as ckpt
+
+    state, losses = train.main(argv + ["--ckpt-dir", ckpt_dir])
+    return losses, int(state["step"].full_tensor()), ckpt.latest_step(
+        ckpt_dir)

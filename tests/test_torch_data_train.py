@@ -273,3 +273,48 @@ def test_trainer_entry_points_need_cuda(monkeypatch):
         train_ann(static, params, SyntheticVision(), TrainConfig(steps=1))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         evaluate_ann(static, params, SyntheticVision())
+
+
+@pytest.mark.parametrize("before", [
+    (False, True, False, False, None), (True, False, True, True, ":16:8")],
+    ids=["off", "on-warn"])
+def test_train_ann_scopes_deterministic_kernels(before, monkeypatch):
+    """``train_ann`` trains with cuDNN's deterministic algorithms,
+    benchmarking off, ``torch.use_deterministic_algorithms`` and
+    ``CUBLAS_WORKSPACE_CONFIG`` set, and leaves all of them as it found
+    them."""
+    import os
+
+    from repro_torch.models import lenet
+
+    cudnn = torch.backends.cudnn
+    det, bench, algos, warn, env = before
+    monkeypatch.setattr(cudnn, "deterministic", det)
+    monkeypatch.setattr(cudnn, "benchmark", bench)
+    if env is None:
+        monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+    else:
+        monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", env)
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(algos, warn_only=warn)
+    seen = []
+
+    def log(_):
+        seen.append((cudnn.deterministic, cudnn.benchmark,
+                     torch.are_deterministic_algorithms_enabled(),
+                     torch.is_deterministic_algorithms_warn_only_enabled(),
+                     os.environ.get("CUBLAS_WORKSPACE_CONFIG")))
+
+    try:
+        static, params, _ = lenet.make(width_mult=0.25)
+        train_ann(static, params, SyntheticVision(),
+                  TrainConfig(steps=2, batch_size=8, log_every=1), log=log,
+                  device="cpu")
+        assert seen == [(True, False, True, False, env or ":4096:8")] * 2
+        assert (cudnn.deterministic, cudnn.benchmark,
+                torch.are_deterministic_algorithms_enabled(),
+                torch.is_deterministic_algorithms_warn_only_enabled(),
+                os.environ.get("CUBLAS_WORKSPACE_CONFIG")) == before
+    finally:
+        torch.use_deterministic_algorithms(*saved[:1], warn_only=saved[1])

@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, no ``repro``, and no silent CPU fallback.
 
-* An AST scan: no module under ``src/repro_torch/``, and not
-  ``chip_smoke.py``, imports ``jax`` or ``repro``.
+* An AST scan: no module under ``src/repro_torch/``, not
+  ``chip_smoke.py`` and not the multi-rank tests' rank side
+  ``tests/_torch_dist.py``, imports ``jax`` or ``repro``.
 * ``import repro_torch`` (every module) in a fresh interpreter leaves
   ``jax`` out of ``sys.modules``.
 * ``Accelerator().compile(...)`` raises when CUDA is absent instead of
@@ -28,7 +29,10 @@ from repro_torch.models import lenet
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+# the port, the card's smoke script, and the rank side of the multi-rank
+# tests (its spawned ranks import torch and the port only)
+SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                        REPO / "tests" / "_torch_dist.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

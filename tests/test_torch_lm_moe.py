@@ -183,12 +183,24 @@ def test_mesh_dispatch_raises(impl):
                                                            impl=impl))
     p = {k: _t(v) for k, v in _expert_params(5, d=cfg.d_model,
                                              f=cfg.moe.d_ff_expert).items()}
+    # the mesh dispatches are ported (tests/test_torch_mesh.py): the config
+    # is admitted, and naming one without a mesh raises ValueError where
+    # the reference fails on its own: an AttributeError on mesh.shape
+    # (ep_*), or shard_map's ValueError for an empty mesh (tp)
+    tmodel.check_supported(cfg)
     for call in (lambda: tmoe.pick_impl(cfg),
                  lambda: tmoe.moe_ffn(torch.zeros((1, 2, cfg.d_model)), p,
-                                      cfg),
-                 lambda: tmodel.check_supported(cfg)):
-        with pytest.raises(NotImplementedError, match="item 7"):
+                                      cfg)):
+        with pytest.raises(ValueError, match="mesh"):
             call()
+    jcfg = dataclasses.replace(jget("kimi_k2_1t_a32b", smoke=True),
+                               moe=dataclasses.replace(
+                                   jget("kimi_k2_1t_a32b", smoke=True).moe,
+                                   impl=impl))
+    with pytest.raises(AttributeError if impl != "tp" else ValueError):
+        jmoe.moe_ffn(jnp.zeros((1, 2, cfg.d_model)),
+                     {k: jnp.asarray(v.numpy()) for k, v in p.items()},
+                     jcfg, None)
     auto = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
                                                             impl="auto"))
     assert tmoe.pick_impl(auto) == "ref" == jmoe.pick_impl(auto, None, False)

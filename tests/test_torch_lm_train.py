@@ -226,6 +226,45 @@ def test_train_step_reduces_loss(arch):
     assert losses[-1] < losses[0], losses  # memorizes the repeated batch
 
 
+def test_serving_builds_no_router_loss(monkeypatch):
+    """Prefill and decode run the backbone without a loss: no ``aux``
+    accumulator (a zeros tensor and one add a layer in train mode) is
+    built, and the backbone hands back ``None`` for it."""
+    cfg = tget("kimi_k2_1t_a32b", smoke=True)
+    params = tmodel.init_params(torch.Generator().manual_seed(0), cfg)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 9),
+                                     generator=torch.Generator())}
+    seen = []
+    backbone = tmodel._backbone
+
+    def spy(*args, **kw):
+        out = backbone(*args, **kw)
+        seen.append((args[4], out[1]))
+        return out
+
+    monkeypatch.setattr(tmodel, "_backbone", spy)
+    _, caches = tmodel.prefill(params, batch, cfg, max_len=batch[
+        "tokens"].shape[1] + 1)
+    tmodel.decode_step(params, caches, batch["tokens"][:, -1:],
+                       batch["tokens"].shape[1] - 1, cfg)
+    tmodel.forward_train(params, batch, cfg)
+    assert [m for m, _ in seen] == ["prefill", "decode", "train"]
+    assert seen[0][1] is None and seen[1][1] is None
+    assert torch.is_tensor(seen[2][1])
+
+
+def test_train_loop_scopes_deterministic_kernels():
+    """``train_loop`` runs with deterministic kernels and restores the
+    process's settings."""
+    before = torch.are_deterministic_algorithms_enabled()
+    seen = []
+    tlaunch.train_loop(tget("gemma_2b", smoke=True), steps=1, batch_size=2,
+                       seq_len=8, device="cpu", log=lambda s: seen.append(
+                           torch.are_deterministic_algorithms_enabled()))
+    assert seen == [True]
+    assert torch.are_deterministic_algorithms_enabled() == before
+
+
 def test_train_loop_resumes_from_checkpoint(tmp_path):
     cfg = tget("gemma_2b", smoke=True)
     kw = dict(batch_size=2, seq_len=16, log=lambda s: None, device="cpu")
@@ -247,6 +286,10 @@ def test_train_loop_resumes_from_checkpoint(tmp_path):
 
 
 def test_train_main_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 7"):
+    """A mesh needs a process group of its size: ``--data 2`` with none
+    raises the port's mesh-size error, as the reference's mesh
+    construction does without the devices (training over a world:
+    ``tests/test_torch_mesh.py``)."""
+    with pytest.raises(ValueError, match="needs a process group of 2"):
         tlaunch.main(["--arch", "gemma_2b", "--smoke", "--data", "2",
                       "--device", "cpu"])

@@ -160,8 +160,16 @@ def test_stats_traffic_and_plane_counters(vgg_net):
 def test_compile_rejects_what_is_not_ported(vgg_net):
     tnet, hw, x, _ = vgg_net
     acc = api.Accelerator(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        acc.compile(tnet, hw, parallel=2)
+    # data-parallel bucket plans are ported: on the one visible CPU device
+    # parallel=2 clamps to one shard (gcd(bucket, min(2, 1))), as the
+    # reference's does on one device, and serves what parallel=1 serves
+    two = acc.compile(tnet, hw, parallel=2, buckets=BUCKETS)
+    one = acc.compile(tnet, hw, parallel=1, buckets=BUCKETS)
+    xb = torch.from_numpy(x[:11])
+    assert torch.equal(two(xb), one(xb))
+    assert two.plan_for(BUCKETS[-1]).data_parallel == 1
+    with pytest.raises(ValueError, match="data_parallel must be >= 1"):
+        acc.compile(tnet, hw, parallel=0)
     # the planner is ported (ppa/): auto= without its required keywords
     # fails as the reference's does; autotune off the kernels backend is
     # refused as the reference does

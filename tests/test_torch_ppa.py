@@ -441,12 +441,16 @@ def test_compile_auto_rejects_like_reference(lenet_nets):
             api.Accelerator(**dev).compile(
                 net, item, auto=dict(auto, accuracy_floor=2.0,
                                      t_range=(3,), units=(2,)))
-    # data-parallel bucket plans are not ported (ROADMAP.md item 7)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.Accelerator(device="cpu").compile(
-            (static, tparams), item, parallel=2,
-            auto=dict(calib=tcalib, accuracy_floor=WIN_FLOOR, t_range=(3,),
-                      units=(2,)))
+    # data-parallel bucket plans are ported: the planner's winner compiles
+    # with parallel=2, clamped to one shard on the one visible CPU device
+    exe = tapi.Accelerator(device="cpu").compile(
+        (static, tparams), item, parallel=2, buckets=(2,),
+        auto=dict(calib=tcalib, accuracy_floor=WIN_FLOOR, t_range=(3,),
+                  units=(2,)))
+    assert exe.parallel == 2
+    assert getattr(exe.plan_for(2), "data_parallel", 1) == 1
+    np.testing.assert_array_equal(exe(tcalib[:2]).numpy(), tapi.oracle(
+        exe.qnet, tcalib[:2], mode="snn").numpy())
 
 
 # (pool mode, encoding, backend, dataflow)
@@ -543,6 +547,10 @@ def test_cli_auto_serves_every_request_on_cpu(monkeypatch):
     assert out["ok"] == out["requests"] == 6
     assert out["stats"]["compiles"] == 3
     assert out["stats"]["ppa"]["latency_us"] == plan.winner.ppa.latency_us
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.main(["--arch", "lenet5", "--smoke", "--auto", "--device",
-                     "cpu", "--data-parallel", "2"])
+    # --data-parallel is ported: on the one CPU device it clamps to one
+    # shard and serves the same stream
+    par = tserve.main(["--arch", "lenet5", "--smoke", "--device", "cpu",
+                       "--requests", "6", "--buckets", "1,4,8",
+                       "--data-parallel", "2"])
+    assert par["ok"] == par["requests"] == 6
+    assert par["stats"]["compiles"] == 3

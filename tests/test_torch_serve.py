@@ -639,8 +639,13 @@ def test_cli_refuses_what_is_not_ported():
     for run, argv in ((serve_cnn.main, base), (jserve.main, base[:3])):
         with pytest.raises(ValueError, match="no feasible configuration"):
             run(argv + ["--auto", "--requests", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_cnn.main(base + ["--data-parallel", "2"])
+    # --data-parallel is ported: on the one CPU device k = 2 clamps to one
+    # shard and serves; k < 1 is refused as the reference refuses it
+    out = serve_cnn.main(base + ["--data-parallel", "2", "--requests", "2"])
+    assert out["ok"] == out["requests"] == 2
+    for run, argv in ((serve_cnn.main, base), (jserve.main, base[:3])):
+        with pytest.raises(SystemExit):
+            run(argv + ["--data-parallel", "0"])
     with pytest.raises(ValueError, match="phase coding only"):
         serve_cnn.main(base + ["--periods", "2"])
     with pytest.raises(ValueError):       # rate on kernels, validated

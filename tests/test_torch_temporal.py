@@ -504,3 +504,67 @@ def test_plane_skips_on_sparse_batches_match_reference(key, dataflow):
             js["plane_passes_skipped"], js["plane_passes_total"])
         skipped.append(ts["plane_passes_skipped"])
     assert 0 < skipped[0] < skipped[1]
+
+
+@pytest.fixture
+def eight_devices(monkeypatch):
+    """The port lists 8 CPU devices, mirroring the reference's 8 host
+    devices (``tests/conftest.py``)."""
+    from repro_torch.core import engine as tengine
+
+    assert jax.device_count() == 8
+    monkeypatch.setattr(tengine, "visible_devices",
+                        lambda device: [torch.device(device)] * 8)
+
+
+@pytest.mark.parametrize("key,dataflow", REFERENCE_EXE,
+                         ids=[k for k, _ in REFERENCE_EXE])
+def test_data_parallel_plan_matches_reference_executable(key, dataflow,
+                                                         eight_devices):
+    """Both packages at their default ``parallel``: bucket 4 split over
+    gcd(4, 8) = 4 devices, each shard with its own occupancy prepass.
+    Six images (a chunk and a padded tail), an all-zero batch and a batch
+    with one lit pixel: logits and every counter equal the reference's."""
+    jnet, tnet, hw, x, _, backend = _plan_net(key)
+    jexe = japi.Accelerator(backend=backend, dataflow=dataflow).compile(
+        jnet, hw, buckets=(4,))
+    texe = api.Accelerator(backend=backend, dataflow=dataflow,
+                           device="cpu").compile(tnet, hw, buckets=(4,))
+    lit = np.zeros((4,) + hw, np.float32)
+    lit[1, hw[0] // 2, hw[1] // 2, 0] = 1.0
+    for batch in (x[:6], np.zeros((4,) + hw, np.float32), lit):
+        np.testing.assert_array_equal(
+            texe(torch.from_numpy(batch)).numpy(),
+            np.asarray(jexe(jnp.asarray(batch))))
+        js, ts = jexe.stats(), texe.stats()
+        for k in ("plane_passes_skipped", "plane_passes_total",
+                  "executions", "padded_rows", "compiles"):
+            assert ts[k] == js[k], k
+    if backend == "kernels":
+        assert texe.plan_for(4).data_parallel == 4
+        assert ts["plane_passes_skipped"] > 0
+
+
+def test_data_parallel_errors_match_reference(eight_devices):
+    """The plan compiler's ``data_parallel`` checks raise the reference's
+    ``ValueError``s, word for word; the bucket cache clamps instead."""
+    from repro.core import engine as jengine
+    from repro_torch.core import engine as tengine
+
+    jnet, tnet, hw, _, _, _ = _plan_net("ttfs-avg")
+    for batch, k in ((6, 4), (16, 16), (4, 0)):
+        shape = (batch,) + hw
+        with pytest.raises(ValueError) as want:
+            jengine._compile_plan_impl(jnet, shape, method="bitserial",
+                                       data_parallel=k)
+        with pytest.raises(ValueError) as got:
+            tengine._compile_plan_impl(tnet, shape, method="bitserial",
+                                       data_parallel=k)
+        assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError) as want:
+        jengine.PlanCache(data_parallel=0)
+    with pytest.raises(ValueError) as got:
+        tengine.PlanCache(data_parallel=0)
+    assert str(got.value) == str(want.value)
+    cache = tengine.PlanCache((1, 6, 16), data_parallel=16)
+    assert [cache._shards_for(b) for b in cache.buckets] == [1, 2, 8]
