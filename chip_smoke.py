@@ -245,9 +245,30 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` and runs:
    ``runtime.elastic.reshard_checkpoint`` restores it bit for bit;
    prefill and decode over the mesh ``torch.equal`` to the unsharded
    calls.  The phase prints its wall.
+18. GPipe stages, the op analysis, the roofline and the dry run: (a) on a
+   one-rank NCCL world (destroyed at the end) and its ('pod',) mesh of
+   one stage, ``parallel.pipeline.gpipe`` over Gemma-2B's 18 layers at
+   full width (seeded weights), radix T = 4 fused, each layer
+   ``lm.model._apply_layer`` without a cache over ``radixify_params`` /
+   ``kmajor_params`` leaves, 4 microbatches of 2 x 512 tokens: the output
+   ``torch.equal`` to the layers applied one microbatch at a time,
+   ``radix_matmul`` launches = 18 x 4 x 3, host and device ms beside the
+   sequential run's; then the bf16 exact layers under
+   ``train.determinism.deterministic()``, 2 microbatches of 1 x 512: the
+   output and the gradients of sum(out^2) ``torch.equal`` to the
+   sequential run's.  (b) ``launch.op_analysis.analyze`` over one VGG-11
+   fused batch-8 plan call (phase 4's plan) and one Gemma-2B fused decode
+   step (phase 7's configuration): its ``radix_conv2d`` /
+   ``radix_matmul`` / ``radix_decode_attn`` notes equal the launch
+   counters; each ``launch.roofline`` row (H100 constants, the int8
+   peak) beside the profiled device ms of the same call.  (c) ``python
+   -m repro_torch.launch.dryrun --arch gemma_2b --cell train_4k --cell
+   decode_32k`` in a subprocess on the CPU (16 x 16 placeholder world):
+   "2/2 cells OK" and its rows.  The phase prints its wall.
 
 Launch counters are set to 0 just before each path (phases 3-4, 7, 8, 9,
-10, 11, each arch of 12 and 13, 14, 15, 16 and 17) and read just after; so are the GEMM
+10, 11, each arch of 12 and 13, 14, 15, 16, 17 and 18) and read just
+after; so are the GEMM
 wrappers' per-call weight-transpose counters, which must stay 0 on the
 CNN and LM paths (their plans hold K-major weights).  Every failure raises, so the
 script exits non-zero.
@@ -277,8 +298,10 @@ T = 4
 BATCH = 8
 BUCKETS = (1, 8)
 REQUESTS = (1, 3, 8, 11)       # prefixes of one 11-image batch
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
-INT8_OPS_PER_S = 1.979e15      # H100 SXM dense int8 tensor-core peak
+# H100 SXM's HBM bandwidth and dense int8 tensor-core peak: the
+# roofline's constants (``repro_torch.launch.roofline.HW``), set by
+# load_hw() once the package is importable
+HBM_BYTES_PER_S = INT8_OPS_PER_S = None
 F32_OPS_PER_S = 6.7e13         # H100 SXM float32 outside the tensor cores
 KERNEL_INFO = {
     "radix_conv2d": ("src/repro_torch/csrc/radix_conv.cu",
@@ -387,17 +410,26 @@ def device_ms(torch, fn, kernel, reps: int = 20):
     return None
 
 
+def load_hw() -> None:
+    """Set the bandwidth and int8 peak from the package's roofline
+    constants (``src`` must be on the path)."""
+    global HBM_BYTES_PER_S, INT8_OPS_PER_S
+    from repro_torch.launch.roofline import HW
+
+    HBM_BYTES_PER_S, INT8_OPS_PER_S = HW.hbm_bw, HW.peak_flops_int8
+
+
 def bound(call: dict) -> tuple:
     """(ms, "bytes" | "operations"): the larger of every input read once
     plus the output written once over HBM bandwidth, and the products'
-    operations over the int8 peak."""
-    m, k, n = call["mkn"]
-    nbytes = call["x_bytes"] + k * n + 512 + m * n * (1 if call["epi"] else 4)
-    if call["epi"]:
-        nbytes += 8 * n
-    ops = 2.0 * m * k * n
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT8_OPS_PER_S * 1e3
+    operations over the int8 peak (``kernels.work.gemm``'s reckoning)."""
+    from repro_torch.kernels import work
+
+    w = work.gemm(call.get("kernel", "radix_matmul"), *call["mkn"],
+                  x_bytes=call["x_bytes"], epilogue=call["epi"],
+                  occupancy=True)
+    t_bytes = w.nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = w.int8_ops / INT8_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -923,17 +955,16 @@ def attn_bound(case: dict, mask) -> tuple:
     levels and scales, the mask and the output over HBM bandwidth (the
     kernel neither loads nor scores a tile without a valid slot), or
     QK^T at the int8 peak plus PV at the float32 peak over those slots."""
+    from repro_torch.kernels import work
+
     b, s_len, hkv, g, hd = (case[k] for k in ("b", "s", "hkv", "g", "hd"))
-    valid = int(mask.sum()) * hkv                  # (row, slot) pairs
-    row_bytes = hd // 2 if case["packed"] else hd
-    nbytes = (b * hkv * g * hd * (2 if case["q"] == "bf16" else 4)
-              + valid * (2 * row_bytes + 8) + b * s_len
-              + b * hkv * g * hd * 4)
-    ops = 2.0 * valid * g * hd
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (ops / INT8_OPS_PER_S + ops / F32_OPS_PER_S) * 1e3
+    w = work.decode_attn(b, s_len, hkv, g, hd, packed=case["packed"],
+                         q_bytes=2 if case["q"] == "bf16" else 4,
+                         valid=int(mask.sum()) * hkv)   # (row, slot) pairs
+    t_bytes = w.nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (w.int8_ops / INT8_OPS_PER_S + w.f32_ops / F32_OPS_PER_S) * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops
-            else (t_ops, "operations")) + (nbytes,)
+            else (t_ops, "operations")) + (w.nbytes,)
 
 
 def device_kernels(torch, fn, reps: int = 5):
@@ -1191,6 +1222,7 @@ def encode_batch(torch):
 
 
 def phase_encode_kernel(torch, results) -> None:
+    from repro_torch.kernels import work
     from repro_torch.kernels.spike_encode import (spike_encode_cuda,
                                                   spike_encode_plain)
 
@@ -1215,9 +1247,12 @@ def phase_encode_kernel(torch, results) -> None:
                 row["ms"] = row["device_ms"] or row["call_ms"]
                 row["plain_ms"] = cuda_ms(
                     torch, lambda: spike_encode_plain(x, **kw), reps=10)
-                nbytes = x.numel() * 5
+                w = work.encode(x.numel())
+                t_bytes = w.nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = w.f32_ops / F32_OPS_PER_S * 1e3
                 row["bound_ms"], row["bound_by"] = (
-                    nbytes / HBM_BYTES_PER_S * 1e3, "bytes")
+                    (t_bytes, "bytes") if t_bytes >= t_ops
+                    else (t_ops, "operations"))
                 row["library_ms"] = None   # no single PyTorch call
                 rows.append(row)
                 log(f"[kernel] spike_encode {tuple(x.shape)} T={steps}: "
@@ -4230,6 +4265,262 @@ def phase_mesh(torch, np_, run, hw, results) -> None:
     log(f"[mesh] phase 17: {results['mesh']['phase_s']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: GPipe stages, the op analysis and roofline, the dry run.
+# ---------------------------------------------------------------------------
+
+PIPE_MICRO = (4, 2, 512)       # GPipe (kernels): microbatches, rows, tokens
+PIPE_GRAD_MICRO = (2, 1, 512)  # GPipe (bf16 exact): the gradient check
+PIPE_DECODE_PROMPT = 200       # the analyzed decode step's prompt tokens
+DRYRUN_ARGV = ["--arch", "gemma_2b", "--cell", "train_4k",
+               "--cell", "decode_32k"]
+
+
+def start_pipe_world(torch, tmp: str):
+    """A process group of one rank (NCCL on the card, gloo off it; its
+    store a file under ``tmp``) and the ('pod',) mesh of one stage."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    if DEV == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("nccl" if DEV == "cuda" else "gloo",
+                            store=dist.FileStore(str(Path(tmp) / "store"), 1),
+                            rank=0, world_size=1)
+    return make_mesh((1,), ("pod",))
+
+
+def pipe_block(model, cfg, positions):
+    """One decoder layer in the no-cache mode: GPipe's ``block_fn``."""
+    def fn(lp, h):
+        return model._apply_layer(h, lp, "attn", cfg, positions, "train")[0]
+    return fn
+
+
+def run_sequential(torch, block, stacked, x):
+    """Every layer on each microbatch, one microbatch at a time."""
+    from repro_torch.parallel.pipeline import unstack
+
+    layers = unstack(stacked)
+    outs = []
+    for h in x:
+        for lp in layers:
+            h = block(lp, h)
+        outs.append(h)
+    return torch.stack(outs)
+
+
+def phase_gpipe(torch, mesh, cfg, params, results) -> None:
+    """(a) GPipe over the one-stage 'pod' mesh: Gemma-2B's layers at full
+    width, radix T fused on the kernels, against the sequential loop;
+    then the bf16 exact layers' gradients under deterministic kernels."""
+    from repro_torch.lm import model
+    from repro_torch.parallel.pipeline import gpipe
+    from repro_torch.train.determinism import deterministic
+    from repro_torch.train.tree import leaves, tree_map
+
+    out = results["pipeline"]
+    check(model.segments_for(cfg) == ((("attn",), cfg.n_layers),),
+          "GPipe runs one homogeneous stack of attention layers")
+    rcfg = dataclasses.replace(cfg, quant="radix", radix_steps=T,
+                               use_kernel=True, kernel_dataflow="fused")
+    stacked = model.kmajor_params(model.radixify_params(
+        params, rcfg))["segments"][0][0]
+    n_micro, rows, s_len = PIPE_MICRO
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 60)
+    tokens = torch.randint(0, cfg.vocab, (n_micro, rows, s_len),
+                           generator=gen, device=DEV)
+    with torch.inference_mode():
+        x = model._embed(params, tokens, cfg)
+        block = pipe_block(model, rcfg, model._positions(
+            rcfg, rows, s_len, device=DEV))
+        pipe = gpipe(block, mesh, axis="pod")
+        before = counters()["radix_matmul"]
+        got = pipe(stacked, x)
+        sync(torch)
+        launched = counters()["radix_matmul"] - before
+        want = run_sequential(torch, block, stacked, x)
+        sync(torch)
+    per_layer = sum(1 for k in ("w_gate", "w_up", "w_down")
+                    if k in stacked["ffn"])
+    check(launched == cfg.n_layers * n_micro * per_layer,
+          f"GPipe launched {launched} radix_matmul, not "
+          f"{cfg.n_layers} x {n_micro} x {per_layer}")
+    check(tuple(got.shape) == tuple(x.shape)
+          and bool(torch.isfinite(got).all()), "GPipe output shape/finite")
+    check(torch.equal(got, want), "GPipe differs from the sequential loop: "
+          f"max |diff| {float((got.float() - want.float()).abs().max())}")
+    with torch.inference_mode():
+        out["gpipe_host_ms"] = host_ms(torch, lambda: pipe(stacked, x),
+                                       reps=3, warmup=1)
+        out["seq_host_ms"] = host_ms(
+            torch, lambda: run_sequential(torch, block, stacked, x), reps=3,
+            warmup=1)
+        out["gpipe_device_ms"] = device_ms(torch, lambda: pipe(stacked, x),
+                                           None, reps=2)
+        out["seq_device_ms"] = device_ms(
+            torch, lambda: run_sequential(torch, block, stacked, x), None,
+            reps=2)
+    out["launches"] = launched
+    log(f"[pipeline] GPipe, {cfg.n_layers} layers on 1 stage, {n_micro} "
+        f"microbatches of {rows} x {s_len}: torch.equal to sequential, "
+        f"{launched} radix_matmul launches; host ms {out['gpipe_host_ms']:.2f}"
+        f" (sequential {out['seq_host_ms']:.2f}), device ms "
+        f"{out['gpipe_device_ms']} (sequential {out['seq_device_ms']})")
+    del stacked, x, got, want
+
+    n_micro, rows, s_len = PIPE_GRAD_MICRO
+    tokens = torch.randint(0, cfg.vocab, (n_micro, rows, s_len),
+                           generator=gen, device=DEV)
+    with torch.no_grad():
+        x = model._embed(params, tokens, cfg)
+    block = pipe_block(model, cfg, model._positions(cfg, rows, s_len,
+                                                    device=DEV))
+    layers = tree_map(lambda t: t.detach().requires_grad_(True),
+                      params["segments"][0][0])
+    with deterministic():
+        got = gpipe(block, mesh, axis="pod")(layers, x)
+        g_pipe = torch.autograd.grad(got.float().square().sum(),
+                                     leaves(layers))
+        want = run_sequential(torch, block, layers, x)
+        g_seq = torch.autograd.grad(want.float().square().sum(),
+                                    leaves(layers))
+        sync(torch)
+    check(torch.equal(got, want), "bf16 GPipe output differs from sequential")
+    bad = [i for i, (a, b) in enumerate(zip(g_pipe, g_seq))
+           if not torch.equal(a, b)]
+    check(not bad, f"bf16 GPipe gradients differ from sequential at leaves "
+          f"{bad}")
+    check(all(bool(torch.isfinite(g).all()) for g in g_pipe),
+          "GPipe gradients finite")
+    out["grad_leaves_equal"] = len(g_pipe)
+    log(f"[pipeline] bf16 exact, {n_micro} microbatches of {rows} x {s_len},"
+        f" deterministic kernels: output and all {len(g_pipe)} gradient "
+        "leaves of sum(out^2) torch.equal to sequential")
+
+
+def roofline_row(torch, name, rep, dev_ms, results) -> None:
+    row = dict(t_compute_ms=rep.t_compute * 1e3,
+               t_memory_ms=rep.t_memory * 1e3, bottleneck=rep.bottleneck,
+               step_time_lb_ms=rep.step_time_lb * 1e3,
+               raw_flops=rep.raw_flops, device_flops=rep.device_flops,
+               device_bytes=rep.device_bytes, device_ms=dev_ms,
+               lb_over_device=(rep.step_time_lb * 1e3 / dev_ms
+                               if dev_ms else None))
+    results["pipeline"]["roofline"][name] = row
+    log(f"[pipeline] roofline {name}: compute {row['t_compute_ms']:.4f} ms, "
+        f"memory {row['t_memory_ms']:.4f} ms -> {rep.bottleneck}, "
+        f"step_time_lb {row['step_time_lb_ms']:.4f} ms; flops "
+        f"{rep.device_flops:.4g} (FlopCounterMode {rep.raw_flops:.4g}), "
+        f"bytes {rep.device_bytes:.4g}; profiled device "
+        + (f"{dev_ms:.4f} ms, lb / device {row['lb_over_device']:.3f}"
+           if dev_ms else "ms not measured"))
+
+
+def phase_roofline(torch, cnn_run, hw, vgg_calls, cfg, params,
+                   results) -> None:
+    """(b) ``op_analysis`` over one VGG-11 fused batch-8 plan call and one
+    Gemma-2B fused decode step: the kernel notes equal the launches; the
+    roofline rows beside the profiled device ms of the same call."""
+    from repro_torch import api
+    from repro_torch.launch import op_analysis
+    from repro_torch.launch import roofline as RL
+
+    exe = api.Accelerator(dataflow="fused", device=DEV).compile(
+        cnn_run["qnet"], hw, buckets=(BATCH,))
+    xb = cnn_run["x"][:BATCH]
+    exe(xb)                                     # the plan, built
+    before = counters()
+    logits, cost = op_analysis.analyze(exe, xb)
+    sync(torch)
+    now = counters()
+    for k in ("radix_conv2d", "radix_matmul"):
+        check(cost.ops.get(k, 0) == now[k] - before[k] > 0,
+              f"VGG-11 plan call: {cost.ops.get(k, 0)} {k} notes, "
+              f"{now[k] - before[k]} launches")
+    check(torch.equal(logits, exe(xb)), "VGG-11 logits under the analysis")
+    rep = RL.roofline("vgg11", "plan_b8_fused", "1", 1, cost,
+                      sum(2.0 * math.prod(c["mkn"]) for c in vgg_calls),
+                      int8=True)
+    roofline_row(torch, "vgg11_fused_b8", rep,
+                 device_ms(torch, lambda: exe(xb), None, reps=3), results)
+    del exe
+
+    lcfg = dataclasses.replace(cfg, radix_steps=T, radix_kv_pack=True,
+                               packed_attn=True)
+    exe = api.Accelerator(dataflow="fused", device=DEV).compile(
+        (params, lcfg), (LM_BATCH, LM_MAX_LEN), buckets=LM_BUCKETS)
+    state = exe.prefill(lm_prompts(torch, lcfg, LM_BATCH,
+                                   PIPE_DECODE_PROMPT, SEED + 61))
+    tok = state["logits"].argmax(-1, keepdim=True)
+    before = counters()
+    nxt, cost = op_analysis.analyze(exe.decode, state, tok)
+    sync(torch)
+    now = counters()
+    for k, want in (("radix_matmul", 3 * lcfg.n_layers),
+                    ("radix_decode_attn", lcfg.n_layers)):
+        check(cost.ops.get(k, 0) == now[k] - before[k] == want,
+              f"Gemma-2B decode step: {cost.ops.get(k, 0)} {k} notes, "
+              f"{now[k] - before[k]} launches, {want} expected")
+    check(bool(torch.isfinite(nxt["logits"]).all()), "decode logits finite")
+    rep = RL.roofline("gemma_2b", "decode_b8_s512", "1", 1, cost,
+                      2.0 * lcfg.params_active() * LM_BATCH, int8=True)
+    roofline_row(torch, "gemma_2b_fused_decode", rep,
+                 device_ms(torch, lambda: exe.decode(state, tok), None,
+                           reps=3), results)
+    del exe, state
+
+
+def phase_dryrun(results) -> None:
+    """(c) ``launch.dryrun`` in a subprocess on the CPU (its placeholder
+    world cannot share this process with NCCL): two Gemma-2B cells on
+    16 x 16."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_ARGV,
+         "--out", str(ROOT / "build" / "dryrun_phase18.json")],
+        capture_output=True, text=True, env=env, timeout=600, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"[pipeline] {line.strip()}")
+    check(proc.returncode == 0 and "[dryrun] 2/2 cells OK" in proc.stdout,
+          f"dry run exit {proc.returncode}: {proc.stderr[-2000:]}")
+    results["pipeline"]["dryrun_s"] = wall
+    log(f"[pipeline] dry run subprocess {wall:.1f} s")
+
+
+def phase_pipeline(torch, cnn_run, hw, vgg_calls, results) -> None:
+    """Phase 18: (a) GPipe, (b) the op analysis and roofline, on a
+    one-rank world destroyed at the end; (c) the dry run."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import gemma_2b
+    from repro_torch.lm import model
+
+    t0 = time.perf_counter()
+    results["pipeline"] = {"roofline": {}}
+    cfg = gemma_2b.ARCH
+    params = model.init_params(
+        torch.Generator(device=DEV).manual_seed(SEED), cfg, device=DEV)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        mesh = start_pipe_world(torch, tmp)
+        try:
+            phase_gpipe(torch, mesh, cfg, params, results)
+        finally:
+            dist.destroy_process_group()
+    phase_roofline(torch, cnn_run, hw, vgg_calls, cfg, params, results)
+    del params
+    empty_cache(torch)
+    phase_dryrun(results)
+    results["pipeline"]["phase_s"] = time.perf_counter() - t0
+    log(f"[pipeline] phase 18: {results['pipeline']['phase_s']:.1f} s")
+
+
 def main() -> int:
     # phase 16's Adam step on Gemma-2B holds ~65 GB (bf16 weights, float32
     # moments, their successors, clipped gradients and updates): without
@@ -4251,6 +4542,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    load_hw()
     import numpy as np
 
     from repro_torch.configs import gemma_2b
@@ -4304,6 +4596,7 @@ def main() -> int:
     phase_profile(torch, runs, results)
     tune_run = {k: runs["vgg11"][k] for k in ("qnet", "x", "want")}
     mesh_run = dict(tune_run)
+    pipe_run = dict(tune_run)
     del runs
     torch.cuda.empty_cache()
 
@@ -4402,6 +4695,13 @@ def main() -> int:
     del mesh_run
     log(f"[mesh] script wall so far {time.perf_counter() - t_start:.1f} s")
 
+    reset_counters()
+    phase_pipeline(torch, pipe_run, vgg_hw, nets["vgg11"], results)
+    paths["pipeline"] = counters()
+    copies["pipeline"] = transposes()
+    del pipe_run
+    log(f"[pipeline] script wall so far {time.perf_counter() - t_start:.1f} s")
+
     results["path_launches"] = paths
     cnn_kernels = ("radix_conv2d", "radix_matmul")
     for path, names in (("cnn", cnn_kernels),
@@ -4419,6 +4719,7 @@ def main() -> int:
                          else ()),
                         ("training", cnn_kernels + ("radix_decode_attn",)),
                         ("mesh", cnn_kernels + ("radix_decode_attn",)),
+                        ("pipeline", cnn_kernels + ("radix_decode_attn",)),
                         *arch_paths.items()):
         check(all(paths[path][k] > 0 for k in names),
               f"a kernel of the {path} path was not launched: "
@@ -4469,7 +4770,7 @@ def main() -> int:
         "device times summed over one VGG-11 batch-8 fused execution's "
         "launches "
         "(launches: every path, phases 3-4, 7, 8, 9, 10, 11, 12, 13, 14, "
-        "15, 16 and 17); "
+        "15, 16, 17 and 18); "
         "decode attention at the LM "
         "decode shape (packed, fused); encoder at 8x224x224x3, T=4")
     print(smi)

@@ -26,7 +26,7 @@ from typing import Dict, Iterable, Optional, Sequence
 import torch
 
 __all__ = ["SOURCES", "BUILD_DIR", "build", "function", "check_tensor",
-           "device_index", "launch_error"]
+           "check_real", "device_index", "launch_error"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -119,6 +119,7 @@ def check_tensor(t: torch.Tensor, name: str, dtypes, device: torch.device,
     ``dtypes`` on ``device`` (with ``ndim`` dimensions when given)."""
     if not torch.is_tensor(t):
         raise ValueError(f"{name} must be a tensor, got {type(t).__name__}")
+    check_real(t)
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype not in dtypes:
@@ -129,6 +130,17 @@ def check_tensor(t: torch.Tensor, name: str, dtypes, device: torch.device,
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_real(*tensors) -> None:
+    """Raise ``ValueError`` for a fake tensor (``FakeTensorMode``): it has
+    no memory, so no kernel launches on it."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    if any(is_fake(t) for t in tensors):
+        raise ValueError("a kernel cannot launch on a fake tensor (it holds "
+                         "no memory); analyze fake inputs on the CPU, where "
+                         "the plain version runs")
 
 
 def device_index(device: torch.device) -> int:

@@ -17,6 +17,10 @@ for the call's problem and reuses the cached winner on repeat shapes;
 ``config=`` pins one launch.  Every GEMM launch gives the same integers;
 an attention launch's KV split sets its float order, which the plain
 version repeats when it is given the same split.
+
+Under an op analysis (``launch/op_analysis``) each op counts as one call
+of its kernel, whichever implementation runs: the kernel wrappers and
+plain versions note their work (``kernels/work.py``).
 """
 
 from __future__ import annotations

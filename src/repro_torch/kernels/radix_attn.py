@@ -54,7 +54,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 from repro_torch.kernels.radix_matmul import (gated, occ_mask,
                                               plane_occupancy)
 
@@ -360,6 +360,14 @@ def _shapes(q, k_q, mask, packed: bool):
     return b, h, hd, s_len, hkv, h // hkv
 
 
+def _work(q, k_q, *_, packed: bool = False, **__) -> work.Work:
+    b, h, hd = q.shape
+    s_len, hkv = k_q.shape[1], k_q.shape[2]
+    return work.decode_attn(b, s_len, hkv, h // max(hkv, 1), hd,
+                            packed=packed, q_bytes=q.element_size())
+
+
+@work.notes(_work)
 def radix_decode_attn_plain(q: torch.Tensor, k_q: torch.Tensor,
                             k_scale: torch.Tensor, v_q: torch.Tensor,
                             v_scale: torch.Tensor, mask: torch.Tensor, *,
@@ -541,6 +549,7 @@ class _Plan:
 _plans: dict = {}
 
 
+@work.notes(_work)
 def radix_decode_attn_cuda(q: torch.Tensor, k_q: torch.Tensor,
                            k_scale: torch.Tensor, v_q: torch.Tensor,
                            v_scale: torch.Tensor, mask: torch.Tensor, *,
@@ -573,6 +582,7 @@ def radix_decode_attn_cuda(q: torch.Tensor, k_q: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"radix_decode_attn runs on CPU or CUDA, got "
                          f"{q.device}")
+    _build.check_real(*tensors)
     splits = check_splits(*(splits or (None, None)))
     key = (num_steps, q_bits, method, packed, sparsity, splits) + tuple(
         (t.device, t.dtype, t.shape, t.stride(), t.data_ptr() % 16)

@@ -28,7 +28,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.layers import _int_conv
-from repro_torch.kernels import _build, gemm
+from repro_torch.kernels import _build, gemm, work
 from repro_torch.kernels.radix_matmul import (
     _bitserial,
     _epilogue,
@@ -48,6 +48,21 @@ _ARGTYPES = [_VOID, _INT, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
              _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VOID]
 
 
+def _work(x_q, w_q, *, stride: int = 1, kmajor: bool = False, mult=None,
+          occupancy=None, **_) -> work.Work:
+    b, h, w, cin = x_q.shape
+    if kmajor:
+        cout, kh, kw, _ = w_q.shape
+    else:
+        kh, kw, _, cout = w_q.shape
+    m = b * ((h - kh) // stride + 1) * ((w - kw) // stride + 1)
+    return work.gemm("radix_conv2d", m, kh * kw * cin, cout,
+                     x_bytes=x_q.numel() * x_q.element_size(),
+                     epilogue=mult is not None,
+                     occupancy=occupancy is not None)
+
+
+@work.notes(_work)
 def radix_conv2d_plain(x_q: torch.Tensor, w_q: torch.Tensor, *,
                        num_steps: int, method: str = "bitserial",
                        stride: int = 1,
@@ -83,6 +98,7 @@ def radix_conv2d_plain(x_q: torch.Tensor, w_q: torch.Tensor, *,
                      out_grid=out_grid)
 
 
+@work.notes(_work)
 def radix_conv2d_cuda(x_q: torch.Tensor, w_q: torch.Tensor, *,
                       num_steps: int, method: str = "bitserial",
                       stride: int = 1,

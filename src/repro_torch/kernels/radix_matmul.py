@@ -29,7 +29,7 @@ import torch
 
 from repro_torch.core.encoding import pow2_floor
 from repro_torch.core.layers import _int_matmul
-from repro_torch.kernels import _build, gemm
+from repro_torch.kernels import _build, gemm, work
 
 __all__ = ["OCC_LANES", "plane_occupancy", "occ_mask", "gated",
            "radix_matmul_plain", "radix_matmul_cuda"]
@@ -129,6 +129,17 @@ def _epilogue(acc, bias, mult, *, num_steps, out_steps, out_level, out_grid):
     return _project_levels(q, out_level=out_level, out_grid=out_grid)
 
 
+def _work(x_q, w_q, *, kmajor: bool = False, mult=None, occupancy=None,
+          **_) -> work.Work:
+    k = x_q.shape[-1]
+    return work.gemm("radix_matmul", x_q.numel() // max(k, 1), k,
+                     w_q.shape[0 if kmajor else -1],
+                     x_bytes=x_q.numel() * x_q.element_size(),
+                     epilogue=mult is not None,
+                     occupancy=occupancy is not None)
+
+
+@work.notes(_work)
 def radix_matmul_plain(x_q: torch.Tensor, w_q: torch.Tensor, *,
                        num_steps: int, method: str = "bitserial",
                        bias: Optional[torch.Tensor] = None,
@@ -207,6 +218,7 @@ def occupancy_arg(occupancy, device: torch.device):
     return occupancy.data_ptr()
 
 
+@work.notes(_work)
 def radix_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor, *,
                       num_steps: int, method: str = "bitserial",
                       bias: Optional[torch.Tensor] = None,

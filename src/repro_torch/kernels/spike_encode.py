@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 
 __all__ = ["encode_constant", "spike_encode_plain", "spike_encode_cuda"]
 
@@ -36,6 +36,11 @@ def encode_constant(num_steps: int, scale: float) -> float:
                               dtype=torch.float32))
 
 
+def _work(x, **_) -> work.Work:
+    return work.encode(x.numel())
+
+
+@work.notes(_work)
 def spike_encode_plain(x: torch.Tensor, *, num_steps: int,
                        scale: float = 1.0) -> torch.Tensor:
     """Plain PyTorch version of the kernel, on any device."""
@@ -45,6 +50,7 @@ def spike_encode_plain(x: torch.Tensor, *, num_steps: int,
     return torch.clamp(q, 0, (1 << num_steps) - 1).to(torch.uint8)
 
 
+@work.notes(_work)
 def spike_encode_cuda(x: torch.Tensor, *, num_steps: int,
                       scale: float = 1.0) -> torch.Tensor:
     """float32 (any shape) -> uint8 levels of the same shape.

@@ -4,12 +4,14 @@
 Public surface (functions of param and cache trees):
 
     init_params(generator, cfg, device=)   real parameters, seeded
+    abstract_params(cfg, mode)             their shapes and dtypes, no memory
     radixify_params(params, cfg)           paper-technique serving weights
     kmajor_params(params)                  their levels in the kernel's layout
     forward_train(params, batch, cfg, mesh)  -> logits, labels, aux
     loss_fn(params, batch, cfg, mesh)        -> loss, metrics
     make_train_step(cfg, opt, clip_norm, mesh=) -> step(state, batch)
     init_cache(cfg, batch, max_len, device=)
+    abstract_cache(cfg, batch, max_len, mode)
     prefill(params, batch, cfg, mesh, max_len=, true_len=) -> logits, caches
     decode_step(params, caches, tokens, pos, cfg, mesh)   -> logits, caches
 
@@ -52,6 +54,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.utils.checkpoint
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.api import _resolve_device
 from repro_torch.lm import blocks, moe as moe_lib, radix as radix_lib
@@ -63,9 +66,10 @@ from repro_torch.train import optim as optim_lib
 from repro_torch.train import tree as tree_lib
 from repro_torch.train.tree import tree_map
 
-__all__ = ["init_params", "radixify_params", "kmajor_params",
-           "forward_train", "loss_fn", "make_train_step", "init_cache",
-           "prefill", "decode_step", "tree_map"]
+__all__ = ["init_params", "abstract_params", "radixify_params",
+           "kmajor_params", "forward_train", "loss_fn", "make_train_step",
+           "init_cache", "abstract_cache", "prefill", "decode_step",
+           "tree_map"]
 
 
 def _stack_trees(trees):
@@ -115,6 +119,8 @@ def _nrm(gen: torch.Generator, shape, scale: float, dtype, device):
     a time: a stacked leaf's float32 transient is one matrix, not the
     leaf (Grok-1's stacked experts are 25.8 GB in float32 at 4 layers)."""
     out = torch.empty(shape, dtype=dtype, device=device)
+    if is_fake(out):            # abstract_params: no values to draw
+        return out
     mats = out.view((-1,) + tuple(shape[-2:])) if len(shape) > 2 else [out]
     for m in mats:
         m.copy_(torch.randn(m.shape, generator=gen, dtype=torch.float32,
@@ -285,6 +291,14 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, *,
         p["enc_pos_embed"] = _nrm(generator, (cfg.encoder_ctx, cfg.d_model),
                                   0.02, dt, device)
     return p
+
+
+def abstract_params(cfg: ArchConfig, mode) -> dict:
+    """:func:`init_params`' tree as fake tensors of ``mode`` (a
+    ``FakeTensorMode`` the caller holds) on "cpu": the reference's shapes
+    and dtypes, no memory (the reference's ``abstract_params``)."""
+    with mode:
+        return init_params(torch.Generator(), cfg, device="cpu")
 
 
 def _unstacked_norm(cfg: ArchConfig, device) -> dict:
@@ -782,6 +796,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device=None):
     return tuple(caches)
 
 
+def abstract_cache(cfg: ArchConfig, batch: int, max_len: int, mode):
+    """:func:`init_cache`'s trees as fake tensors of ``mode`` on "cpu"
+    (the reference's ``abstract_cache``)."""
+    with mode:
+        return init_cache(cfg, batch, max_len, device="cpu")
+
+
 def prefill(params, batch, cfg: ArchConfig, mesh=None, max_len: int = 0,
             *, true_len: Optional[int] = None):
     """Process the prompt; returns (last-token logits (B, V), caches).
@@ -906,7 +927,7 @@ def decode_step(params, caches, tokens, pos, cfg: ArchConfig, mesh=None):
     def write(c, new, spec):
         piece = _rows_piece(new, spec, mesh)
         dst = c.to_local()
-        if dst.data_ptr() != piece.data_ptr():
+        if not dst.is_set_to(piece):         # not already written in place
             dst.copy_(piece)
 
     tree_map(write, caches, local, specs)

@@ -35,6 +35,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.core import encoding
+from repro_torch.kernels import work
 from repro_torch.lm.config import ArchConfig
 
 __all__ = ["torch_dtype", "quantize_weight", "kmajor_weight",
@@ -96,9 +97,18 @@ def _radix_activation(x: torch.Tensor, num_steps: int):
     return q, s
 
 
+def _int_product_work(qx: torch.Tensor, qw: torch.Tensor) -> work.Work:
+    k, n = qw.shape[-2:]
+    return work.gemm("radix_matmul", qx.numel() // max(k, 1), k, n,
+                     x_bytes=qx.numel() * qx.element_size(),
+                     epilogue=False, occupancy=False)
+
+
+@work.notes(_int_product_work)
 def _int_product(qx: torch.Tensor, qw: torch.Tensor) -> torch.Tensor:
     """(..., K) levels @ (K, N) int8 -> int32, the plain integer product
-    (float64 products and sums, exact below 2^53)."""
+    (float64 products and sums, exact below 2^53), noted to an op
+    analysis as the radix product it computes."""
     return torch.matmul(qx.to(torch.float64),
                         qw.to(torch.float64)).to(torch.int32)
 

@@ -21,7 +21,11 @@ per model rank):
   ``all_to_all(..., tiled=True)``): backward is the reverse exchange;
 * :func:`mean_over` (the reference's ``pmean``): forward all-reduce over
   the group and divide by its size, backward the gradient times
-  ``grad_scale``.
+  ``grad_scale``;
+* :func:`permute` (the reference's ``ppermute`` by a fixed shift along
+  one axis): forward each rank sends to the rank ``shift`` places on and
+  receives from the one ``shift`` places back, backward the reverse
+  shift of the gradient.
 
 A group of one rank skips its communication (every function is then the
 identity, or a slice of the whole).
@@ -38,7 +42,7 @@ from repro_torch.parallel.sharding import axis_sizes
 
 __all__ = ["group", "group_size", "group_rank", "copy_to", "reduce_from",
            "slice_of", "gather_from", "all_to_all", "mean_over",
-           "all_reduce_"]
+           "permute", "all_reduce_"]
 
 
 def group(mesh, axes: Sequence[str]):
@@ -49,7 +53,12 @@ def group(mesh, axes: Sequence[str]):
         return None
     if len(axes) == 1:
         return mesh.get_group(axes[0])
-    return mesh[axes]._flatten().get_group()
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    # the sub-mesh is host bookkeeping on real tensors: outside any
+    # dispatch mode (a fake one would refuse them)
+    with _disable_current_modes():
+        return mesh[axes]._flatten().get_group()
 
 
 def group_size(mesh, axes: Sequence[str]) -> int:
@@ -156,6 +165,28 @@ class _MeanOver(torch.autograd.Function):
         return g * ctx.grad_scale, None, None, None
 
 
+def _shift(x: torch.Tensor, pg, send_to: int, recv_from: int):
+    """Send ``x`` to global rank ``send_to`` and receive a tensor like it
+    from ``recv_from``, as one batch of point-to-point operations."""
+    out = torch.empty_like(x)
+    ops = [dist.P2POp(dist.isend, x.contiguous(), send_to, group=pg),
+           dist.P2POp(dist.irecv, out, recv_from, group=pg)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return out
+
+
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pg, send_to, recv_from):
+        ctx.pg, ctx.send_to, ctx.recv_from = pg, send_to, recv_from
+        return _shift(x, pg, send_to, recv_from)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, ctx.pg, ctx.recv_from, ctx.send_to), None, None, None
+
+
 def _axes_info(mesh, axes) -> Tuple[Optional[object], int, int]:
     n = group_size(mesh, axes)
     if n == 1:
@@ -193,3 +224,16 @@ def mean_over(x, mesh, axes, grad_scale: float = 1.0):
     if n == 1:
         return x
     return _MeanOver.apply(x, pg, n, grad_scale)
+
+
+def permute(x, mesh, axis: str, shift: int = 1):
+    """``x`` of the rank ``shift`` places back along ``axis`` (cyclic), as
+    the reference's ``ppermute`` with pairs ``(i, (i + shift) % n)``.
+    Every rank of the axis's group must call it; a group of one rank
+    returns ``x`` itself."""
+    pg, n, k = _axes_info(mesh, (axis,))
+    if n == 1:
+        return x
+    send_to = dist.get_global_rank(pg, (k + shift) % n)
+    recv_from = dist.get_global_rank(pg, (k - shift) % n)
+    return _Permute.apply(x, pg, send_to, recv_from)

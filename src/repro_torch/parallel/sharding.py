@@ -49,7 +49,7 @@ def axis_sizes(mesh) -> Dict[str, int]:
     ``mesh_dim_names``) or of a mapping."""
     if isinstance(mesh, Mapping):
         return {str(k): int(v) for k, v in mesh.items()}
-    return dict(zip(mesh.mesh_dim_names, (int(s) for s in mesh.mesh.shape)))
+    return dict(zip(mesh.mesh_dim_names, (int(s) for s in mesh.shape)))
 
 
 def dp_axes(mesh) -> Tuple[str, ...]:

@@ -373,3 +373,42 @@ def train_main_case(ckpt_dir, argv):
     state, losses = train.main(argv + ["--ckpt-dir", ckpt_dir])
     return losses, int(state["step"].full_tensor()), ckpt.latest_step(
         ckpt_dir)
+
+
+def _pipe_block(lp, x):
+    return torch.tanh(x @ lp["w"] + lp["b"])
+
+
+def _pipe_seq(params, x):
+    """Every layer on each microbatch in turn, one microbatch at a time."""
+    outs = []
+    for xm in x:
+        for j in range(params["w"].shape[0]):
+            xm = _pipe_block({"w": params["w"][j], "b": params["b"][j]}, xm)
+        outs.append(xm)
+    return torch.stack(outs)
+
+
+def gpipe_case(shape, p_np, x_np, placed: bool):
+    """``gpipe`` over the 'pod' axis of a ('pod', 'data') mesh of
+    ``shape``, its stacked params whole or (``placed``) DTensors placed
+    ``Shard(0)`` on 'pod': (output, sequential loop's output, output
+    ``torch.equal`` to it, gradients of sum(out^2), the sequential
+    loop's gradients)."""
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel.pipeline import gpipe
+
+    mesh = _mesh(shape, ("pod", "data"))
+    params = {k: torch.from_numpy(v).requires_grad_(True)
+              for k, v in p_np.items()}
+    x = torch.from_numpy(x_np)
+    stacked = ({k: SH.place(v, ("pod",), mesh) for k, v in params.items()}
+               if placed else params)
+    out = gpipe(_pipe_block, mesh, axis="pod")(stacked, x)
+    grads = torch.autograd.grad(torch.sum(out ** 2), list(stacked.values()))
+    grads = [g.full_tensor() if placed else g for g in grads]
+    ref = _pipe_seq(params, x)
+    ref_g = torch.autograd.grad(torch.sum(ref ** 2), list(params.values()))
+    return (_np(out), _np(ref), torch.equal(out, ref),
+            {k: _np(g) for k, g in zip(params, grads)},
+            {k: _np(g) for k, g in zip(params, ref_g)})
