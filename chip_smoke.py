@@ -124,12 +124,13 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` and runs:
    same tuned launches, tuned and untuned timed in turns;
 12. the LM archs beyond Gemma-2B (``ARCH_PHASES``), each at full width in
    bf16 (seeded weights on the card), T = 4, ``radix_kv_pack`` and
-   ``packed_attn`` on, its weights freed before the next: GLM4-9B (40
-   layers, g = 16) through ``Accelerator.compile`` at (8, 512) with
-   buckets (64, 256) for both dataflows, requests of 8 x 40 and 3 x 200
-   tokens with 8 new; Gemma-7B (28 layers) and DeepSeek-Coder-33B (16 of
-   its 62 layers: its bf16 tree alone is ~66.8 GB) alike, fused, the
-   first request only; RecurrentGemma-2B (26 layers, window 2048) through
+   ``packed_attn`` on, its weights freed before the next: GLM4-9B (10 of
+   its 40 layers, g = 16) through ``Accelerator.compile`` at (8, 512)
+   with buckets (64, 256) for both dataflows, requests of 8 x 40 and
+   3 x 200 tokens with 8 new; Gemma-7B (14 of 28 layers) and
+   DeepSeek-Coder-33B (8 of its 62 layers) alike, fused, the first
+   request only (the depths cut since phase 19 joined the script's time
+   limit; DeepSeek's bf16 tree alone is ~66.8 GB at 62 layers); RecurrentGemma-2B (26 layers, window 2048) through
    ``launch.serve.generate``, requests of 8 x 64 tokens with 16 new and
    2 x 2100 with 8 new (prefill keeps the last 2048 positions and rolls
    the ring; decode wraps); RWKV-6-3B (32 layers) through ``generate``,
@@ -265,10 +266,26 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` and runs:
    -m repro_torch.launch.dryrun --arch gemma_2b --cell train_4k --cell
    decode_32k`` in a subprocess on the CPU (16 x 16 placeholder world):
    "2/2 cells OK" and its rows.  The phase prints its wall.
+19. Tensor parallelism over 'model': the decode kernel's partials mode
+   ``torch.equal`` to its plain version, and 4 ranks' partials over
+   quarters of the slots merged (``radix_attn.merge_partials``)
+   ``torch.equal`` to the one-card kernel, at Gemma-2B's and GLM4-9B's
+   decode shapes, both dataflows (counted on no path); then (a) each arch
+   of ``TP_ARCHS`` at full width (Gemma-2B all 18 layers; Gemma-7B 8 of
+   28, each rank building the whole seeded tree before keeping its
+   shards), radix T = 4 with ``radix_attn``, fused, packed KV, batch 8,
+   ``max_len`` 512, over 4 ranks spawned on one gloo world sharing the
+   card ((1, 4) ('data', 'model'); gloo moves the collectives through
+   the host): ``model.shard`` then ``prefill`` and 4 ``decode_step``s,
+   every step's logits ``torch.equal`` to the one-card run (else within
+   1e-2 relative L2), the launches, no per-call weight transpose, no
+   attention plan built in steady state; (b) Gemma-2B on a one-rank NCCL
+   world, (1, 1): ``torch.equal`` to the one-card run.  The phase prints
+   its wall and each rank's host times.
 
 Launch counters are set to 0 just before each path (phases 3-4, 7, 8, 9,
-10, 11, each arch of 12 and 13, 14, 15, 16, 17 and 18) and read just
-after; so are the GEMM
+10, 11, each arch of 12 and 13, 14, 15, 16, 17, 18 and 19: in each
+spawned rank of 19) and read just after; so are the GEMM
 wrappers' per-call weight-transpose counters, which must stay 0 on the
 CNN and LM paths (their plans hold K-major weights).  Every failure raises, so the
 script exits non-zero.
@@ -2464,13 +2481,15 @@ def phase_autotune_lm(torch, arch, results) -> None:
 # None): DeepSeek-Coder-33B's bf16 tree is
 # ~66.8 GB at its 62 layers, and radixifying a stacked FFN leaf on the card
 # adds its int8 copy (8.5 GB at 62 layers) and float temporaries, so it
-# runs 16 layers; RecurrentGemma's second request (2100 tokens) is longer
-# than its 2048-slot window, so prefill rolls the ring and decode wraps.
+# ran 16 layers; since phase 19 joined the script's time limit GLM4-9B
+# runs 10 of its 40 layers, Gemma-7B 14 of 28 and DeepSeek-Coder-33B 8;
+# RecurrentGemma's second request (2100 tokens) is longer than its
+# 2048-slot window, so prefill rolls the ring and decode wraps.
 ARCH_PHASES = (
-    ("glm4_9b", 0, ("fused", "bitserial"), ((8, 40, 8), (3, 200, 8)),
+    ("glm4_9b", 10, ("fused", "bitserial"), ((8, 40, 8), (3, 200, 8)),
      "compile", LM_BUCKETS),
-    ("gemma_7b", 0, ("fused",), ((8, 40, 8),), "compile", LM_BUCKETS),
-    ("deepseek_coder_33b", 16, ("fused",), ((8, 40, 8),), "compile",
+    ("gemma_7b", 14, ("fused",), ((8, 40, 8),), "compile", LM_BUCKETS),
+    ("deepseek_coder_33b", 8, ("fused",), ((8, 40, 8),), "compile",
      LM_BUCKETS),
     ("recurrentgemma_2b", 0, ("fused",), ((8, 64, 16), (2, 2100, 8)),
      "generate", None),
@@ -4521,6 +4540,301 @@ def phase_pipeline(torch, cnn_run, hw, vgg_calls, results) -> None:
     log(f"[pipeline] phase 18: {results['pipeline']['phase_s']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: tensor parallelism over 'model', 4 gloo ranks on one card.
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 4
+# (arch, layers (0: all), prompt tokens, decode steps); Gemma-7B is cut to
+# 8 of its 28 layers to keep the phase within 60-150 s: 4 ranks each build
+# the whole seeded tree before keeping their shards
+TP_ARCHS = (("gemma_2b", 0, 200, 4), ("gemma_7b", 8, 64, 4))
+TP_MAX_LEN = 512             # 128 slots a rank: 4 of the kernel's splits
+TP_TIMEOUT_S = 600
+
+
+def tp_cfg(name: str, layers: int):
+    """The arch at full width, radix T = 4 with ``radix_attn`` (every
+    product integer), fused, packed KV and packed decode attention."""
+    cfg = arch_cfg(name, layers)
+    return dataclasses.replace(cfg, quant="radix", radix_attn=True,
+                               use_kernel=True, kernel_dataflow="fused")
+
+
+def tp_params(torch, model, cfg):
+    """The seeded bf16 tree drawn on the card, radix-quantized, K-major."""
+    params = model.init_params(
+        torch.Generator(device=DEV).manual_seed(SEED), cfg)
+    return model.kmajor_params(model.radixify_params(params, cfg))
+
+
+def tp_generate(torch, model, params, cfg, tokens, s0: int, steps: int,
+                mesh) -> tuple:
+    """Prefill of ``tokens[:, :s0 + 1]`` and ``steps`` decode steps fed
+    from ``tokens``: (every step's logits on the host, host ms of the
+    prefill and of each step, the attention launch plans after each
+    step)."""
+    from repro_torch.kernels import radix_attn
+
+    sync(torch)
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, {"tokens": tokens[:, :s0 + 1]},
+                                   cfg, mesh, max_len=TP_MAX_LEN)
+    sync(torch)
+    times = {"prefill_ms": (time.perf_counter() - t0) * 1e3,
+             "decode_ms": []}
+    out, plans = [logits.float().cpu()], []
+    for i in range(steps):
+        pos = s0 + i
+        t0 = time.perf_counter()
+        logits, caches = model.decode_step(params, caches,
+                                           tokens[:, pos:pos + 1], pos, cfg,
+                                           mesh)
+        sync(torch)
+        times["decode_ms"].append((time.perf_counter() - t0) * 1e3)
+        out.append(logits.float().cpu())
+        plans.append(len(radix_attn._plans))
+    return out, times, plans
+
+
+def _tp_rank(rank: int, store: str, out_dir: str, name: str, layers: int,
+             s0: int, steps: int) -> None:
+    """One rank of phase 19's world (a spawned process): gloo over a file
+    store, cuda:0 shared, the (1, 4) ('data', 'model') mesh; its shards of
+    the seeded tree, then prefill and decode with the CUDA kernels.
+    Writes its logits, times and counters to ``out_dir``."""
+    import datetime
+    import traceback
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store, TP_RANKS), rank=rank,
+        world_size=TP_RANKS, timeout=datetime.timedelta(seconds=300))
+    res = {}
+    try:
+        from repro_torch.lm import model
+
+        mesh = DeviceMesh("cuda", torch.arange(TP_RANKS).reshape(
+            1, TP_RANKS), mesh_dim_names=("data", "model"))
+        cfg = tp_cfg(name, layers)
+        params = tp_params(torch, model, cfg)
+        sharded = model.shard(params, cfg, mesh)
+        del params
+        empty_cache(torch)
+        tokens = lm_prompts(torch, cfg, LM_BATCH, s0 + steps, SEED + 19)
+        reset_peak(torch)
+        reset_counters()
+        out, times, plans = tp_generate(torch, model, sharded, cfg, tokens,
+                                        s0, steps, mesh)
+        res = dict(logits=out, times=times, plans=plans,
+                   launches=counters(), transposes=transposes(),
+                   peak_gb=peak_gb(torch))
+    except BaseException:
+        res = {"error": traceback.format_exc()}
+    finally:
+        torch.save(res, str(Path(out_dir) / f"rank{rank}.pt"))
+        dist.destroy_process_group()
+
+
+def tp_world(torch, name: str, layers: int, s0: int, steps: int,
+             tmp: str) -> list:
+    """Spawn the 4 ranks of one arch and collect their results (in rank
+    order); a rank that failed or a world that hangs fails the phase, and
+    every process is stopped."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_tp_rank, args=(
+        r, str(Path(tmp) / f"{name}.store"), tmp, name, layers, s0, steps))
+        for r in range(TP_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + TP_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+    finally:
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join(10)
+    check(not hung, f"phase 19: {len(hung)} rank(s) of {name} hung")
+    out = []
+    for r in range(TP_RANKS):
+        f = Path(tmp) / f"rank{r}.pt"
+        check(f.exists(), f"phase 19: rank {r} of {name} wrote nothing")
+        res = torch.load(str(f), weights_only=False)
+        f.unlink()
+        check("error" not in res, f"phase 19: rank {r} of {name} failed:\n"
+              f"{res.get('error')}")
+        out.append(res)
+    return out
+
+
+def phase_tp_kernels(torch, results) -> None:
+    """The kernel's partials mode against its plain version, and 4 ranks'
+    partials over quarters of the slots merged against the one-card
+    kernel, at Gemma-2B's decode shape (g = 8, hd = 256) and GLM4-9B's
+    (g = 16, hd = 128), both dataflows; the masks leave whole quarters
+    empty.  These launches compare kernels: counted on no path."""
+    from repro_torch.kernels import radix_attn as ra
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 190)
+    rows = []
+    for case in (ATTN_DECODE, ATTN_G16):
+        q, kq, ks, vq, vs, mask, _ = attn_problem(torch, case, gen)
+        b, s_len, hkv = kq.shape[0], kq.shape[1], kq.shape[2]
+        g, hd = case["g"], case["hd"]
+        splits = (ra.split_slots(s_len), ra.MAX_SPLITS)
+        quarter = s_len // TP_RANKS
+        for method in ("fused", "bitserial"):
+            kw = dict(num_steps=case["t"], method=method, packed=True,
+                      splits=splits)
+            plain = ra.radix_decode_attn_plain(q, kq, ks, vq, vs, mask,
+                                               partials=True, **kw)
+            # the caller's buffer (filled with NaN: every element written)
+            part = ra.radix_decode_attn_cuda(
+                q, kq, ks, vq, vs, mask, partials=True,
+                out=torch.full_like(plain, float("nan")), **kw)
+            parts = []
+            for r in range(TP_RANKS):
+                sl = slice(r * quarter, (r + 1) * quarter)
+                parts.append(ra.radix_decode_attn_cuda(
+                    q, kq[:, sl], ks[:, sl], vq[:, sl], vs[:, sl],
+                    mask[:, sl], partials=True, **kw))
+            merged = ra.merge_partials(parts, b * hkv, g, hd).reshape(
+                b, hkv * g, hd)
+            one = ra.radix_decode_attn_cuda(q, kq, ks, vq, vs, mask, **kw)
+            empty = sum(int(not mask[i, r * quarter:(r + 1) * quarter].any())
+                        for i in range(b) for r in range(TP_RANKS))
+            row = dict(g=g, hd=hd, method=method,
+                       partials_equal=torch.equal(part, plain),
+                       merge_equal=torch.equal(merged, one),
+                       merge_err=float((merged - one).abs().max()),
+                       empty_quarters=empty)
+            rows.append(row)
+            check(row["partials_equal"], f"phase 19: partials {row}")
+            check(row["merge_equal"] or row["merge_err"] <= 3e-5,
+                  f"phase 19: the 4-rank merge {row}")
+            log(f"[tp] attention g={g} hd={hd} {method}: partials equal to "
+                f"the plain version {row['partials_equal']}; 4-rank merge "
+                f"equal to the one-card kernel {row['merge_equal']} (max "
+                f"abs err {row['merge_err']:.3g}; {empty} empty (row, "
+                f"quarter) pairs)")
+    results["tp"]["attention"] = rows
+
+
+def phase_tp_nccl(torch, model, cfg, params, tokens, s0, steps, want,
+                  results) -> dict:
+    """(b) The same path on phase 17's one-rank NCCL world, (1, 1):
+    logits ``torch.equal`` to the one-card run."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        mesh = start_world(torch, tmp)
+        try:
+            sharded = model.shard(params, cfg, mesh)
+            got, times, _ = tp_generate(torch, model, sharded, cfg, tokens,
+                                        s0, steps, mesh)
+            del sharded
+        finally:
+            dist.destroy_process_group()
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    check(equal, "phase 19 (b): the one-rank NCCL world's logits differ "
+          "from the one-card run")
+    log(f"[tp] (b) one-rank NCCL world: logits equal to the one-card run "
+        f"{equal}; prefill {times['prefill_ms']:.1f} ms, decode "
+        f"{statistics.median(times['decode_ms']):.1f} ms a step")
+    return dict(equal=equal, **times)
+
+
+def phase_tp(torch, results) -> tuple:
+    """Phase 19: (a) each arch of ``TP_ARCHS`` over 4 gloo ranks sharing
+    the card against its one-card run; (b) Gemma-2B on a one-rank NCCL
+    world; the kernel's partials mode and the 4-rank merge.  Returns (the
+    path's launches, its per-call weight transposes): the spawned ranks'
+    and (b)'s, counted from 0 just before each drives the path."""
+    import tempfile
+
+    from repro_torch.lm import model
+
+    t0 = time.perf_counter()
+    results["tp"] = {"archs": {}}
+    phase_tp_kernels(torch, results)
+    launches = {k: 0 for k in _wrappers()}
+    copies = {k: 0 for k in transposes()}
+    for name, layers, s0, steps in TP_ARCHS:
+        cfg = tp_cfg(name, layers)
+        t1 = time.perf_counter()
+        params = tp_params(torch, model, cfg)
+        tokens = lm_prompts(torch, cfg, LM_BATCH, s0 + steps, SEED + 19)
+        want, one_times, _ = tp_generate(torch, model, params, cfg, tokens,
+                                         s0, steps, None)
+        row = dict(layers=cfg.n_layers, prompt=s0, steps=steps,
+                   one_card=one_times)
+        if name == "gemma_2b":
+            reset_counters()
+            row["nccl_1x1"] = phase_tp_nccl(torch, model, cfg, params,
+                                            tokens, s0, steps, want, results)
+            for k, v in counters().items():
+                launches[k] += v
+            for k, v in transposes().items():
+                copies[k] += v
+        del params, tokens
+        empty_cache(torch)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            ranks = tp_world(torch, name, layers, s0, steps, tmp)
+        for res in ranks:
+            for k, v in res["launches"].items():
+                launches[k] += v
+            for k, v in res["transposes"].items():
+                copies[k] += v
+        same = [all(torch.equal(a, b) for a, b in zip(res["logits"], want))
+                for res in ranks]
+        errs = [max(rel_l2(torch, a, b) for a, b in zip(res["logits"], want))
+                for res in ranks]
+        steady = all(res["plans"][-1] == res["plans"][0] for res in ranks)
+        row.update(
+            equal=all(same), max_rel_l2=max(errs), steady_plans=steady,
+            prefill_ms=[r["times"]["prefill_ms"] for r in ranks],
+            decode_ms=[statistics.median(r["times"]["decode_ms"])
+                       for r in ranks],
+            launches=ranks[0]["launches"],
+            peak_gb=[r["peak_gb"] for r in ranks],
+            wall_s=time.perf_counter() - t1)
+        results["tp"]["archs"][name] = row
+        check(all(same) or max(errs) <= 1e-2,
+              f"phase 19: {name} over {TP_RANKS} ranks, logits rel L2 "
+              f"{errs} from the one-card run")
+        check(steady, f"phase 19: {name}: attention plans built in steady "
+              f"state {[r['plans'] for r in ranks]}")
+        check(ranks[0]["launches"]["radix_matmul"] > 0
+              and ranks[0]["launches"]["radix_decode_attn"] > 0,
+              f"phase 19: {name}: a kernel was not launched on a rank "
+              f"{ranks[0]['launches']}")
+        log(f"[tp] (a) {name} {cfg.n_layers} layers over {TP_RANKS} gloo "
+            f"ranks on one card: logits torch.equal to the one-card run "
+            f"{all(same)} (max rel L2 {max(errs):.3g}); launches a rank "
+            f"{ranks[0]['launches']}; prefill of {s0} tokens "
+            f"{statistics.median(row['prefill_ms']):.1f} ms and decode "
+            f"{statistics.median(row['decode_ms']):.1f} ms a step (host "
+            f"wall; gloo moves every collective through the host, so these "
+            f"say nothing of NCCL across cards) against one card's "
+            f"{one_times['prefill_ms']:.1f} / "
+            f"{statistics.median(one_times['decode_ms']):.1f} ms; peak "
+            f"{max(row['peak_gb']):.2f} GB a rank; {row['wall_s']:.1f} s")
+    results["tp"]["phase_s"] = time.perf_counter() - t0
+    log(f"[tp] phase 19: {results['tp']['phase_s']:.1f} s")
+    return launches, copies
+
+
 def main() -> int:
     # phase 16's Adam step on Gemma-2B holds ~65 GB (bf16 weights, float32
     # moments, their successors, clipped gradients and updates): without
@@ -4702,6 +5016,9 @@ def main() -> int:
     del pipe_run
     log(f"[pipeline] script wall so far {time.perf_counter() - t_start:.1f} s")
 
+    paths["tp"], copies["tp"] = phase_tp(torch, results)
+    log(f"[tp] script wall so far {time.perf_counter() - t_start:.1f} s")
+
     results["path_launches"] = paths
     cnn_kernels = ("radix_conv2d", "radix_matmul")
     for path, names in (("cnn", cnn_kernels),
@@ -4720,6 +5037,7 @@ def main() -> int:
                         ("training", cnn_kernels + ("radix_decode_attn",)),
                         ("mesh", cnn_kernels + ("radix_decode_attn",)),
                         ("pipeline", cnn_kernels + ("radix_decode_attn",)),
+                        ("tp", ("radix_matmul", "radix_decode_attn")),
                         *arch_paths.items()):
         check(all(paths[path][k] > 0 for k in names),
               f"a kernel of the {path} path was not launched: "
@@ -4770,7 +5088,7 @@ def main() -> int:
         "device times summed over one VGG-11 batch-8 fused execution's "
         "launches "
         "(launches: every path, phases 3-4, 7, 8, 9, 10, 11, 12, 13, 14, "
-        "15, 16, 17 and 18); "
+        "15, 16, 17, 18 and 19, phase 19's spawned ranks' included); "
         "decode attention at the LM "
         "decode shape (packed, fused); encoder at 8x224x224x3, T=4")
     print(smi)

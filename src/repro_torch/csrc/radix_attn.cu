@@ -59,6 +59,11 @@
 //     +0 to the int32 dot and to the non-negative value sums, so gating
 //     on any superset of the occupied planes gives the same bits as not
 //     gating, and no whole-cache occupancy prepass is needed;
+//   - in the partials mode (a sequence split over ranks: each rank runs
+//     its slice of the slots and the ranks' splits are merged later, in
+//     this combine's order) every split writes its unnormalized (o, m, l)
+//     to the caller's buffer, laid out as the workspace below, and the
+//     block stops: a split with no valid slot writes (0, MASKED, 0);
 //   - each split leaves (o, m, l) in a workspace; the last block of the
 //     row to arrive (an int counter it resets) combines them: m = max,
 //     l and o pairwise trees over the splits of x_i * exp(m_i - m)
@@ -98,7 +103,7 @@ enum Dim {
   D_HKV, D_G, D_S, D_HD, D_STEPS, D_GATE, D_QLVL, D_SPLIT, D_NSPLIT,
   D_VEC16, D_PACKED, D_FUSED, D_QBF16,
   D_QB, D_QH, D_KB, D_KS, D_KH, D_VB, D_VS, D_VH,
-  D_KSB, D_KSS, D_KSH, D_VSB, D_VSS, D_VSH, D_MB, D_MS, D_ROWS
+  D_KSB, D_KSS, D_KSH, D_VSB, D_VSS, D_VSH, D_MB, D_MS, D_ROWS, D_PARTIALS
 };
 
 struct Params {
@@ -110,8 +115,9 @@ struct Params {
   const uint8_t* mask;
   float* out;     // (B, H, hd)
   float* work;    // (N, nsplit, g, hd) o, then (N, nsplit, g, 2) (m, l)
+                  // (the caller's buffer in the partials mode)
   int* count;     // (N,) arrivals
-  int hkv, g, s_len, hd, steps, gate, qlvl, split, nsplit, vec16;
+  int hkv, g, s_len, hd, steps, gate, qlvl, split, nsplit, vec16, partials;
   long long q_b, q_h, k_b, k_s, k_h, v_b, v_s, v_h;
   long long ks_b, ks_s, ks_h, vs_b, vs_s, vs_h, m_b, m_s;
   float c_sint, c_qsum, c_ksum, c_hd, c_scale, c_v;
@@ -702,6 +708,21 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
   }
 
   const int nrows = gridDim.y;
+  if (p.partials) {   // every split's state to the caller's buffer, as is
+    float* ml = p.work + static_cast<size_t>(nrows) * p.nsplit * g * hd;
+    for (int hh = warp; hh < g; hh += nwarps) {
+      const size_t state =
+          (static_cast<size_t>(row) * p.nsplit + split) * g + hh;
+      const float4* src = reinterpret_cast<const float4*>(o_s + hh * hd);
+      float4* dst = reinterpret_cast<float4*>(p.work + state * hd);
+      for (int u = lane; u < nunits; u += 32) dst[u] = src[u];
+      if (lane == 0) {
+        ml[2 * state] = st_s[4 * hh];
+        ml[2 * state + 1] = st_s[4 * hh + 1];
+      }
+    }
+    return;
+  }
   if (p.nsplit == 1) {   // the combine of one split is the identity
     for (int hh = warp; hh < g; hh += nwarps) {
       const float l = st_s[4 * hh + 1];
@@ -840,6 +861,7 @@ extern "C" int radix_decode_attn_launch(const void* q, const void* kq,
   p.split = static_cast<int>(dims[D_SPLIT]);
   p.nsplit = static_cast<int>(dims[D_NSPLIT]);
   p.vec16 = static_cast<int>(dims[D_VEC16]);
+  p.partials = static_cast<int>(dims[D_PARTIALS]);
   p.q_b = dims[D_QB];
   p.q_h = dims[D_QH];
   p.k_b = dims[D_KB];

@@ -75,6 +75,9 @@ __all__ = [
     "unpack_levels",
     "occupancy_rows",
     "combine_splits",
+    "partials_size",
+    "unpack_partials",
+    "merge_partials",
     "radix_decode_attn_plain",
     "radix_decode_attn_cuda",
 ]
@@ -113,7 +116,7 @@ _DIMS = ("hkv", "g", "s_len", "hd", "steps", "gate", "qlvl", "split",
          "nsplit", "vec16", "packed", "fused", "qbf16",
          "q_b", "q_h", "k_b", "k_s", "k_h", "v_b", "v_s", "v_h",
          "ks_b", "ks_s", "ks_h", "vs_b", "vs_s", "vs_h", "m_b", "m_s",
-         "rows")
+         "rows", "partials")
 """The int64 parameter row of ``radix_decode_attn_launch``, in order
 (strides in elements of each tensor)."""
 _VOID = ctypes.c_void_p
@@ -342,6 +345,38 @@ def combine_splits(m: torch.Tensor, l: torch.Tensor,
     return osm_finalize(state).squeeze(1)
 
 
+def partials_size(n: int, nsplit: int, g: int, hd: int) -> int:
+    """f32 elements of one call's partials (``partials=True``): the
+    splits' un-normalized ``o`` (N, splits, g, hd), then their (m, l)
+    (N, splits, g, 2), N = B * Hkv rows."""
+    return n * nsplit * g * (hd + 2)
+
+
+def unpack_partials(part: torch.Tensor, n: int, g: int, hd: int):
+    """(m, l, o) views of a flat partials buffer: ``m``/``l`` (N, splits,
+    g, 1), ``o`` (N, splits, g, hd), as :func:`combine_splits` takes
+    them."""
+    nsplit = part.numel() // (n * g * (hd + 2))
+    cut = n * nsplit * g * hd
+    o = part[:cut].view(n, nsplit, g, hd)
+    ml = part[cut:].view(n, nsplit, g, 2)
+    return ml[..., :1], ml[..., 1:], o
+
+
+def merge_partials(parts, n: int, g: int, hd: int) -> torch.Tensor:
+    """The output (N, g, hd) of the splits of ``parts`` (flat partials
+    buffers, in slot order: one per rank of a KV sequence split over
+    ranks) merged by :func:`combine_splits`, in the kernel's pairwise
+    order over all of them.  Where every buffer holds the same number of
+    splits of the same size, a power of two of them, the merge is the
+    one-device kernel's combine of the same splits, bit for bit.  A
+    buffer whose every slot was masked holds (MASKED, 0, 0) splits: they
+    add exact zeros."""
+    ms, ls, os_ = zip(*(unpack_partials(p, n, g, hd) for p in parts))
+    return combine_splits(torch.cat(ms, 1), torch.cat(ls, 1),
+                          torch.cat(os_, 1))
+
+
 def _shapes(q, k_q, mask, packed: bool):
     """(B, H, hd, S, Hkv, g) of a call, or ValueError."""
     if q.ndim != 3 or k_q.ndim != 4:
@@ -376,8 +411,8 @@ def radix_decode_attn_plain(q: torch.Tensor, k_q: torch.Tensor,
                             sparsity: bool = True,
                             splits: Optional[Tuple[int, int]] = None,
                             occupancy: Optional[Tuple[torch.Tensor,
-                                                      torch.Tensor]] = None
-                            ) -> torch.Tensor:
+                                                      torch.Tensor]] = None,
+                            partials: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the kernel (the arguments of
     :func:`radix_decode_attn_cuda`), on any device: ``quantize_q``, the
     cache's :func:`split_slots` splits (``splits`` = ``(slots,
@@ -389,13 +424,19 @@ def radix_decode_attn_plain(q: torch.Tensor, k_q: torch.Tensor,
     The splits run side by side, as rows of one batch (the last one
     padded with masked, zero slots): a masked slot adds an exact 0 to
     every sum and a fully masked tile rescales by exp(0) = 1, so each
-    split's state is the one the split alone would give."""
+    split's state is the one the split alone would give.
+
+    ``partials`` returns the splits' un-normalized states instead, as the
+    kernel's partials mode writes them (:func:`partials_size`,
+    :func:`unpack_partials`)."""
     if method not in ("fused", "bitserial"):
         raise ValueError(f"unknown method {method!r}")
     splits = check_splits(*(splits or (None, None)))
     b, h, hd, s_len, hkv, g = _shapes(q, k_q, mask, packed)
     n = b * hkv
     if n == 0 or g == 0 or s_len == 0:
+        if partials:
+            raise ValueError("the partials of an empty call")
         return torch.zeros((b, h, hd), dtype=torch.float32, device=q.device)
     qq, qs = quantize_q(q, q_bits)
     qq = qq.reshape(n, g, hd)
@@ -433,6 +474,8 @@ def radix_decode_attn_plain(q: torch.Tensor, k_q: torch.Tensor,
         occk, occv, num_steps=num_steps, q_bits=q_bits, hd=hd,
         method=method, packed=packed)
     m, l, o = (t.reshape((n, nsplit) + tuple(t.shape[1:])) for t in state)
+    if partials:
+        return torch.cat([o.reshape(-1), torch.cat([m, l], -1).reshape(-1)])
     return combine_splits(m, l, o).reshape(b, h, hd)
 
 
@@ -463,7 +506,8 @@ class _Plan:
     else."""
 
     def __init__(self, tensors, *, num_steps: int, q_bits: int, method: str,
-                 packed: bool, sparsity: bool, splits: Tuple[int, int]):
+                 packed: bool, sparsity: bool, splits: Tuple[int, int],
+                 partials: bool = False):
         q, k_q, k_scale, v_q, v_scale, mask = tensors
         dev = q.device
         if method not in ("fused", "bitserial"):
@@ -522,7 +566,10 @@ class _Plan:
                              f"the card's {MAX_SMEM}")
         n = b * hkv
         self.work = self.count = None
-        if nsplit > 1:
+        self.part_size = partials_size(n, nsplit, g, hd)
+        if partials and self.empty:
+            raise ValueError("the partials of an empty call")
+        if nsplit > 1 and not partials:
             self.workspace = _workspace(_build.device_index(dev), n, nsplit,
                                         g, hd)
             self.work = self.workspace.data_ptr()
@@ -533,7 +580,8 @@ class _Plan:
                     gate=int(sparsity and method == "bitserial"), qlvl=qlvl,
                     split=split, nsplit=nsplit, vec16=vec16,
                     packed=int(packed), fused=int(method == "fused"),
-                    qbf16=int(q.dtype == torch.bfloat16), rows=n)
+                    qbf16=int(q.dtype == torch.bfloat16), rows=n,
+                    partials=int(partials))
         for name, t in (("q", q), ("k", k_q), ("v", v_q), ("ks", k_scale),
                         ("vs", v_scale), ("m", mask)):
             for axis, st in zip("bh" if name == "q" else "bsh", t.stride()):
@@ -556,7 +604,9 @@ def radix_decode_attn_cuda(q: torch.Tensor, k_q: torch.Tensor,
                            num_steps: int, q_bits: int = Q_BITS,
                            method: str = "bitserial", packed: bool = False,
                            sparsity: bool = True,
-                           splits: Optional[Tuple[int, int]] = None
+                           splits: Optional[Tuple[int, int]] = None,
+                           partials: bool = False,
+                           out: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """One decode step over the radix cache, in one launch.
 
@@ -572,42 +622,65 @@ def radix_decode_attn_cuda(q: torch.Tensor, k_q: torch.Tensor,
     (default ``(SPLIT_SLOTS, MAX_SPLITS)``); the plain version given the
     same ``splits`` repeats the launch bit for bit.
 
+    ``partials`` is the mode of a KV sequence split over ranks: the
+    launch writes each split's un-normalized (o, m, l) to ``out`` (a flat
+    f32 buffer of :func:`partials_size`, made when not given) and skips
+    the combine; :func:`merge_partials` merges the ranks' buffers.
+
     CPU tensors run :func:`radix_decode_attn_plain`; CUDA tensors launch
     the kernel or raise."""
     tensors = (q, k_q, k_scale, v_q, v_scale, mask)
     if q.device.type == "cpu":
-        return radix_decode_attn_plain(
+        got = radix_decode_attn_plain(
             *tensors, num_steps=num_steps, q_bits=q_bits, method=method,
-            packed=packed, sparsity=sparsity, splits=splits)
+            packed=packed, sparsity=sparsity, splits=splits,
+            partials=partials)
+        if out is not None:
+            return out.copy_(got)
+        return got
     if q.device.type != "cuda":
         raise ValueError(f"radix_decode_attn runs on CPU or CUDA, got "
                          f"{q.device}")
     _build.check_real(*tensors)
     splits = check_splits(*(splits or (None, None)))
-    key = (num_steps, q_bits, method, packed, sparsity, splits) + tuple(
+    key = (num_steps, q_bits, method, packed, sparsity, splits,
+           partials) + tuple(
         (t.device, t.dtype, t.shape, t.stride(), t.data_ptr() % 16)
         for t in tensors)
     plan = _plans.get(key)
     if plan is None:
         plan = _Plan(tensors, num_steps=num_steps, q_bits=q_bits,
                      method=method, packed=packed, sparsity=sparsity,
-                     splits=splits)
+                     splits=splits, partials=partials)
         if len(_plans) >= 64:
             _plans.clear()
         _plans[key] = plan
     dev = plan.device
-    out = torch.empty(plan.out_shape, dtype=torch.float32, device=dev)
-    if plan.empty:
-        return out.zero_()
+    work = plan.work
+    if partials:
+        if out is None:
+            out = torch.empty(plan.part_size, dtype=torch.float32,
+                              device=dev)
+        elif (out.device != dev or out.dtype != torch.float32
+              or out.numel() != plan.part_size or not out.is_contiguous()
+              or out.data_ptr() % 16):
+            raise ValueError(f"out must be {plan.part_size} contiguous, "
+                             f"16-byte aligned f32 on {dev}")
+        work, result = out.data_ptr(), out
+    else:
+        result = torch.empty(plan.out_shape, dtype=torch.float32,
+                             device=dev)
+        if plan.empty:
+            return result.zero_()
     with torch.cuda.device(dev):
         code = plan.fn(q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(),
                        v_q.data_ptr(), v_scale.data_ptr(), mask.data_ptr(),
-                       out.data_ptr(), plan.work, plan.count, plan.dims,
+                       result.data_ptr(), work, plan.count, plan.dims,
                        plan.consts, torch.cuda.current_stream(dev).cuda_stream)
     if code != 0:
         raise _build.launch_error("radix_decode_attn", code)
     radix_decode_attn_cuda.launches += 1
-    return out
+    return result
 
 
 radix_decode_attn_cuda.launches = 0

@@ -15,7 +15,10 @@ runs through :func:`noted` (the :func:`notes` decorator): while an
 analysis is active it notes the call's :class:`Work` once and mutes the
 analysis for the call, so the aten ops of a plain version (the CPU's, or
 a fake tensor's) and a wrapper's call of its plain version are not
-counted on top; outside an analysis it costs one falsy check.
+counted on top; outside an analysis it costs one falsy check.  A wrapper reckons from
+the tensors it is given, so under tensor parallelism (``parallel/tp.py``)
+a rank's note counts its own shard: a column- or row-parallel product's
+local N or K, decode attention's local slots.
 """
 
 from __future__ import annotations

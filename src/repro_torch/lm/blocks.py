@@ -6,7 +6,23 @@ cross-attention cache, the dense FFNs, the Griffin RG-LRU block and the
 RWKV-6 time and channel mix).
 
 Every function takes (params-dict, inputs) tensors, as the reference
-does.  Layouts are the reference's: activations (B, S, d), q/k/v
+does.  With ``tp`` (a ``parallel.tp.TP``, the mesh's 'model' layout) a
+block takes this rank's shards of its weights (``tp.shard_params``) and
+its input whole (``TP.enter``), computes its share of the block, and
+returns the block's output summed over 'model' (``TP.exit``): the
+QKV projections are column-parallel over the heads (or over head_dim
+where the heads do not divide the axis: the head's head_dim is gathered
+before RoPE, the scores and the KV quantization, as GSPMD must), the
+output projection row-parallel; the FFNs' up/gate column- and down
+row-parallel; RG-LRU's width split over 'model'; RWKV-6's heads split
+over 'model', or where they do not divide it, each head's key dim (the
+counterpart of the reference's ``_shard_last_over_model``: the wkv
+output is then a sum over the ranks).  Decode attention over a KV cache
+whose slots are split over 'model' attends over this rank's slots and
+merges the ranks' softmax states (flash-decoding, the reference's
+sequence-parallel contraction).
+
+Layouts are the reference's: activations (B, S, d), q/k/v
 (B, S, H, hd), the KV cache ``{k, v}`` (B, S_max, Hkv, hd) plus radix
 scales, positions (B, S) or (3, B, S) for M-RoPE.  Prefill attention is
 plain tensor code (the reference's is plain jnp, not a Pallas kernel);
@@ -104,28 +120,78 @@ def rope_apply(x: torch.Tensor, positions: torch.Tensor, theta: float,
 # ---------------------------------------------------------------------------
 
 
-def _attn_proj(x, w, cfg: ArchConfig):
+def _attn_proj(x, w, cfg: ArchConfig, tp=None, key: str = ""):
     """x (B,S,d) @ w -> (B,S,H,hd).  ``w`` is a (d,H,hd) tensor, or under
-    ``cfg.radix_attn`` a quantize_weight dict over the (d, H*hd) view."""
+    ``cfg.radix_attn`` a quantize_weight dict over the (d, H*hd) view;
+    under ``tp`` this rank's heads (or head_dim slices: hd is then the
+    local ``hd / model``)."""
+    if tp is not None and tp.kind(key) == "replicated":
+        x = tp.replicated(x)
     if isinstance(w, dict):
         y = radix_lib.maybe_radix_matmul(x, w, cfg=cfg)
-        return y.reshape(y.shape[:-1] + (-1, cfg.hd))
+        hd = cfg.hd // tp.n if tp is not None and tp.kind(key) == \
+            "head_dim" else cfg.hd
+        return y.reshape(y.shape[:-1] + (-1, hd))
     return torch.einsum("bsd,dhk->bshk", x, w)
 
 
-def _out_proj(o, w, cfg: ArchConfig):
-    """(B,S,H,hd) @ wo -> (B,S,d); dict = flattened (H*hd, d) radix view."""
+def _out_proj(o, w, cfg: ArchConfig, tp=None):
+    """(B,S,H,hd) @ wo -> (B,S,d); dict = flattened (H*hd, d) radix view.
+    Under ``tp`` ``o`` and ``wo`` are this rank's heads (or head_dim
+    slices) and the product is summed over 'model'."""
     if isinstance(w, dict):
         return radix_lib.maybe_radix_matmul(
-            o.reshape(o.shape[:-2] + (-1,)), w, cfg=cfg)
-    return torch.einsum("bshk,hkd->bsd", o, w)
+            o.reshape(o.shape[:-2] + (-1,)), w, cfg=cfg, tp=tp)
+    y = torch.einsum("bshk,hkd->bsd", o, w)
+    return y if tp is None else tp.exit(y)
 
 
-def _qkv(x, p, cfg: ArchConfig):
-    q = _attn_proj(x, p["wq"], cfg)                        # (B,S,H,hd)
-    k = _attn_proj(x, p["wk"], cfg)                        # (B,S,Hkv,hd)
-    v = _attn_proj(x, p["wv"], cfg)
+def _qkv(x, p, cfg: ArchConfig, tp=None):
+    q = _attn_proj(x, p["wq"], cfg, tp, "wq")              # (B,S,H,hd)
+    k = _attn_proj(x, p["wk"], cfg, tp, "wk")              # (B,S,Hkv,hd)
+    v = _attn_proj(x, p["wv"], cfg, tp, "wv")
     return q, k, v
+
+
+def _local_heads(cfg: ArchConfig, tp):
+    """The query heads [h0, h1) this rank computes: its own under a
+    column split of ``wq``, else all of them."""
+    if tp is None or tp.kind("wq") != "column":
+        return 0, cfg.n_heads
+    hl = cfg.n_heads // tp.n
+    return tp.rank * hl, (tp.rank + 1) * hl
+
+
+def _tp_heads(q, k, v, cfg: ArchConfig, tp):
+    """Under ``tp``: (q of this rank's heads [h0, h1) with whole
+    head_dim, K and V with whole head_dim, the slice of K/V's heads those
+    query heads read, or None where K/V hold just this rank's kv heads).
+    A head_dim split is gathered here (before RoPE and the scores)."""
+    h0, h1 = _local_heads(cfg, tp)
+    q_local = h1 - h0 < cfg.n_heads
+    if tp.kind("wq") == "head_dim":
+        q = tp.gather(q, -1)
+    gather = tp.gather_sum if q_local else tp.gather
+    if tp.kind("wk") == "head_dim":
+        k, v = gather(k, -1), gather(v, -1)
+    if not q_local or tp.kind("wk") == "column":
+        return q, k, v, None
+    g = cfg.n_heads // cfg.n_kv_heads
+    return q, k, v, slice(h0 // g, (h1 - 1) // g + 1)
+
+
+def _tp_out(o, p, cfg: ArchConfig, tp):
+    """The output projection of (B,S,H_loc,hd) ``o`` (this rank's heads,
+    or all of them) under ``tp``: row-parallel over heads or head_dim,
+    or every rank's whole product where ``wo`` is replicated."""
+    kind = tp.kind("wo")
+    if kind == "row":
+        if o.shape[2] == cfg.n_heads:
+            o = tp.piece(o, 2)
+        return _out_proj(o, p["wo"], cfg, tp)
+    if kind == "row_hd":
+        return _out_proj(tp.piece(o, 3), p["wo"], cfg, tp)
+    return tp.exit_whole(_out_proj(tp.replicated(o), p["wo"], cfg))
 
 
 def _gqa_scores(q, k):
@@ -149,26 +215,34 @@ def _gqa_out(probs, v):
 def attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
               positions: torch.Tensor, *, window: int = 0,
               cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-              return_kv: bool = False, causal: bool = True):
+              return_kv: bool = False, causal: bool = True, tp=None):
     """Self-attention, or cross-attention over ``cross_kv`` (the encoder's
     (B, S_enc, Hkv, hd) K and V, never masked), query-chunked: scores
     exist for ``cfg.attn_chunk`` queries at a time.  ``causal`` masks
     later keys; ``window`` > 0 is local attention: a query sees the keys
     less than ``window`` positions back.  Query positions are
     ``positions[0]``, or ``positions[0, 0]`` of (3, B, S) M-RoPE
-    streams."""
+    streams.  Under ``tp`` (``x`` whole, ``cross_kv`` from this rank's
+    ``wk``/``wv``) the output is summed over 'model' and ``return_kv``
+    gives K and V of every head."""
     b, s_len, _ = x.shape
     hd = cfg.hd
     if cross_kv is None:
-        q, k, v = _qkv(x, p, cfg)
-        if cfg.pos_embed == "rope":
-            sec = cfg.mrope_sections
-            q = rope_apply(q, positions, cfg.rope_theta, sec)
-            k = rope_apply(k, positions, cfg.rope_theta, sec)
+        q, k, v = _qkv(x, p, cfg, tp)
     else:
-        q = _attn_proj(x, p["wq"], cfg)
+        q = _attn_proj(x, p["wq"], cfg, tp, "wq")
         k, v = cross_kv
         causal = False
+    kv_heads = None
+    if tp is not None:
+        q, k, v, kv_heads = _tp_heads(q, k, v, cfg, tp)
+    if cross_kv is None and cfg.pos_embed == "rope":
+        sec = cfg.mrope_sections
+        q = rope_apply(q, positions, cfg.rope_theta, sec)
+        k = rope_apply(k, positions, cfg.rope_theta, sec)
+    kv = k, v
+    if kv_heads is not None:
+        k, v = k[:, :, kv_heads], v[:, :, kv_heads]
 
     scale = hd ** -0.5
     chunk = min(cfg.attn_chunk, s_len) if cfg.attn_chunk else s_len
@@ -189,7 +263,14 @@ def attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
     qpos_all = positions[0] if positions.ndim == 2 else positions[0, 0]
     o = torch.cat([attend_chunk(q[:, c0:c0 + chunk], qpos_all[c0:c0 + chunk])
                    for c0 in range(0, s_len, chunk)], dim=1)
-    out = _out_proj(o, p["wo"], cfg)
+    if tp is None:
+        out = _out_proj(o, p["wo"], cfg)
+    else:
+        out = _tp_out(o, p, cfg, tp)
+        k, v = kv
+        if return_kv and k.shape[2] < cfg.n_kv_heads:
+            # every kv head (no gradient: the cache's)
+            k, v = tp.gather(k, 2), tp.gather(v, 2)
     if return_kv:
         return out, (k, v)
     return out
@@ -200,10 +281,12 @@ def attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
 # ---------------------------------------------------------------------------
 
 
-def decode_mask(pos, s_len: int, window: int = 0,
-                device=None) -> torch.Tensor:
+def decode_mask(pos, s_len: int, window: int = 0, device=None,
+                offset: int = 0) -> torch.Tensor:
     """Valid-slot mask (B or 1, s_len) bool for one decode step at ``pos``
-    (an int, or a (B,) tensor of positions).
+    (an int, or a (B,) tensor of positions), of the slots ``offset`` ..
+    ``offset + s_len - 1`` (a rank's piece of a cache whose slots are
+    split over 'model').
 
     Full attention: slot i valid iff i <= pos.  Windowed ring buffer: slot
     i holds absolute position pos - ((pos - i) % window); only never-
@@ -213,20 +296,116 @@ def decode_mask(pos, s_len: int, window: int = 0,
         pos = pos.reshape(-1, 1)
     else:
         pos = int(pos)                  # a host int: no copy to the device
-    slots = torch.arange(s_len, device=device)[None, :]
+    slots = torch.arange(offset, offset + s_len, device=device)[None, :]
     if window:
         return pos - torch.remainder(pos - slots, window) >= 0
     return slots <= pos
 
 
+def _whole_heads(t, kind: str, tp):
+    """A decode step's q/k/v of every head, whole head_dim, from this
+    rank's column (heads) or head_dim piece."""
+    if kind == "column":
+        return tp.gather(t, 2)
+    if kind == "head_dim":
+        return tp.gather(t, -1)
+    return t
+
+
+def _float_partials(q, k, v, valid, hd: int):
+    """Softmax state (m, l, o) of (B,1,H,hd) ``q`` over the (B,S,Hkv,hd)
+    float ``k``/``v`` of this rank's slots (``valid`` (B,S) or None), as
+    :func:`kernels.radix_attn.combine_splits` takes one split per row of
+    (B*H): m/l (B*H, 1, 1, 1), o (B*H, 1, 1, hd), all float32."""
+    s = _gqa_scores(q, k).to(torch.float32) * hd ** -0.5     # (B,H,1,S)
+    if valid is not None:
+        s = torch.where(valid[:, None, None, :], s, -1e30)
+    m = s.amax(-1, keepdim=True)
+    pr = torch.exp(s - m)
+    if valid is not None:
+        pr = torch.where(valid[:, None, None, :], pr, 0.0)
+    l = pr.sum(-1, keepdim=True)
+    o = _gqa_out(pr, v.to(torch.float32))                   # (B,1,H,hd)
+    b, h = q.shape[0], q.shape[2]
+    return (m.reshape(b * h, 1, 1, 1), l.reshape(b * h, 1, 1, 1),
+            o.reshape(b * h, 1, 1, hd))
+
+
+def _decode_tp(x, p, cfg: ArchConfig, cache: dict, pos: int, window: int,
+               cross: bool, tp):
+    """:func:`decode_attention` under ``tp``: every head's q (and the new
+    token's K/V, written by the rank that holds its slot), this rank's
+    slots of the cache, the ranks' softmax states merged in the decode
+    kernel's order (the packed kernel's partials, or the float states),
+    then the row-parallel output projection."""
+    from repro_torch.kernels import radix_attn as ra
+
+    b, hd = x.shape[0], cfg.hd
+    q = _whole_heads(_attn_proj(x, p["wq"], cfg, tp, "wq"), tp.kind("wq"),
+                     tp)
+    s_loc = cache["k"].shape[1]
+    # this rank holds a piece of the slots: merge the ranks' states (one
+    # rank holds them all and attends as one device does)
+    split = tp.kv_split and tp.n > 1
+    length = s_loc * tp.n if split else s_loc
+    offset = tp.rank * s_loc if split else 0
+    if cross:
+        k, v = cache["k"], cache["v"]
+        valid = None
+    else:
+        knew = _whole_heads(_attn_proj(x, p["wk"], cfg, tp, "wk"),
+                            tp.kind("wk"), tp)
+        vnew = _whole_heads(_attn_proj(x, p["wv"], cfg, tp, "wv"),
+                            tp.kind("wv"), tp)
+        if cfg.pos_embed == "rope":
+            shape = (b, 1) if cfg.mrope_sections is None else (3, b, 1)
+            posb = torch.full(shape, int(pos), device=x.device)
+            q = rope_apply(q, posb, cfg.rope_theta, cfg.mrope_sections)
+            knew = rope_apply(knew, posb, cfg.rope_theta,
+                              cfg.mrope_sections)
+        cache = radix_lib.cache_update(cache, knew, vnew, pos, cfg,
+                                       window=window, offset=offset)
+        valid = decode_mask(int(pos), s_loc, window, device=x.device,
+                            offset=offset).expand(b, s_loc)
+        if radix_lib.packed_attn_enabled(cfg):
+            if not split:
+                o = radix_lib.packed_decode_attention(q[:, 0], cache, valid,
+                                                      cfg)
+            else:
+                part = radix_lib.packed_decode_attention(
+                    q[:, 0], cache, valid, cfg, partials=True,
+                    splits=(ra.split_slots(length), ra.MAX_SPLITS))
+                hkv = cfg.n_kv_heads
+                o = ra.merge_partials(
+                    tp.gather(part[None], 0).unbind(0), b * hkv,
+                    cfg.n_heads // hkv, hd)
+            o = o.reshape(b, 1, cfg.n_heads, hd).to(x.dtype)
+            return _tp_out(o, p, cfg, tp), cache
+        k, v = radix_lib.cache_read(cache, cfg)
+    if not split:
+        return _tp_out(_attend(q, k, v, valid, hd, x.dtype), p, cfg,
+                       tp), cache
+    m, l, o = _float_partials(q, k, v, valid, hd)
+    m, l, o = (tp.gather(t, 1) for t in (m, l, o))
+    o = ra.combine_splits(m, l, o).reshape(b, 1, cfg.n_heads, hd)
+    return _tp_out(o.to(x.dtype), p, cfg, tp), cache
+
+
 def decode_attention(x: torch.Tensor, p: dict, cfg: ArchConfig, cache: dict,
-                     pos: int, *, window: int = 0, cross: bool = False):
+                     pos: int, *, window: int = 0, cross: bool = False,
+                     tp=None):
     """x (B, 1, d); cache {k, v} (B, S_max, Hkv, hd) (+ scales if radix),
     updated in place at ``pos`` (a ring buffer of ``window`` slots, written
     at ``pos % window``, when ``window`` > 0).  ``cross``: attend over a
     cross-attention cache (the encoder's float K/V, which stays float
     under ``radix_kv``), unmasked and not written.  Returns (out
-    (B, 1, d), cache)."""
+    (B, 1, d), cache).
+
+    Under ``tp`` the cache holds this rank's slots where ``tp.kv_split``
+    (the cache's placement splits its slots over 'model'), else all of
+    them, and the output is summed over 'model'."""
+    if tp is not None:
+        return _decode_tp(x, p, cfg, cache, pos, window, cross, tp)
     b = x.shape[0]
     hd = cfg.hd
     if cross:
@@ -252,12 +431,18 @@ def decode_attention(x: torch.Tensor, p: dict, cfg: ArchConfig, cache: dict,
             o = o[:, None].to(x.dtype)                     # (B,1,H,hd)
             return _out_proj(o, p["wo"], cfg), cache
         k, v = radix_lib.cache_read(cache, cfg)
+    return _out_proj(_attend(q, k, v, valid, hd, x.dtype), p["wo"],
+                     cfg), cache
+
+
+def _attend(q, k, v, valid, hd: int, dtype):
+    """(B,1,H,hd) ``q`` over the float (B,S,Hkv,hd) ``k``/``v`` (``valid``
+    (B,S) or None): softmax in float32, the probabilities in ``dtype``."""
     s = _gqa_scores(q, k).to(torch.float32) * hd ** -0.5  # (B,H,1,S)
     if valid is not None:
         s = torch.where(valid[:, None, None, :], s, -1e30)
-    pr = torch.softmax(s, dim=-1).to(x.dtype)
-    o = _gqa_out(pr, v)                                    # (B,1,H,hd)
-    return _out_proj(o, p["wo"], cfg), cache
+    pr = torch.softmax(s, dim=-1).to(dtype)
+    return _gqa_out(pr, v)                                 # (B,1,H,hd)
 
 
 # ---------------------------------------------------------------------------
@@ -265,23 +450,32 @@ def decode_attention(x: torch.Tensor, p: dict, cfg: ArchConfig, cache: dict,
 # ---------------------------------------------------------------------------
 
 
-def ffn(x: torch.Tensor, p: dict, cfg: ArchConfig) -> torch.Tensor:
+def ffn(x: torch.Tensor, p: dict, cfg: ArchConfig, tp=None) -> torch.Tensor:
     """Dense FFN: gated (SwiGLU, GeGLU), or ungated (``gelu_mlp``,
-    ``relu_sq``); ``jax.nn.gelu`` is the tanh approximation."""
+    ``relu_sq``); ``jax.nn.gelu`` is the tanh approximation.  Under
+    ``tp``: this rank's d_ff columns of the up/gate products and its rows
+    of the down product, summed over 'model' (every rank's whole FFN
+    where d_ff does not divide the axis)."""
     matmul = functools.partial(radix_lib.maybe_radix_matmul, cfg=cfg)
+    whole = tp is not None and tp.kind("w_up") == "replicated"
+    if whole:
+        x = tp.replicated(x)
     if cfg.act in ("swiglu", "geglu"):
         g = matmul(x, p["w_gate"])
         u = matmul(x, p["w_up"])
         h = (F.silu(g) if cfg.act == "swiglu"
              else F.gelu(g, approximate="tanh")) * u
+    elif cfg.act == "gelu_mlp":
+        h = F.gelu(matmul(x, p["w_up"]), approximate="tanh")
+    elif cfg.act == "relu_sq":
+        h = torch.square(F.relu(matmul(x, p["w_up"])))
+    else:
+        raise ValueError(cfg.act)
+    if tp is None:
         return matmul(h, p["w_down"])
-    if cfg.act == "gelu_mlp":
-        return matmul(F.gelu(matmul(x, p["w_up"]), approximate="tanh"),
-                      p["w_down"])
-    if cfg.act == "relu_sq":
-        return matmul(torch.square(F.relu(matmul(x, p["w_up"]))),
-                      p["w_down"])
-    raise ValueError(cfg.act)
+    if whole:
+        return tp.exit_whole(matmul(h, p["w_down"]))
+    return matmul(h, p["w_down"], tp=tp)
 
 
 # ---------------------------------------------------------------------------
@@ -325,13 +519,21 @@ def _rglru_scan(a: torch.Tensor, bx: torch.Tensor,
 
 
 def rglru_block(x: torch.Tensor, p: dict, cfg: ArchConfig,
-                state: Optional[dict] = None, *, return_state: bool = False):
+                state: Optional[dict] = None, *, return_state: bool = False,
+                tp=None):
     """Griffin recurrent block: [linear -> conv -> RG-LRU] * gate -> out.
 
     r, i = sigmoid(W_a u), sigmoid(W_x u); a = a_max^r with
     log a_max = -8 softplus(lambda); h = a h_- + sqrt(1 - a^2) (i u).
     Prefill scans over S; decode (``state`` {"conv": (B, K-1, W),
-    "h": (B, W)}, S == 1) is one step."""
+    "h": (B, W)}, S == 1) is one step.  Under ``tp`` the width W is split
+    over 'model' (this rank's channels of the gate, the conv, the gates
+    ``W_a``/``W_x`` of the whole ``u``, the scan and the state; ``w_out``
+    row-parallel), or every rank runs the whole block where W does not
+    divide the axis."""
+    whole = tp is not None and tp.kind("w_rec_in") == "replicated"
+    if whole:
+        x = tp.replicated(x)
     k = p["conv_w"].shape[0]
     gate = F.gelu(x @ p["w_gate_branch"], approximate="tanh")   # (B,S,W)
     u_pre = x @ p["w_rec_in"]
@@ -346,8 +548,9 @@ def rglru_block(x: torch.Tensor, p: dict, cfg: ArchConfig,
         u, conv_state_new = conv1d_causal(u_pre, p["conv_w"], state["conv"])
 
     uf = u.to(torch.float32)
-    r = torch.sigmoid(uf @ p["w_a"].to(torch.float32) + p["b_a"])
-    i = torch.sigmoid(uf @ p["w_x"].to(torch.float32) + p["b_x"])
+    uw = uf if tp is None or whole else tp.gather_sum(uf, -1)   # whole W
+    r = torch.sigmoid(uw @ p["w_a"].to(torch.float32) + p["b_a"])
+    i = torch.sigmoid(uw @ p["w_x"].to(torch.float32) + p["b_x"])
     log_a_max = -8.0 * F.softplus(p["lambda_p"])             # (W,) < 0
     a = torch.exp(log_a_max * r)                             # (B,S,W)
     bx = torch.sqrt(torch.clamp_min(1.0 - torch.square(a), 1e-12)) * (i * uf)
@@ -361,6 +564,8 @@ def rglru_block(x: torch.Tensor, p: dict, cfg: ArchConfig,
         new_state = {"conv": conv_state_new, "h": h[:, -1, :]}
 
     y = (h.to(x.dtype) * gate) @ p["w_out"]
+    if tp is not None:
+        y = tp.exit_whole(y) if whole else tp.exit(y)
     return (y, new_state) if (state is not None or return_state) else y
 
 
@@ -377,7 +582,9 @@ def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]):
 
 
 def _rwkv_chunk_scan(r, k, v, w, u, chunk: int, remat_body: bool = False):
-    """Chunked linear recurrence (all (B, H, S, hd), decay w in (0, 1)):
+    """Chunked linear recurrence (all (B, H, S, hd), decay w in (0, 1);
+    r, k, w and u may hold a slice of each head's key dim, v its whole
+    value dim):
 
         S_t = diag(w_t) S_{t-1} + k_t v_t^T
         o_t = r_t . (S_{t-1} + diag(u) k_t v_t^T)
@@ -401,7 +608,8 @@ def _rwkv_chunk_scan(r, k, v, w, u, chunk: int, remat_body: bool = False):
     if s_len % chunk:
         raise ValueError(f"S={s_len} is not a multiple of chunk={chunk}")
     n = s_len // chunk
-    rs, ks, vs, ws = (t.reshape(b, h, n, chunk, hd) for t in (r, k, v, w))
+    rs, ks, ws = (t.reshape(b, h, n, chunk, hd) for t in (r, k, w))
+    vs = v.reshape(b, h, n, chunk, v.shape[-1])
     logw = torch.log(torch.clamp(ws.to(torch.float32), 1e-9, 1.0))
     cum = torch.cumsum(logw, dim=3)                          # inclusive L
     exc = cum - logw                                         # exclusive E
@@ -426,7 +634,8 @@ def _rwkv_chunk_scan(r, k, v, w, u, chunk: int, remat_body: bool = False):
         return o, state
 
     remat = remat_body and torch.is_grad_enabled() and r.requires_grad
-    state = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=r.device)
+    state = torch.zeros((b, h, hd, v.shape[-1]), dtype=torch.float32,
+                        device=r.device)
     outs = []
     for c in range(n):
         args = (state, rs[:, :, c], ks[:, :, c], vs[:, :, c], cum[:, :, c],
@@ -451,23 +660,48 @@ def _rwkv_step(r, k, v, w, u, s0):
     return o, s1
 
 
+def _rwkv_mode(tp) -> str:
+    """How RWKV-6's time mix splits over 'model': ``"heads"`` (the heads
+    divide the axis), ``"key"`` (each head's key dim: the channels divide
+    it but the heads do not), ``"whole"`` (neither), ``""`` no ``tp``."""
+    if tp is None:
+        return ""
+    if tp.kind("u_bonus") == "column":
+        return "heads"
+    return "key" if tp.kind("w_r") == "column" else "whole"
+
+
 def rwkv6_block(x: torch.Tensor, p: dict, cfg: ArchConfig,
                 state: Optional[dict] = None, *, chunk: int = 64,
-                return_state: bool = False):
+                return_state: bool = False, tp=None):
     """RWKV-6 'Finch' time mix: token shift, per-projection mu mixing,
     the low-rank data-dependent decay, the wkv recurrence, a per-head
     groupnorm and the silu(g) gate.  x (B, S, d).
 
     Decode (``state`` {"last_x": (B, d), "S": (B, H, hd, hd) float32},
-    S == 1) runs one step of the recurrence."""
+    S == 1) runs one step of the recurrence.
+
+    Under ``tp`` the r/k/v/g/decay projections are column-parallel and
+    ``w_o`` row-parallel.  Where the heads divide 'model' a rank runs its
+    heads' recurrence and state.  Where they do not, a rank runs the
+    chunked scan over its slice of every head's key dim (r, k, the decay
+    and the bonus; v whole), the counterpart of the reference's
+    ``_shard_last_over_model``: the wkv output is a sum over the ranks,
+    and the state's key rows are joined after the scan; decode then runs
+    the whole (small) step on every rank."""
     b, s_len, d = x.shape
     hd = cfg.rwkv_head_dim
-    h = d // hd
+    mode = _rwkv_mode(tp)
+    if mode == "whole":
+        x = tp.replicated(x)
     prev = state["last_x"] if state is not None else None
     sx = _token_shift(x, prev) - x                           # (B,S,d)
 
     def mix(tag):
-        return x + sx * p[f"mu_{tag}"].to(x.dtype)
+        mu = p[f"mu_{tag}"]
+        if mode in ("heads", "key"):
+            mu = tp.param(mu)        # used on this rank's columns only
+        return x + sx * mu.to(x.dtype)
 
     r = mix("r") @ p["w_r"]
     k = mix("k") @ p["w_k"]
@@ -476,22 +710,38 @@ def rwkv6_block(x: torch.Tensor, p: dict, cfg: ArchConfig,
     # Finch decay: w = exp(-exp(w0 + lora)) in (0, 1), data-dependent; the
     # low-rank factors are float32, so the product runs in float32 (jnp
     # promotes a bf16 operand; torch's matmul takes one dtype)
-    lora = (torch.tanh(mix("w").to(torch.float32) @ p["w_dec_a"])
-            @ p["w_dec_b"])
+    xw = mix("w").to(torch.float32)
+    if mode and mode != "whole" and tp.kind("w_dec_a") != "column":
+        xw = tp.replicated(xw)
+    lo = torch.tanh(xw @ p["w_dec_a"])
+    if mode and mode != "whole" and tp.kind("w_dec_a") == "column":
+        lo = tp.gather_sum(lo, -1)
+    lora = lo @ p["w_dec_b"]
     logit = p["w_dec0"].to(torch.float32) + lora.to(torch.float32)
     w = torch.exp(-torch.exp(torch.clamp(logit, -20.0, 6.0)))  # (B,S,d)
+    if mode == "key":               # every channel: each rank's key slice
+        r, k, v, w = (tp.gather_sum(t, -1) for t in (r, k, v, w))
 
     def heads(t):
-        return t.reshape(b, s_len, h, hd).permute(0, 2, 1, 3)  # (B,H,S,hd)
+        return t.reshape(b, s_len, -1, hd).permute(0, 2, 1, 3)  # (B,H,S,hd)
 
     u = p["u_bonus"].to(torch.float32)                       # (H, hd)
+    kslice = slice(None)
+    if mode == "key" and state is None:
+        c = hd // tp.n
+        kslice = slice(tp.rank * c, (tp.rank + 1) * c)
     if state is None:
         chunk = min(cfg.rwkv_chunk or chunk, s_len)
         if s_len % chunk:
             chunk = s_len
-        o, s_fin = _rwkv_chunk_scan(heads(r), heads(k), heads(v), heads(w),
-                                    u[None, :, None, :], chunk,
-                                    remat_body=cfg.rwkv_remat_chunk)
+        o, s_fin = _rwkv_chunk_scan(
+            heads(r)[..., kslice], heads(k)[..., kslice], heads(v),
+            heads(w)[..., kslice], u[None, :, None, kslice], chunk,
+            remat_body=cfg.rwkv_remat_chunk)
+        if mode == "key":
+            o = tp.reduce(o)
+            if return_state:
+                s_fin = tp.gather(s_fin, 2)
         new_state = ({"last_x": x[:, -1, :], "S": s_fin}
                      if return_state else None)
     else:
@@ -501,27 +751,56 @@ def rwkv6_block(x: torch.Tensor, p: dict, cfg: ArchConfig,
         o = o1[:, :, None, :]
         new_state = {"last_x": x[:, -1, :], "S": s1}
 
+    h = o.shape[1]
     o = o.permute(0, 2, 1, 3).reshape(b, s_len, h, hd)       # (B,S,H,hd)
     of = o.to(torch.float32)                                 # per-head norm
     mu = of.mean(-1, keepdim=True)
     var = of.var(-1, keepdim=True, unbiased=False)
     o = (of - mu) * torch.rsqrt(var + 1e-5) * p["gn_w"] + p["gn_b"]
-    o = o.reshape(b, s_len, d).to(x.dtype) * g
-    y = o @ p["w_o"]
+    o = o.reshape(b, s_len, h * hd).to(x.dtype)
+    if mode == "key":
+        o = tp.piece(o, -1)
+    y = (o * g) @ p["w_o"]
+    if mode == "whole":
+        y = tp.exit_whole(y)
+    elif mode:
+        y = tp.exit(y)
     return (y, new_state) if (state is not None or return_state) else y
 
 
 def rwkv6_channel_mix(x: torch.Tensor, p: dict,
                       state: Optional[dict] = None, *,
-                      return_state: bool = False):
+                      return_state: bool = False, tp=None):
     """RWKV channel mix: a token-shifted squared-relu MLP with a
-    receptance gate.  Decode carries {"last_x": (B, d)}."""
+    receptance gate.  Decode carries {"last_x": (B, d)}.  Under ``tp``
+    the key product is column- and the value product row-parallel; the
+    receptance gate's columns are joined before it gates the summed
+    value (this rank's tokens of it under sequence parallelism)."""
+    whole = tp is not None and tp.kind("w_ck") == "replicated"
+    if whole:
+        x = tp.replicated(x)
     prev = state["last_x"] if state is not None else None
     sx = _token_shift(x, prev) - x
-    xk = x + sx * p["mu_ck"].to(x.dtype)
-    xr = x + sx * p["mu_cr"].to(x.dtype)
+    mu_k, mu_r = p["mu_ck"], p["mu_cr"]
+    if tp is not None and not whole:
+        mu_k, mu_r = tp.param(mu_k), tp.param(mu_r)
+    xk = x + sx * mu_k.to(x.dtype)
+    xr = x + sx * mu_r.to(x.dtype)
     kk = torch.square(F.relu(xk @ p["w_ck"]))
-    y = torch.sigmoid(xr @ p["w_cr"]) * (kk @ p["w_cv"])
+    if tp is None:
+        y = torch.sigmoid(xr @ p["w_cr"]) * (kk @ p["w_cv"])
+    elif whole:
+        y = tp.exit_whole(torch.sigmoid(xr @ p["w_cr"]) * (kk @ p["w_cv"]))
+    else:
+        if tp.kind("w_cr") == "column":
+            gate = torch.sigmoid(xr @ p["w_cr"])
+            gate = (tp.gather_sum if tp.seq else tp.gather)(gate, -1)
+        else:
+            gate = torch.sigmoid(tp.replicated(xr) @ p["w_cr"])
+        if tp.seq:                   # this rank's tokens
+            n = gate.shape[1] // tp.n
+            gate = gate[:, tp.rank * n:(tp.rank + 1) * n]
+        y = gate * tp.exit(kk @ p["w_cv"])
     if state is not None or return_state:
         return y, {"last_x": x[:, -1, :]}
     return y

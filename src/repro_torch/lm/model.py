@@ -36,21 +36,26 @@ layer in the backward (``torch.utils.checkpoint``).
 ``mesh=None`` is one device.  With a ``DeviceMesh`` ('data', 'model',
 optionally 'pod'; ``launch/mesh.py``) the functions run on every rank of
 it: each data rank computes its own batch shard, and the ranks of one
-data group compute the same activations, except inside a MoE layer,
-whose mesh dispatches split the experts, the tokens or d_ff over 'model'
-(``lm/moe.py``).  Dense layers do not split their compute over 'model'
-in this port (GSPMD's partitioning of them is XLA's choice, not the
-reference's code; its residual-stream sharding constraints and RWKV's
-head constraint have no counterpart here).  Parameters and caches may
-be DTensors placed by ``parallel/sharding.py``'s specs: they are
-gathered where they are used (see :func:`make_train_step`,
-:func:`prefill`).
+data group split every dense layer over 'model' as the reference's
+``PartitionSpec``s lay it out (``parallel/tp.py``: column- and
+row-parallel products, attention heads or head_dim, RG-LRU's width,
+RWKV-6's heads or key dim; ``lm/blocks.py``).  In train and prefill the
+residual stream between blocks is split over the sequence when
+``cfg.seq_shard`` and the length divides 'model' (the reference's
+``_constrain`` / ``_resid_spec``, Megatron-SP); decode keeps it whole.
+A MoE layer's experts run through its mesh dispatch (``lm/moe.py``).
+Parameters and caches may be DTensors placed by ``parallel/sharding.py``'s
+specs, or whole tensors: each rank uses its pieces over 'model', the data
+axes gathered (``tp.shard_params``; :func:`shard` cuts them once for a
+deployment).  The KV cache stays split over its slots on 'model', and
+decode merges the ranks' attention states (flash-decoding).  The logits
+are gathered whole.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 import torch.utils.checkpoint
@@ -62,6 +67,7 @@ from repro_torch.lm.config import ArchConfig, segments_for
 from repro_torch.lm.radix import torch_dtype
 from repro_torch.parallel import collectives as C
 from repro_torch.parallel import sharding as SH
+from repro_torch.parallel import tp as tp_lib
 from repro_torch.train import optim as optim_lib
 from repro_torch.train import tree as tree_lib
 from repro_torch.train.tree import tree_map
@@ -69,7 +75,7 @@ from repro_torch.train.tree import tree_map
 __all__ = ["init_params", "abstract_params", "radixify_params",
            "kmajor_params", "forward_train", "loss_fn", "make_train_step",
            "init_cache", "abstract_cache", "prefill", "decode_step",
-           "tree_map"]
+           "shard", "Sharded", "tree_map"]
 
 
 def _stack_trees(trees):
@@ -369,9 +375,42 @@ def kmajor_params(params):
 # ---------------------------------------------------------------------------
 
 
+def _norm(h, p, cfg: ArchConfig, tp):
+    """A pre-norm; under sequence parallelism its parameters see this
+    rank's tokens only, so their gradient is summed over 'model'."""
+    if tp is not None and tp.seq:
+        p = {k: tp.param(v) for k, v in p.items()}
+    return blocks.norm(h, p, cfg.norm)
+
+
+def _kv_piece(k, v, cfg: ArchConfig, length: int, s_len: int, window: int,
+              tp):
+    """A prefill's whole (B, S, Hkv, hd) K/V as the layer's cache of
+    ``length`` slots: the last ``length`` positions of a window, padded
+    with zeros, a ring buffer rolled so that position p sits at slot
+    p % window, and under ``tp.kv_split`` this rank's piece of the
+    slots."""
+    if k.shape[1] > length:             # windowed: keep the last positions
+        k, v = k[:, -length:], v[:, -length:]
+    pad = length - k.shape[1]
+    if pad:
+        z = torch.zeros((k.shape[0], pad) + tuple(k.shape[2:]),
+                        dtype=k.dtype, device=k.device)
+        k = torch.cat([k, z], 1)
+        v = torch.cat([v, z], 1)
+    shift = s_len % length if window and s_len > length else 0
+    if shift:
+        k, v = torch.roll(k, shift, dims=1), torch.roll(v, shift, dims=1)
+    if tp is not None and tp.kv_split:
+        n = length // tp.n
+        k = k[:, tp.rank * n:(tp.rank + 1) * n]
+        v = v[:, tp.rank * n:(tp.rank + 1) * n]
+    return k, v
+
+
 def _apply_layer(h, lp, btype: str, cfg: ArchConfig, positions, mode: str,
                  cache=None, pos=None, max_len: int = 0, enc_h=None,
-                 causal: bool = True, mesh=None):
+                 causal: bool = True, mesh=None, tp=None, kv_split=None):
     """One block: temporal mix (+ cross-attention over the encoder's
     output ``enc_h`` in a layer that has ``xattn``) + channel mix, each
     with its pre-norm and residual.  ``mode="train"`` runs the sequence
@@ -388,6 +427,11 @@ def _apply_layer(h, lp, btype: str, cfg: ArchConfig, positions, mode: str,
       rwkv6             : {"mix": {"last_x", "S"}, "cmix": {"last_x"}}
       whisper decoder   : {"self": <attn>, "cross": {"k", "v"}}, the
                           cross K/V float (B, encoder_ctx, Hkv, hd)
+
+    Under ``tp`` (``parallel.tp.TP``: ``lp`` this rank's shards, ``h``
+    this rank's tokens under ``tp.seq``) each block runs its share over
+    'model'; the caches are this rank's pieces (``kv_split``: per cache
+    (``"self"``, ``"cross"``) whether its slots are split over 'model').
     Returns (h, aux, cache): ``aux`` is a MoE layer's router loss (0.0
     elsewhere), ``cache`` None in train mode."""
     if mode not in ("train", "prefill", "decode"):
@@ -396,82 +440,103 @@ def _apply_layer(h, lp, btype: str, cfg: ArchConfig, positions, mode: str,
     prefill = mode == "prefill"
     stateful = mode != "train"
     has_x = "xattn" in lp
-    hn = blocks.norm(h, lp["ln1"], cfg.norm)
+    kv_split = kv_split or {}
+    tmix = tp.at("mix") if tp is not None else None
+    hn = _norm(h, lp["ln1"], cfg, tp)
+    if tp is not None:
+        hn = tp.enter(hn)
     new_mix = None
     if btype in ("attn", "local_attn"):
         window = cfg.window if btype == "local_attn" else 0
+        if tmix is not None:
+            tmix = tmix.with_kv_split(kv_split.get("self", False))
         if not stateful:
             mix = blocks.attention(hn, lp["mix"], cfg, positions,
-                                   window=window, causal=causal)
+                                   window=window, causal=causal, tp=tmix)
         elif prefill:
             mix, (k, v) = blocks.attention(hn, lp["mix"], cfg, positions,
-                                           window=window, return_kv=True)
+                                           window=window, return_kv=True,
+                                           tp=tmix)
             length = min(window, max_len) if window else max_len
-            if k.shape[1] > length:     # windowed: keep the last positions
-                k, v = k[:, -length:], v[:, -length:]
-            pad = length - k.shape[1]
-            if pad:
-                z = torch.zeros((k.shape[0], pad) + tuple(k.shape[2:]),
-                                dtype=k.dtype, device=k.device)
-                k = torch.cat([k, z], 1)
-                v = torch.cat([v, z], 1)
+            k, v = _kv_piece(k, v, cfg, length, k.shape[1], window, tmix)
             new_mix = radix_lib.encode_cache_bulk(
                 k.to(_dt(cfg)), v.to(_dt(cfg)), cfg, _dt(cfg))
         else:
             mix, new_mix = blocks.decode_attention(
                 hn, lp["mix"], cfg, cache["self"] if has_x else cache, pos,
-                window=window)
+                window=window, tp=tmix)
     elif btype == "rglru":
         if stateful:
             mix, new_mix = blocks.rglru_block(
                 hn, lp["mix"], cfg, state=None if prefill else cache,
-                return_state=True)
+                return_state=True, tp=tmix)
         else:
-            mix = blocks.rglru_block(hn, lp["mix"], cfg)
+            mix = blocks.rglru_block(hn, lp["mix"], cfg, tp=tmix)
     elif btype == "rwkv6":
         if stateful:
             mix, new_mix = blocks.rwkv6_block(
                 hn, lp["mix"], cfg, state=None if prefill else cache["mix"],
-                return_state=True)
+                return_state=True, tp=tmix)
         else:
-            mix = blocks.rwkv6_block(hn, lp["mix"], cfg)
+            mix = blocks.rwkv6_block(hn, lp["mix"], cfg, tp=tmix)
     else:
         raise ValueError(btype)
     h = h + mix
 
     if has_x:           # whisper decoder: cross-attention before the FFN
-        hx = blocks.norm(h, lp["lnx"], cfg.norm)
+        hx = _norm(h, lp["lnx"], cfg, tp)
+        tx = None
+        if tp is not None:
+            hx = tp.enter(hx)
+            tx = tp.at("xattn").with_kv_split(kv_split.get("cross", False))
         if mode == "decode":
             cross = cache["cross"]
             xmix, _ = blocks.decode_attention(hx, lp["xattn"], cfg, cross,
-                                              pos, cross=True)
+                                              pos, cross=True, tp=tx)
         else:
-            k_enc = torch.einsum("bsd,dhk->bshk", enc_h, lp["xattn"]["wk"])
-            v_enc = torch.einsum("bsd,dhk->bshk", enc_h, lp["xattn"]["wv"])
+            # the encoder's output is whole on every rank
+            enc = enc_h if tp is None else tp.with_seq(False).enter(enc_h)
+            k_enc = blocks._attn_proj(enc, lp["xattn"]["wk"], cfg, tx, "wk")
+            v_enc = blocks._attn_proj(enc, lp["xattn"]["wv"], cfg, tx, "wv")
             xmix = blocks.attention(hx, lp["xattn"], cfg, positions,
-                                    cross_kv=(k_enc, v_enc))
+                                    cross_kv=(k_enc, v_enc), tp=tx,
+                                    return_kv=prefill)
+            if prefill:
+                xmix, (k_enc, v_enc) = xmix
+                if tx is not None and tx.kv_split:
+                    k_enc, v_enc = _kv_piece(k_enc, v_enc, cfg,
+                                             k_enc.shape[1], 0, 0, tx)
             cross = {"k": k_enc.to(_dt(cfg)), "v": v_enc.to(_dt(cfg))}
         h = h + xmix
         if stateful:
             new_mix = {"self": new_mix, "cross": cross}
 
-    hn = blocks.norm(h, lp["ln2"], cfg.norm)
+    hn = _norm(h, lp["ln2"], cfg, tp)
+    tffn = tp.at("ffn") if tp is not None else None
     aux = 0.0
     if btype == "rwkv6":
+        hn = tp.enter(hn) if tp is not None else hn
         if stateful:
             y, new_cm = blocks.rwkv6_channel_mix(
                 hn, lp["ffn"], state=None if prefill else cache["cmix"],
-                return_state=True)
+                return_state=True, tp=tffn)
             new_mix = {"mix": new_mix, "cmix": new_cm}
         else:
-            y = blocks.rwkv6_channel_mix(hn, lp["ffn"])
+            y = blocks.rwkv6_channel_mix(hn, lp["ffn"], tp=tffn)
     elif cfg.moe is not None:
-        y, aux = moe_lib.moe_ffn(hn, lp["ffn"], cfg, mesh,
+        # the mesh dispatches take the whole (replicated) activations
+        xm = hn if tp is None or not tp.seq else tp.gather(hn, 1)
+        y, aux = moe_lib.moe_ffn(xm, lp["ffn"], cfg, mesh,
                                  decode=mode == "decode")
+        if tp is not None:
+            y = tp.exit_whole(y)
         if cfg.moe.num_shared:
-            y = y + blocks.ffn(hn, lp["ffn"]["shared"], cfg)
+            xs = hn if tp is None else tp.enter(hn)
+            y = y + blocks.ffn(xs, lp["ffn"]["shared"], cfg,
+                               tp=None if tp is None else tffn.at("shared"))
     else:
-        y = blocks.ffn(hn, lp["ffn"], cfg)
+        hn = tp.enter(hn) if tp is not None else hn
+        y = blocks.ffn(hn, lp["ffn"], cfg, tp=tffn)
     return h + y, aux, new_mix
 
 
@@ -500,7 +565,7 @@ def _unstack(tree, count: int) -> list:
 def _backbone(params, h, cfg: ArchConfig, positions, mode: str,
               caches=None, pos=None, max_len: int = 0, enc_h=None,
               segments_key: str = "segments", segments=None,
-              causal: bool = True, mesh=None):
+              causal: bool = True, mesh=None, tp=None, kv_splits=None):
     """Every layer of ``params[segments_key]`` (laid out as ``segments``,
     default ``segments_for(cfg)``) in order.  Returns (h, aux, caches):
     ``aux`` the layers' summed router losses (float32) in train mode,
@@ -508,7 +573,8 @@ def _backbone(params, h, cfg: ArchConfig, positions, mode: str,
     stacked caches, decode updates ``caches`` in place and returns it,
     train has none.  In train mode with ``cfg.remat``, each layer runs
     under ``torch.utils.checkpoint`` (its activations recomputed in the
-    backward; the values do not change)."""
+    backward; the values do not change).  ``kv_splits`` holds, per
+    segment and slot, the ``kv_split`` of :func:`_apply_layer`."""
     train = mode == "train"
     aux_total = (torch.zeros((), dtype=torch.float32, device=h.device)
                  if train else None)
@@ -524,7 +590,8 @@ def _backbone(params, h, cfg: ArchConfig, positions, mode: str,
                 c_in = (tree_map(lambda x: x[j], seg_c[si])
                         if seg_c is not None else None)
                 kw = dict(cache=c_in, pos=pos, max_len=max_len, enc_h=enc_h,
-                          causal=causal, mesh=mesh)
+                          causal=causal, mesh=mesh, tp=tp,
+                          kv_split=kv_splits[i][si] if kv_splits else None)
                 if train and cfg.remat and h.requires_grad:
                     h, a, nc = torch.utils.checkpoint.checkpoint(
                         _apply_layer, h, lp, btype, cfg, positions, mode,
@@ -550,19 +617,51 @@ def _backbone(params, h, cfg: ArchConfig, positions, mode: str,
 # ---------------------------------------------------------------------------
 
 
-def _embed(params, tokens, cfg: ArchConfig):
-    h = params["embed"][tokens]
+def _embed(params, tokens, cfg: ArchConfig, tp=None):
+    """Token embeddings; under ``tp`` with the table's rows (the vocab)
+    split over 'model' each rank looks up the tokens it holds, zeros
+    elsewhere, and the ranks' rows are summed (exact: one is nonzero)."""
+    table = params["embed"]
+    if tp is not None and tp.kind("embed") == "vocab":
+        n = table.shape[0]
+        idx = tokens - tp.rank * n
+        held = (idx >= 0) & (idx < n)
+        h = table[torch.where(held, idx, torch.zeros_like(idx))]
+        h = tp.reduce(torch.where(held[..., None], h, torch.zeros_like(h)))
+    else:
+        h = table[tokens]
     if cfg.embed_scale:
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype,
                              device=h.device)
     return h
 
 
-def _lm_head(h, params, cfg: ArchConfig):
+def _lm_head(h, params, cfg: ArchConfig, tp=None):
+    """Logits of (B, S, d) ``h``; under ``tp`` (``h`` whole on this rank,
+    from ``TP.enter``) the head's vocab columns are computed here and
+    gathered whole; a head split over d_model is row-parallel, one split
+    over neither runs whole on every rank."""
     if cfg.tie_embeddings:
+        split = tp is not None and tp.kind("embed") == "vocab"
+        if tp is not None and not split:
+            h = tp.replicated(h)
         logits = torch.einsum("bsd,vd->bsv", h, params["embed"])
+        if split:
+            logits = tp.gather(logits, -1)
     else:
-        logits = radix_lib.maybe_radix_matmul(h, params["unembed"], cfg=cfg)
+        kind = tp.kind("unembed") if tp is not None else None
+        if kind == "row":
+            n = h.shape[-1] // tp.n
+            logits = radix_lib.maybe_radix_matmul(
+                h[..., tp.rank * n:(tp.rank + 1) * n], params["unembed"],
+                cfg=cfg, tp=tp.with_seq(False))
+        else:
+            if kind not in (None, "column"):
+                h = tp.replicated(h)
+            logits = radix_lib.maybe_radix_matmul(h, params["unembed"],
+                                                  cfg=cfg)
+            if kind == "column":
+                logits = tp.gather(logits, -1)
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
@@ -577,7 +676,7 @@ def _positions(cfg: ArchConfig, b: int, s_len: int, device=None):
     return pos
 
 
-def _input_h(params, batch, cfg: ArchConfig):
+def _input_h(params, batch, cfg: ArchConfig, tp=None):
     """(h, labels) from a batch dict: ``tokens`` (B, S + 1), or for an
     embedding-input arch ``embeds`` (B, S, d) (and ``labels``, which
     serving does not need); learned positions added."""
@@ -585,24 +684,44 @@ def _input_h(params, batch, cfg: ArchConfig):
         h, labels = batch["embeds"].to(_dt(cfg)), batch.get("labels")
     else:
         tokens = batch["tokens"]
-        h, labels = _embed(params, tokens[:, :-1], cfg), tokens[:, 1:]
+        h, labels = _embed(params, tokens[:, :-1], cfg, tp), tokens[:, 1:]
     if cfg.pos_embed == "learned":
         h = h + params["pos_embed"][:h.shape[1]][None].to(h.dtype)
     return h, labels
 
 
-def _encode_whisper(params, enc_embeds, cfg: ArchConfig, mesh=None):
+def _seq_split(cfg: ArchConfig, tp, s_len: int) -> bool:
+    """The reference's ``_resid_spec``: the residual stream is split over
+    the sequence on 'model' when ``cfg.seq_shard`` and the length
+    divides the axis."""
+    return (tp is not None and cfg.seq_shard and tp.n > 1
+            and s_len % tp.n == 0 and s_len >= tp.n)
+
+
+def _seq_piece(h, tp):
+    """This rank's tokens of the whole (B, S, d) ``h`` under
+    ``tp.seq``."""
+    return tp.piece(h, 1) if tp is not None and tp.seq else h
+
+
+def _encode_whisper(params, enc_embeds, cfg: ArchConfig, mesh=None, tp=None):
     """The encoder: (B, encoder_ctx, d) frame embeddings plus learned
     positions through the non-causal ``enc_segments`` stack, then its
-    final norm."""
+    final norm (under ``tp``: this rank's frames under its ``seq``)."""
     dt = _dt(cfg)
     h = enc_embeds.to(dt) + params["enc_pos_embed"][None].to(dt)
     pos = _positions(cfg, h.shape[0], h.shape[1], device=h.device)
+    if tp is not None:
+        tp = tp.with_seq(_seq_split(cfg, tp, h.shape[1]))
+        h = _seq_piece(h, tp)
     h, _, _ = _backbone(params, h, cfg, pos, "train",
                         segments_key="enc_segments",
                         segments=((("attn",), cfg.encoder_layers),),
-                        causal=False, mesh=mesh)
-    return blocks.norm(h, params["enc_final_norm"], cfg.norm)
+                        causal=False, mesh=mesh, tp=tp)
+    h = _norm(h, params["enc_final_norm"], cfg, tp)
+    if tp is not None and tp.seq:
+        h = tp.gather(h, 1)
+    return h
 
 
 # ---------------------------------------------------------------------------
@@ -610,31 +729,40 @@ def _encode_whisper(params, enc_embeds, cfg: ArchConfig, mesh=None):
 # ---------------------------------------------------------------------------
 
 
-def forward_train(params, batch, cfg: ArchConfig, mesh=None):
+def forward_train(params, batch, cfg: ArchConfig, mesh=None, tp=None):
     """Teacher-forced forward over a batch dict (as :func:`prefill` takes
     it, ``labels`` too for an embedding-input arch).  Returns (logits
     (B, S, V), labels (B, S), aux): ``aux`` the MoE layers' summed router
-    loss (0 without MoE).  With a mesh: whole parameters and this rank's
-    batch shard (what :func:`make_train_step` passes)."""
-    h, labels = _input_h(params, batch, cfg)
+    loss (0 without MoE).  With a mesh: this rank's batch shard and its
+    pieces of the parameters over 'model' with their layout ``tp``
+    (what :func:`make_train_step` passes; whole parameters are cut
+    here); the logits are gathered whole."""
+    if mesh is not None and tp is None:
+        params, tp = tp_lib.shard_params(params, cfg, mesh)
+    h, labels = _input_h(params, batch, cfg, tp)
     enc_h = None
     if cfg.encoder_layers:
-        enc_h = _encode_whisper(params, batch["enc_embeds"], cfg, mesh)
+        enc_h = _encode_whisper(params, batch["enc_embeds"], cfg, mesh, tp)
     positions = _positions(cfg, h.shape[0], h.shape[1], device=h.device)
+    if tp is not None:
+        tp = tp.with_seq(_seq_split(cfg, tp, h.shape[1]))
+        h = _seq_piece(h, tp)
     h, aux, _ = _backbone(params, h, cfg, positions, "train", enc_h=enc_h,
-                          mesh=mesh)
-    h = blocks.norm(h, params["final_norm"], cfg.norm)
-    return _lm_head(h, params, cfg), labels, aux
+                          mesh=mesh, tp=tp)
+    h = _norm(h, params["final_norm"], cfg, tp)
+    if tp is not None:
+        h = tp.enter(h)
+    return _lm_head(h, params, cfg, tp), labels, aux
 
 
 def loss_fn(params, batch, cfg: ArchConfig, mesh=None,
-            aux_weight: float = 0.01):
+            aux_weight: float = 0.01, tp=None):
     """(loss, {"ce", "aux", "acc"}): token cross-entropy in float32 plus
     ``aux_weight`` times the router loss.  The gold logit is gathered
     where the reference contracts a one-hot (the same value for finite
     logits, without a (B, S, V) one-hot: 4.19 GB at Gemma-2B's vocab and
     8 x 512 tokens)."""
-    logits, labels, aux = forward_train(params, batch, cfg, mesh)
+    logits, labels, aux = forward_train(params, batch, cfg, mesh, tp)
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
@@ -675,6 +803,44 @@ def _mean_over_data(tree, mesh):
     return tree_map(mean, tree)
 
 
+def _model_spec(local, whole) -> tuple:
+    """'model' on each dim where this rank's piece is shorter than the
+    whole leaf."""
+    return tuple("model" if a < b else None
+                 for a, b in zip(local.shape, whole.shape))
+
+
+def _piece_of(t, lspec, mesh):
+    """A leaf (DTensor or whole tensor) as the step computes on it: its
+    piece over 'model' as ``lspec`` lays it out, the data axes
+    gathered."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        return SH.local_slice(t, lspec, mesh)
+    want = SH.placements(lspec, mesh)
+    if tuple(t.placements) == tuple(want):
+        return t.to_local()
+    return t.redistribute(mesh, want).to_local()
+
+
+def _put_back(new, old, lspec, mesh):
+    """The step's new ``lspec`` piece of a leaf stored as ``old``: this
+    rank's piece in ``old``'s placements (a DTensor), or the whole
+    tensor gathered over 'model' (a whole tensor)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(old, DTensor):
+        for d, e in enumerate(lspec):
+            if e is not None:
+                new = C.gather_from(new, d, mesh, ("model",))
+        return new
+    spec = SH.spec_of(old)
+    rest = tuple(None if l is not None else e for e, l in zip(spec, lspec))
+    return DTensor.from_local(SH.local_slice(new, rest, mesh).contiguous(),
+                              mesh, old.placements, run_check=False)
+
+
 def make_train_step(cfg: ArchConfig, opt: optim_lib.Optimizer,
                     clip_norm: float = 1.0, *, mesh=None):
     """Returns ``step(state, batch) -> (state, metrics)`` with state
@@ -684,33 +850,37 @@ def make_train_step(cfg: ArchConfig, opt: optim_lib.Optimizer,
     their gradients are summed in float32 and divided by A.
 
     With a ``mesh`` the state's leaves may be DTensors (each rank storing
-    its piece, ``parallel/sharding.place``) and the batch global tensors
-    or ``ShardedLoader`` DTensors.  The step gathers every leaf whole on
-    use (ZeRO-3's gather), computes this data rank's batch shard, averages
-    the gradients, loss and metrics over the data axes (an all-reduce and
-    a divide), runs the clip and the update on whole tensors (Adafactor's
-    factored statistics reduce over whole dims) and keeps only this
-    rank's piece of each new leaf, in its old placement."""
+    its piece, ``parallel/sharding.place``) or whole tensors, and the
+    batch global tensors or ``ShardedLoader`` DTensors.  The step takes
+    each leaf's piece over 'model' (the data axes gathered: ZeRO-3's
+    gather, kept to the data axes), runs the forward and backward over
+    'model' (``parallel/tp.py``) on this data rank's batch shard,
+    averages the gradients, loss and metrics over the data axes (an
+    all-reduce and a divide), clips and updates each piece (the global
+    norm and Adafactor's factored statistics summed over 'model',
+    ``optim.Shards``) and keeps this rank's piece of each new leaf in
+    its old placement.  A MoE layer's experts, which its mesh dispatch
+    slices itself, are gathered whole and updated whole."""
 
-    def grads_of(params, batch):
+    def grads_of(params, batch, tp=None):
         ps = tree_map(lambda t: t.detach().requires_grad_(True), params)
-        loss, metrics = loss_fn(ps, batch, cfg, mesh)
+        loss, metrics = loss_fn(ps, batch, cfg, mesh, tp=tp)
         grads = torch.autograd.grad(loss, tree_lib.leaves(ps),
                                     allow_unused=True, materialize_grads=True)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return loss.detach(), metrics, tree_lib.unflatten(ps, grads)
 
-    def accumulate(params, batch):
+    def accumulate(params, batch, tp=None):
         a = cfg.grad_accum
         if a == 1:
-            return grads_of(params, batch)
+            return grads_of(params, batch, tp)
         grads = tree_map(lambda p: torch.zeros(
             p.shape, dtype=torch.float32, device=p.device), params)
         lsum, ms = 0.0, []
         for i in range(a):
             mb = {k: v.reshape((a, v.shape[0] // a) + tuple(v.shape[1:]))[i]
                   for k, v in batch.items()}
-            l, m, g = grads_of(params, mb)
+            l, m, g = grads_of(params, mb, tp)
             grads = tree_map(torch.add, grads, g)
             lsum = lsum + l
             ms.append(m)
@@ -719,27 +889,51 @@ def make_train_step(cfg: ArchConfig, opt: optim_lib.Optimizer,
         metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
         return lsum / div, metrics, grads
 
+    def sharded_step(state, batch):
+        params, tp = tp_lib.shard_params(state["params"], cfg, mesh)
+        lspecs = tree_map(_model_spec, params, state["params"])
+        ospecs = tree_map(lambda _, sp: tp_lib.model_only(sp), state["opt"],
+                          SH.opt_state_specs(lspecs, state["opt"], mesh))
+        opt_l = tree_map(lambda t, sp: _piece_of(t, sp, mesh), state["opt"],
+                         ospecs)
+        loss, metrics, grads = accumulate(params,
+                                          _data_shard(batch, cfg, mesh), tp)
+        loss, metrics, grads = _mean_over_data((loss, metrics, grads), mesh)
+        pg = C.group(mesh, ("model",))
+        shards = optim_lib.Shards(
+            dims=tree_map(lambda _, sp: sp.index("model") if "model" in sp
+                          else -1, params, lspecs),
+            n=tp.n, sum=lambda t: C.all_reduce_(t, pg))
+        if clip_norm:
+            grads, gnorm = optim_lib.clip_by_global_norm(grads, clip_norm,
+                                                         shards)
+        else:
+            gnorm = optim_lib.global_norm(grads, shards)
+        updates, new_opt = opt.update(grads, opt_l, params, shards=shards)
+        del grads                   # before the new parameters exist
+        new_p = optim_lib.apply_updates(params, updates)
+        step_t = state["step"]
+        new = {"params": tree_map(lambda t, o, sp: _put_back(t, o, sp, mesh),
+                                  new_p, state["params"], lspecs),
+               "opt": tree_map(lambda t, o, sp: _put_back(t, o, sp, mesh),
+                               new_opt, state["opt"], ospecs),
+               "step": tree_map(SH.shard_like, SH.gather(step_t) + 1,
+                                step_t)}
+        return new, dict(metrics, loss=loss, grad_norm=gnorm)
+
     def step(state, batch):
         if mesh is not None:
-            whole = SH.gather(state)
-            loss, metrics, grads = accumulate(whole["params"],
-                                              _data_shard(batch, cfg, mesh))
-            loss, metrics, grads = _mean_over_data((loss, metrics, grads),
-                                                   mesh)
-        else:
-            whole = state
-            loss, metrics, grads = accumulate(state["params"], batch)
-        params = whole["params"]
+            return sharded_step(state, batch)
+        loss, metrics, grads = accumulate(state["params"], batch)
+        params = state["params"]
         if clip_norm:
             grads, gnorm = optim_lib.clip_by_global_norm(grads, clip_norm)
         else:
             gnorm = optim_lib.global_norm(grads)
-        updates, new_opt = opt.update(grads, whole["opt"], params)
+        updates, new_opt = opt.update(grads, state["opt"], params)
         del grads                   # before the new parameters exist
         new = {"params": optim_lib.apply_updates(params, updates),
-               "opt": new_opt, "step": whole["step"] + 1}
-        if mesh is not None:
-            new = tree_map(SH.shard_like, new, state)
+               "opt": new_opt, "step": state["step"] + 1}
         return new, dict(metrics, loss=loss, grad_norm=gnorm)
 
     return step
@@ -803,6 +997,76 @@ def abstract_cache(cfg: ArchConfig, batch: int, max_len: int, mode):
         return init_cache(cfg, batch, max_len, device="cpu")
 
 
+class Sharded(NamedTuple):
+    """A parameter tree cut once to this rank's pieces over 'model'
+    (:func:`shard`), with its layout: :func:`prefill` and
+    :func:`decode_step` take it in place of the tree and cut nothing per
+    call."""
+    params: Any
+    tp: Any
+
+
+def shard(params, cfg: ArchConfig, mesh) -> Sharded:
+    """This rank's pieces of ``params`` (DTensors or whole tensors) over
+    'model', each in its own storage (``tp.shard_params(...,
+    contiguous=True)``): what a deployment serves from, the K-major
+    levels of a row split included."""
+    local, tp = tp_lib.shard_params(params, cfg, mesh, contiguous=True)
+    return Sharded(local, tp)
+
+
+def _sharded(params, cfg: ArchConfig, mesh):
+    if isinstance(params, Sharded):
+        return params.params, params.tp
+    return tp_lib.shard_params(params, cfg, mesh)
+
+
+def _cache_layout(cfg: ArchConfig, batch: int, max_len: int, mesh):
+    """(spec tree of the global caches, per segment and slot the
+    ``kv_split`` of each attention cache): ``sharding.cache_specs`` of
+    :func:`init_cache`'s shapes (meta tensors, no memory)."""
+    specs = SH.cache_specs(init_cache(cfg, batch, max_len, device="meta"),
+                           cfg, mesh)
+    return specs, _kv_splits(cfg, specs)
+
+
+def _kv_splits(cfg: ArchConfig, specs):
+    """Per segment and slot, whether each attention cache of the spec
+    tree ``specs`` splits its slots over 'model'."""
+
+    def split(spec):
+        return len(spec) > 2 and "model" in SH.entry_axes(spec[2])
+
+    kv = []
+    for (pattern, _), seg in zip(segments_for(cfg), specs):
+        row = []
+        for btype, slot in zip(pattern, seg):
+            if btype in ("attn", "local_attn"):
+                if "self" in slot:
+                    row.append({"self": split(slot["self"]["k"]),
+                                "cross": split(slot["cross"]["k"])})
+                else:
+                    row.append({"self": split(slot["k"])})
+            else:
+                row.append({})
+        kv.append(tuple(row))
+    return tuple(kv)
+
+
+def _place_piece(piece, spec, whole_shape, mesh):
+    """A DTensor of ``spec`` from this rank's ``piece`` (checked against
+    the piece ``spec`` gives of the whole shape)."""
+    from torch.distributed.tensor import DTensor
+
+    want = tuple(SH.local_slice(torch.empty(whole_shape, device="meta"),
+                                spec, mesh).shape)
+    if tuple(piece.shape) != want:
+        raise ValueError(f"cache piece {tuple(piece.shape)} is not the "
+                         f"{want} that {spec} gives of {whole_shape}")
+    return DTensor.from_local(piece.contiguous(), mesh,
+                              SH.placements(spec, mesh), run_check=False)
+
+
 def prefill(params, batch, cfg: ArchConfig, mesh=None, max_len: int = 0,
             *, true_len: Optional[int] = None):
     """Process the prompt; returns (last-token logits (B, V), caches).
@@ -817,36 +1081,56 @@ def prefill(params, batch, cfg: ArchConfig, mesh=None, max_len: int = 0,
     stacks, since the causal mask hides the pads; not for recurrent or
     windowed blocks, whose state would absorb them).
 
-    With a ``mesh``: parameters (DTensors gathered whole on use), the
-    global batch, of which each data rank runs its rows; the logits are
-    gathered whole on every rank, and the caches are DTensors placed by
+    With a ``mesh``: parameters (DTensors or whole tensors, each rank
+    using its pieces over 'model'; or a :class:`Sharded`), the global
+    batch, of which each data rank runs its rows; the logits are gathered
+    whole on every rank, and the caches are DTensors placed by
     ``parallel.sharding.cache_specs`` (batch over the data axes, the KV
-    sequence over 'model')."""
-    if mesh is not None:
-        logits, caches = _prefill(SH.gather(params),
-                                  _data_shard(batch, cfg, mesh), cfg, mesh,
-                                  max_len, true_len)
-        return (_gather_rows(logits, mesh),
-                tree_map(lambda c, spec: _place_rows(c, spec, mesh), caches,
-                         SH.cache_specs(caches, cfg, mesh)))
-    return _prefill(params, batch, cfg, None, max_len, true_len)
+    sequence over 'model'), each rank having computed only its piece."""
+    if mesh is None:
+        return _prefill(params, batch, cfg, None, max_len, true_len)
+    local, tp = _sharded(params, cfg, mesh)
+    first = batch["embeds"] if cfg.embedding_inputs else batch["tokens"]
+    b_glob = first.shape[0]
+    s_len = first.shape[1] - (0 if cfg.embedding_inputs else 1)
+    specs, kv_splits = _cache_layout(cfg, b_glob, max_len or s_len, mesh)
+    logits, caches = _prefill(local, _data_shard(batch, cfg, mesh), cfg,
+                              mesh, max_len, true_len, tp, kv_splits)
+    whole = init_cache(cfg, b_glob, max_len or s_len, device="meta")
+    placed = tree_map(lambda c, w, spec: _place_piece(c, spec, tuple(w.shape),
+                                                      mesh),
+                      caches, whole, specs)
+    return _gather_rows(logits, mesh), placed
 
 
-def _prefill(params, batch, cfg: ArchConfig, mesh, max_len: int, true_len):
-    h, _ = _input_h(params, batch, cfg)
+def _prefill(params, batch, cfg: ArchConfig, mesh, max_len: int, true_len,
+             tp=None, kv_splits=None):
+    h, _ = _input_h(params, batch, cfg, tp)
     b, s_len = h.shape[0], h.shape[1]
     max_len = max_len or s_len
     enc_h = None
     if cfg.encoder_layers:
-        enc_h = _encode_whisper(params, batch["enc_embeds"], cfg, mesh)
+        enc_h = _encode_whisper(params, batch["enc_embeds"], cfg, mesh, tp)
     positions = _positions(cfg, b, s_len, device=h.device)
+    if tp is not None:
+        tp = tp.with_seq(_seq_split(cfg, tp, s_len))
+        h = _seq_piece(h, tp)
     h, _, caches = _backbone(params, h, cfg, positions, "prefill",
-                             max_len=max_len, enc_h=enc_h, mesh=mesh)
-    # ring-buffer alignment: position p must live at slot p % window
-    caches = _roll_window_caches(caches, cfg, s_len)
+                             max_len=max_len, enc_h=enc_h, mesh=mesh, tp=tp,
+                             kv_splits=kv_splits)
     idx = s_len if true_len is None else int(true_len)
-    h = blocks.norm(h[:, idx - 1:idx, :], params["final_norm"], cfg.norm)
-    logits = _lm_head(h, params, cfg)[:, 0]
+    if tp is not None and tp.seq:       # the rank holding token idx - 1
+        n = s_len // tp.n
+        owner, at = divmod(idx - 1, n)
+        row = h[:, at:at + 1]
+        row = tp.reduce(row if tp.rank == owner else torch.zeros_like(row))
+    else:
+        row = h[:, idx - 1:idx]
+    row = blocks.norm(row, params["final_norm"], cfg.norm)
+    if tp is not None:
+        tp = tp.with_seq(False)
+        row = tp.enter(row)
+    logits = _lm_head(row, params, cfg, tp)[:, 0]
     return logits, caches
 
 
@@ -855,94 +1139,42 @@ def _gather_rows(t, mesh):
     return C.gather_from(t, 0, mesh, SH.dp_axes(mesh))
 
 
-def _data_spec(spec, mesh):
-    """``spec`` with every axis but the data axes dropped."""
-    dp = set(SH.dp_axes(mesh))
-    out = []
-    for e in spec:
-        names = SH.entry_axes(e)
-        if names and set(names) & dp and not set(names) <= dp:
-            raise ValueError(f"spec entry {e!r} mixes data and other axes")
-        out.append(e if names and set(names) <= dp else None)
-    return tuple(out)
-
-
-def _rows_piece(t, spec, mesh):
-    """This rank's piece under ``spec`` of ``t``, its data rank's rows of
-    the global tensor: ``t`` cut along the other axes' dims."""
-    data = _data_spec(spec, mesh)
-    rest = tuple(None if d is not None else e for d, e in zip(data, spec))
-    return SH.local_slice(t, rest, mesh)
-
-
-def _place_rows(t, spec, mesh):
-    """A DTensor placed by ``spec`` from ``t``, this data rank's rows."""
-    from torch.distributed.tensor import DTensor
-
-    return DTensor.from_local(_rows_piece(t, spec, mesh).contiguous(), mesh,
-                              SH.placements(spec, mesh), run_check=False)
-
-
-def _roll_window_caches(caches, cfg: ArchConfig, s_len: int):
-    """After prefill a windowed (ring) cache holds the last W positions in
-    order from slot 0; decode expects position p at slot p % W."""
-    if "local_attn" not in cfg.layer_types:
-        return caches
-    out = []
-    for (pattern, _), seg_c in zip(segments_for(cfg), caches):
-        slots = []
-        for btype, c in zip(pattern, seg_c):
-            if btype == "local_attn":
-                w = c["k"].shape[2]           # stacked (count, B, W, ...)
-                shift = s_len % w if s_len > w else 0
-                if shift:
-                    c = {k: torch.roll(v, shift, dims=2) if v.ndim >= 3
-                         else v for k, v in c.items()}
-            slots.append(c)
-        out.append(tuple(slots))
-    return tuple(out)
-
-
 def decode_step(params, caches, tokens, pos, cfg: ArchConfig, mesh=None):
     """One decode step.  ``tokens`` (B, 1) ints (embeds (B, 1, d) for an
     embedding-input arch); ``pos`` the position being written (an int).
     Returns (logits (B, V), caches) with ``caches`` (attention caches and
     recurrent states) updated in place.
 
-    With a ``mesh``: ``caches`` are :func:`prefill`'s DTensors.  Each data
-    rank gathers its rows of every cache leaf over 'model' (the KV
-    sequence is gathered on use; a sequence-parallel combine is later
-    work), decodes its rows of ``tokens``, and writes its piece back in
-    place; the logits are gathered whole."""
+    With a ``mesh``: ``caches`` are :func:`prefill`'s DTensors, of which
+    each rank reads and writes its own piece: its data rank's rows, and
+    over 'model' its slots of each KV cache (the rank holding slot
+    ``pos`` writes it; the ranks' attention states are merged) and its
+    channels or heads of each recurrent state.  The parameters are used
+    as :func:`prefill` uses them; the logits are gathered whole."""
     if mesh is None:
         return _decode(params, caches, tokens, pos, cfg, None), caches
+    local, tp = _sharded(params, cfg, mesh)
     specs = tree_map(SH.spec_of, caches)
-    local = tree_map(lambda c, spec: c.redistribute(
-        mesh, SH.placements(_data_spec(spec, mesh), mesh)).to_local(),
-        caches, specs)
-    logits = _decode(SH.gather(params), local,
+    pieces = tree_map(lambda c: c.to_local(), caches)
+    kv_splits = _kv_splits(cfg, specs)
+    logits = _decode(local, pieces,
                      _data_shard({"t": tokens}, cfg, mesh)["t"], pos, cfg,
-                     mesh)
-
-    def write(c, new, spec):
-        piece = _rows_piece(new, spec, mesh)
-        dst = c.to_local()
-        if not dst.is_set_to(piece):         # not already written in place
-            dst.copy_(piece)
-
-    tree_map(write, caches, local, specs)
+                     mesh, tp, kv_splits)
     return _gather_rows(logits, mesh), caches
 
 
-def _decode(params, caches, tokens, pos, cfg: ArchConfig, mesh):
+def _decode(params, caches, tokens, pos, cfg: ArchConfig, mesh, tp=None,
+            kv_splits=None):
     pos = int(pos)
     if cfg.embedding_inputs:
         h = tokens.to(_dt(cfg))
     else:
-        h = _embed(params, tokens, cfg)
+        h = _embed(params, tokens, cfg, tp)
     if cfg.pos_embed == "learned":
         h = h + params["pos_embed"][pos:pos + 1][None].to(h.dtype)
     h, _, _ = _backbone(params, h, cfg, None, "decode", caches=caches,
-                        pos=pos, mesh=mesh)
+                        pos=pos, mesh=mesh, tp=tp, kv_splits=kv_splits)
     h = blocks.norm(h, params["final_norm"], cfg.norm)
-    return _lm_head(h, params, cfg)[:, 0]
+    if tp is not None:
+        h = tp.enter(h)
+    return _lm_head(h, params, cfg, tp)[:, 0]

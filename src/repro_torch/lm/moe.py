@@ -22,12 +22,14 @@ reference's stable sort and ``searchsorted`` slots, so its integer
 metadata is exact; ``_combine`` adds each token's k outputs in the order
 the reference's ``.at[st].add`` applies them.
 
-In the port a mesh step runs on weights gathered whole (the sharded
-train step gathers every leaf at its start, ``lm/model.py``), so where
-the reference all-gathers the FSDP weight shards over the data axes
-(``_gathered_weights``), :func:`_local_weights` takes this model rank's
-experts or d_ff slice; its backward all-gathers the slice's gradient, so
-every rank ends with the whole gradient.  The collectives and their
+In the port a mesh step hands a MoE layer its expert weights whole
+(``parallel/tp.shard_params`` gathers them: their split kind is
+``"whole"``), so where the reference all-gathers the FSDP weight shards
+over the data axes (``_gathered_weights``), :func:`_local_weights` takes
+this model rank's experts or d_ff slice; its backward all-gathers the
+slice's gradient, so every rank ends with the whole gradient.  The
+router, the shared experts and every dense layer follow the dense rules
+of ``parallel/tp.py`` (``lm/model._apply_layer``).  The collectives and their
 gradients are ``parallel/collectives.py``'s.
 
 Float steps follow the reference's: the router runs in float32, the

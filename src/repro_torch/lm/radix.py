@@ -87,11 +87,17 @@ def kmajor_weight(w: dict) -> dict:
             "scale": w["scale"]}
 
 
-def _radix_activation(x: torch.Tensor, num_steps: int):
+def _radix_activation(x: torch.Tensor, num_steps: int, tp=None):
     """Signed activation -> (uint8 radix levels, per-token f32 scale):
-    levels of the affine-shifted value ``(x / s + 1) / 2`` in [0, 1]."""
+    levels of the affine-shifted value ``(x / s + 1) / 2`` in [0, 1].
+    With ``tp`` (``parallel.tp.TP``) ``x`` is this rank's slice of each
+    row and the absmax is a max over 'model' (exact, so the scale is the
+    whole row's)."""
     lvl = encoding.max_level(num_steps)
-    s = x.abs().amax(dim=-1, keepdim=True).to(torch.float32) + 1e-9
+    a = x.abs().amax(dim=-1, keepdim=True).to(torch.float32)
+    if tp is not None:
+        a = tp.max(a)
+    s = a + 1e-9
     u = (x.to(torch.float32) / s + 1.0) * 0.5
     q = torch.clamp(torch.round(u * lvl), 0, lvl).to(torch.uint8)
     return q, s
@@ -114,7 +120,7 @@ def _int_product(qx: torch.Tensor, qw: torch.Tensor) -> torch.Tensor:
 
 
 def maybe_radix_matmul(x: torch.Tensor, w, *, cfg: ArchConfig,
-                       use_kernel=None) -> torch.Tensor:
+                       use_kernel=None, tp=None) -> torch.Tensor:
     """x (..., d_in) @ w -> (..., d_out).
 
     ``w`` is a plain tensor (exact mode) or a :func:`quantize_weight` /
@@ -130,14 +136,25 @@ def maybe_radix_matmul(x: torch.Tensor, w, *, cfg: ArchConfig,
     otherwise the plain integer product runs.  Both give the same int32
     accumulator.  ``cfg.kernel_autotune`` runs the kernel at the tuned
     launch (``kernels.autotune``'s winner for the problem, swept on a
-    miss)."""
+    miss).
+
+    ``tp`` (a ``parallel.tp.TP``) makes the product row-parallel: ``x``
+    and ``w`` are this rank's slice of the input channels and its rows of
+    the weight (a column-parallel product is the plain call on this
+    rank's columns).  The float product is summed over 'model'
+    (``tp.exit``); a radix product quantizes against the whole row's
+    scale (a max over 'model'), sums the int32 accumulators and the
+    weight's column sums over 'model' (reduce-scattered over the
+    sequence under ``tp.seq``) and only then turns them into float, the
+    reference's order, so the result is exact on any split."""
     if not isinstance(w, dict):
-        return torch.einsum("...d,df->...f", x, w)
+        y = torch.einsum("...d,df->...f", x, w)
+        return y if tp is None else tp.exit(y)
     if use_kernel is None:
         use_kernel = cfg.use_kernel
     t = cfg.radix_steps
     lvl = encoding.max_level(t)
-    qx, sx = _radix_activation(x, t)
+    qx, sx = _radix_activation(x, t, tp)
     kmajor = "qt" in w
     qw, sw = (w["qt"] if kmajor else w["q"]), w["scale"]
     if use_kernel:
@@ -147,6 +164,11 @@ def maybe_radix_matmul(x: torch.Tensor, w, *, cfg: ArchConfig,
     else:
         acc = _int_product(qx, qw.transpose(-1, -2) if kmajor else qw)
     colsum = qw.sum(dim=-1 if kmajor else -2, dtype=torch.int32)
+    if tp is not None:
+        acc = tp.sum_int(acc, 1 if tp.seq else None)
+        colsum = tp.sum_int(colsum)
+        if tp.seq:
+            sx = sx.chunk(tp.n, 1)[tp.rank]
     y = (2.0 / lvl) * acc.to(torch.float32) - colsum.to(torch.float32)
     y = y * sx * sw
     return y.to(x.dtype)
@@ -209,10 +231,15 @@ def _decode_kv(q: torch.Tensor, s: torch.Tensor, num_steps: int, dtype):
 
 
 def cache_update(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
-                 pos: int, cfg: ArchConfig, *, window: int = 0) -> dict:
+                 pos: int, cfg: ArchConfig, *, window: int = 0,
+                 offset: int = 0) -> dict:
     """Write one token (B, 1, Hkv, hd) at slot ``pos`` (the ring slot
-    ``pos % window`` if windowed), in place; returns ``cache``."""
-    slot = int(pos) % window if window else int(pos)
+    ``pos % window`` if windowed), in place; returns ``cache``.  A cache
+    holding the slots ``offset`` .. ``offset + len - 1`` (a rank's piece
+    of a cache split over 'model') writes only a slot it holds."""
+    slot = (int(pos) % window if window else int(pos)) - offset
+    if not 0 <= slot < cache["k"].shape[1]:
+        return cache
     if _radix_kv(cfg):
         qk, sk = _encode_kv(k_new, cfg.radix_steps)
         qv, sv = _encode_kv(v_new, cfg.radix_steps)
@@ -247,7 +274,8 @@ def packed_attn_enabled(cfg: ArchConfig) -> bool:
 
 
 def packed_decode_attention(q: torch.Tensor, cache: dict, mask: torch.Tensor,
-                            cfg: ArchConfig) -> torch.Tensor:
+                            cfg: ArchConfig, *, partials: bool = False,
+                            splits=None) -> torch.Tensor:
     """One decode step of attention over the quantized KV cache.
 
     q (B, H, hd) float, ``cache`` the radix dict, ``mask`` (B, S) bool ->
@@ -255,9 +283,23 @@ def packed_decode_attention(q: torch.Tensor, cache: dict, mask: torch.Tensor,
     :func:`maybe_radix_matmul`: ``cfg.use_kernel`` runs the kernel (the
     CUDA kernel on a CUDA tensor), otherwise its plain version.
     ``cfg.kernel_autotune`` takes the tuned KV split, on the plain path
-    too, so that the two repeat one float order."""
-    from repro_torch.kernels import ops as kops
+    too, so that the two repeat one float order.
 
+    ``partials`` (a cache whose slots are split over 'model') returns the
+    KV splits' softmax states instead, as a flat buffer
+    (``kernels.radix_attn.partials_size``), cut as ``splits`` = (slots,
+    max_splits) says: the splits of the whole cache, so that the ranks'
+    merged states repeat the one-device kernel's combine."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import radix_attn as ra
+
+    if partials:
+        fn = ra.radix_decode_attn_cuda if cfg.use_kernel else \
+            ra.radix_decode_attn_plain
+        return fn(q, cache["k"], cache["k_scale"], cache["v"],
+                  cache["v_scale"], mask, num_steps=cfg.radix_steps,
+                  method=cfg.kernel_dataflow, packed=_packed(cfg),
+                  splits=splits, partials=True)
     config = None if cfg.use_kernel else kops.KernelConfig(impl="plain")
     return kops.radix_decode_attention(
         q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"],

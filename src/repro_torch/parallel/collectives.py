@@ -25,10 +25,21 @@ per model rank):
 * :func:`permute` (the reference's ``ppermute`` by a fixed shift along
   one axis): forward each rank sends to the rank ``shift`` places on and
   receives from the one ``shift`` places back, backward the reverse
-  shift of the gradient.
+  shift of the gradient;
+* :func:`seq_gather` / :func:`seq_scatter` (Megatron-SP's entry to and
+  exit from the tensor-parallel region, the residual stream split over
+  the sequence): forward all-gather along a dim, backward reduce-scatter
+  of the ranks' partial gradients; forward reduce-scatter of the ranks'
+  partial sums, backward all-gather;
+* :func:`sum_int` and :func:`max_over` (no gradient: the integer
+  accumulators of a row-parallel radix product, summed exactly, and a
+  per-token or per-head scale whose absmax is split over the ranks).
 
 A group of one rank skips its communication (every function is then the
-identity, or a slice of the whole).
+identity, or a slice of the whole).  Gloo moves CUDA tensors through the
+host (its own CUDA support covers only some collectives), so every
+function runs on gloo and NCCL alike; gloo has no reduce-scatter, which
+is an all-reduce and this rank's chunk there.
 """
 
 from __future__ import annotations
@@ -42,7 +53,8 @@ from repro_torch.parallel.sharding import axis_sizes
 
 __all__ = ["group", "group_size", "group_rank", "copy_to", "reduce_from",
            "slice_of", "gather_from", "all_to_all", "mean_over",
-           "permute", "all_reduce_"]
+           "permute", "all_reduce_", "seq_gather", "seq_scatter",
+           "sum_int", "max_over"]
 
 
 def group(mesh, axes: Sequence[str]):
@@ -78,7 +90,13 @@ def group_rank(mesh, axes: Sequence[str]) -> int:
     return k
 
 
+def _gloo(pg) -> bool:
+    return dist.get_backend(pg) == "gloo"
+
+
 def _gather(x: torch.Tensor, dim: int, pg, n: int) -> torch.Tensor:
+    if x.is_cuda and _gloo(pg):
+        return _gather(x.cpu(), dim, pg, n).to(x.device)
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x.contiguous(), group=pg)
     return torch.cat(parts, dim)
@@ -88,11 +106,27 @@ def _chunk(x: torch.Tensor, dim: int, n: int, k: int) -> torch.Tensor:
     return x.chunk(n, dim)[k].contiguous()
 
 
-def all_reduce_(x: torch.Tensor, pg) -> torch.Tensor:
-    """Sum ``x`` over ``pg`` in place (no-op for ``None``); returns x."""
-    if pg is not None:
-        dist.all_reduce(x, group=pg)
+def all_reduce_(x: torch.Tensor, pg, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Reduce ``x`` over ``pg`` in place by ``op`` (default a sum; no-op
+    for ``None``); returns x."""
+    if pg is None:
+        return x
+    if x.is_cuda and _gloo(pg):
+        x.copy_(all_reduce_(x.cpu(), pg, op))
+        return x
+    dist.all_reduce(x, op=op, group=pg)
     return x
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, pg, n: int,
+                    k: int) -> torch.Tensor:
+    """This rank's chunk ``k`` along ``dim`` of ``x`` summed over ``pg``."""
+    if _gloo(pg):
+        return _chunk(all_reduce_(x.contiguous().clone(), pg), dim, n, k)
+    xm = x.movedim(dim, 0).contiguous()
+    out = xm.new_empty((xm.shape[0] // n,) + tuple(xm.shape[1:]))
+    dist.reduce_scatter_tensor(out, xm, group=pg)
+    return out.movedim(0, dim).contiguous()
 
 
 class _CopyTo(torch.autograd.Function):
@@ -138,19 +172,46 @@ class _GatherFrom(torch.autograd.Function):
         return _chunk(g, ctx.dim, ctx.n, ctx.k), None, None, None, None
 
 
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, pg, n, k):
+        ctx.dim, ctx.pg, ctx.n, ctx.k = dim, pg, n, k
+        return _gather(x, dim, pg, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_reduce_scatter(g, ctx.dim, ctx.pg, ctx.n, ctx.k), None,
+                None, None, None)
+
+
+class _SeqScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, pg, n, k):
+        ctx.dim, ctx.pg, ctx.n = dim, pg, n
+        return _reduce_scatter(x, dim, pg, n, k)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.dim, ctx.pg, ctx.n), None, None, None, None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, pg):
         ctx.pg = pg
-        out = torch.empty_like(x)
-        dist.all_to_all_single(out, x.contiguous(), group=pg)
-        return out
+        return _exchange(x, pg)
 
     @staticmethod
     def backward(ctx, g):
-        out = torch.empty_like(g)
-        dist.all_to_all_single(out, g.contiguous(), group=ctx.pg)
-        return out, None
+        return _exchange(g, ctx.pg), None
+
+
+def _exchange(x: torch.Tensor, pg) -> torch.Tensor:
+    if x.is_cuda and _gloo(pg):
+        return _exchange(x.cpu(), pg).to(x.device)
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous(), group=pg)
+    return out
 
 
 class _MeanOver(torch.autograd.Function):
@@ -168,6 +229,8 @@ class _MeanOver(torch.autograd.Function):
 def _shift(x: torch.Tensor, pg, send_to: int, recv_from: int):
     """Send ``x`` to global rank ``send_to`` and receive a tensor like it
     from ``recv_from``, as one batch of point-to-point operations."""
+    if x.is_cuda and _gloo(pg):
+        return _shift(x.cpu(), pg, send_to, recv_from).to(x.device)
     out = torch.empty_like(x)
     ops = [dist.P2POp(dist.isend, x.contiguous(), send_to, group=pg),
            dist.P2POp(dist.irecv, out, recv_from, group=pg)]
@@ -237,3 +300,41 @@ def permute(x, mesh, axis: str, shift: int = 1):
     send_to = dist.get_global_rank(pg, (k + shift) % n)
     recv_from = dist.get_global_rank(pg, (k - shift) % n)
     return _Permute.apply(x, pg, send_to, recv_from)
+
+
+def seq_gather(x, dim: int, mesh, axes):
+    """Megatron-SP's entry: the ranks' pieces along ``dim`` joined (every
+    rank then computes its own part of the work on the whole); backward,
+    the ranks' partial gradients summed and cut back to the piece."""
+    pg, n, k = _axes_info(mesh, axes)
+    return x if n == 1 else _SeqGather.apply(x, dim, pg, n, k)
+
+
+def seq_scatter(x, dim: int, mesh, axes):
+    """Megatron-SP's exit: the ranks' partial sums summed and cut to this
+    rank's piece along ``dim``; backward, the pieces' gradients joined."""
+    pg, n, k = _axes_info(mesh, axes)
+    return x if n == 1 else _SeqScatter.apply(x, dim, pg, n, k)
+
+
+def sum_int(x: torch.Tensor, mesh, axes, scatter_dim=None) -> torch.Tensor:
+    """The integer ``x`` summed over ``axes`` (exact: no rounding in any
+    order), or with ``scatter_dim`` this rank's piece of the sum along
+    it.  No gradient."""
+    pg, n, k = _axes_info(mesh, axes)
+    if n == 1:
+        return x
+    if scatter_dim is not None:
+        return _reduce_scatter(x.detach(), scatter_dim, pg, n, k)
+    return all_reduce_(x.detach().contiguous().clone(), pg)
+
+
+def max_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``axes`` (exact).  No
+    gradient."""
+    pg, n, _ = _axes_info(mesh, axes)
+    if n == 1:
+        return x
+    return all_reduce_(x.detach().contiguous().clone(), pg,
+                       dist.ReduceOp.MAX)
+

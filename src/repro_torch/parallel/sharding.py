@@ -39,7 +39,7 @@ from repro_torch.train.tree import leaves_with_paths, tree_map, unflatten
 __all__ = ["axis_sizes", "dp_axes", "sanitize", "param_specs", "batch_specs",
            "cache_specs", "opt_state_specs", "shardings", "placements",
            "local_slice", "place", "gather", "spec_of", "spec_from", "shard_like", "mesh_device",
-           "entry_axes", "spec_tree_map"]
+           "entry_axes", "spec_tree_map", "model_split", "RADIX_KEYS"]
 
 Spec = Tuple
 
@@ -174,6 +174,79 @@ def _leaf_rule(names: Tuple[str, ...], shape, cfg: ArchConfig, mesh) -> Spec:
         return fv((None, M, None), (None, None, None))
     # mu_* and every other leaf: replicate
     return _none(len(shape))
+
+
+RADIX_KEYS = ("q", "qt", "scale")
+"""The leaves of a radix weight dict (``lm/radix.quantize_weight``,
+``kmajor_weight``) below the weight's own key."""
+_ATTN_IN = ("wq", "wk", "wv")
+_MATRICES = ("w_gate", "w_up", "w_down", "w_ck", "w_cr", "w_cv",
+             "w_gate_branch", "w_rec_in", "w_out", "w_r", "w_k", "w_v",
+             "w_g", "w_o", "w_dec_a", "w_dec_b", "w_a", "w_x", "unembed")
+_CHANNELS = ("b_a", "b_x", "lambda_p", "w_dec0", "conv_w")
+
+
+def _float_shape(key: str, shape, hd: int) -> tuple:
+    """The float weight's shape behind a radix dict's ``q`` levels of
+    ``shape``: attention projections are stored over their flattened 2-D
+    view (``lm/model.radixify_params``)."""
+    shape = tuple(shape)
+    if key in _ATTN_IN:
+        return shape[:-1] + (shape[-1] // hd, hd)
+    if key == "wo":
+        return shape[:-2] + (shape[-2] // hd, hd, shape[-1])
+    return shape
+
+
+def model_split(names: Tuple[str, ...], shape, cfg: ArchConfig,
+                mesh) -> Tuple[str, Spec]:
+    """How the leaf at ``names`` (a weight's path; a radix dict's weight
+    key, not its ``q``/``scale``) of float ``shape`` (stacked, as
+    :func:`param_specs` sees it) is split over 'model' by the rule table:
+    ``(kind, spec)`` with ``spec`` the rule's spec kept to 'model' (the
+    data axes dropped) and ``kind`` one of
+
+    * ``"column"``: output channels (a matrix's last dim, attention's
+      heads, a per-channel vector's channels, RWKV's per-head leaves'
+      heads);
+    * ``"row"``: input channels (a matrix's second-to-last dim, ``wo``'s
+      heads);
+    * ``"head_dim"``: a QKV projection's head_dim, the fallback where the
+      heads do not divide the axis; ``"row_hd"`` the same for ``wo``;
+    * ``"vocab"``: the embedding table's rows;
+    * ``"whole"``: leaves used whole although stored split (the MoE
+      experts, which the mesh dispatches of ``lm/moe.py`` slice
+      themselves, and tables split over d_model);
+    * ``"replicated"``: no 'model' entry.
+
+    It reads the one rule table (:func:`_leaf_rule`), validated against
+    the shape as :func:`param_specs` does."""
+    shape = tuple(shape)
+    spec = _first_valid([_leaf_rule(names, shape, cfg, mesh)], shape, mesh)
+    spec = tuple(e if "model" in entry_axes(e) else None for e in spec)
+    md = next((i for i, e in enumerate(spec) if e is not None), None)
+    key, nd = names[-1], len(shape)
+    in_moe = cfg.moe is not None and "ffn" in names and "shared" not in names
+    if md is None:
+        return "replicated", spec
+    if in_moe and key in ("w_gate", "w_up", "w_down"):
+        return "whole", spec
+    if spec[md] != "model":
+        raise ValueError(f"{names}: 'model' shares dim {md} with another "
+                         f"axis ({spec[md]!r})")
+    if key in _ATTN_IN:
+        return ("column" if md == nd - 2 else "head_dim"), spec
+    if key == "wo":
+        return ("row" if md == nd - 3 else "row_hd"), spec
+    if key == "embed":
+        return ("vocab" if md == 0 else "whole"), spec
+    if key in _MATRICES:
+        return ("column" if md == nd - 1 else "row"), spec
+    if key in _CHANNELS and md == nd - 1:
+        return "column", spec
+    if key in ("u_bonus", "gn_w", "gn_b") and md == nd - 2:
+        return "column", spec
+    return "whole", spec
 
 
 def _names_of(path) -> Tuple[str, ...]:

@@ -19,6 +19,14 @@ bfloat16 tensor is rounded to bfloat16 first (SGD's ``-lr * g``), and
 every division by a host scalar divides by a float32 tensor on the
 operand's device (CUDA turns a host-scalar divisor into a reciprocal
 multiply).
+
+``shards`` (a :class:`Shards`) runs an update on leaves split over a
+group of ranks (tensor parallelism: each rank holding its piece of a
+parameter, its gradient and its state): the global norm, Adafactor's
+factored row and column statistics and its RMS clip sum over the group
+where a leaf's reduced dim is split, so every rank updates its piece as
+the whole update would (in another float order).  Adam and SGD are
+elementwise and take it unchanged.
 """
 
 from __future__ import annotations
@@ -31,14 +39,42 @@ from repro_torch.train.tree import leaves, tree_map
 
 __all__ = ["Optimizer", "sgd", "adam", "adafactor", "apply_updates",
            "global_norm", "clip_by_global_norm", "AdamState",
-           "AdafactorState"]
+           "AdafactorState", "Shards"]
 
 F32 = torch.float32
 
 
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
-    update: Callable[[Any, Any, Any], Tuple[Any, Any]]
+    update: Callable[..., Tuple[Any, Any]]
+
+
+class Shards(NamedTuple):
+    """Leaves split over a group of ``n`` ranks: ``dims`` a tree like the
+    parameters' of each leaf's split dim (-1: the leaf is whole on every
+    rank), ``sum`` the in-place sum of a tensor over the group."""
+    dims: Any
+    n: int
+    sum: Callable[[torch.Tensor], torch.Tensor]
+
+
+def _split_sum(x: torch.Tensor, dim: int, keepdim: bool, d: int,
+               shards: Optional[Shards]) -> torch.Tensor:
+    """``x.sum(dim)`` of a leaf whose dim ``d`` (-1 none) is split over
+    ``shards``'s group: summed over the group where ``dim`` is ``d``."""
+    out = x.sum(dim=dim, keepdim=keepdim)
+    if shards is not None and d >= 0 and dim % x.ndim == d:
+        out = shards.sum(out.contiguous())
+    return out
+
+
+def _split_mean(x, dim: int, keepdim: bool, d: int, shards) -> torch.Tensor:
+    """``x.mean(dim)``; where ``dim`` is the split dim ``d``, the sum over
+    the group divided by the whole length."""
+    if shards is None or d < 0 or dim % x.ndim != d:
+        return x.mean(dim=dim, keepdim=keepdim)
+    return _div(_split_sum(x, dim, keepdim, d, shards),
+                float(x.shape[dim] * shards.n))
 
 
 def _div(a, b: torch.Tensor) -> torch.Tensor:
@@ -67,14 +103,24 @@ def apply_updates(params, updates):
     return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the leaves' float32 sums of squares, summed in leaf order."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(F32)))
-                          for x in leaves(tree)))
+def global_norm(tree, shards: Optional[Shards] = None) -> torch.Tensor:
+    """sqrt of the leaves' float32 sums of squares, summed in leaf order
+    (a split leaf's sum summed over ``shards``'s group first: one
+    all-reduce of the split leaves' sums)."""
+    sums = [torch.sum(torch.square(x.to(F32))) for x in leaves(tree)]
+    if shards is not None and sums:
+        split = [d >= 0 for d in leaves(shards.dims)]
+        if any(split):
+            vec = torch.stack([t if s else torch.zeros_like(t)
+                               for t, s in zip(sums, split)])
+            vec = shards.sum(vec)
+            sums = [v if s else t for t, v, s in zip(sums, vec, split)]
+    return torch.sqrt(sum(sums))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float,
+                        shards: Optional[Shards] = None):
+    norm = global_norm(grads, shards)
     scale = torch.clamp(_div(max_norm, norm + 1e-12), max=1.0)
     return tree_map(lambda g: g.to(torch.promote_types(g.dtype, F32)) * scale,
                     grads), norm
@@ -89,8 +135,8 @@ def sgd(lr: float, momentum: float = 0.0, nesterov: bool = False) -> Optimizer:
             return ()
         return tree_map(torch.zeros_like, params)
 
-    def update(grads, state, params=None):
-        del params
+    def update(grads, state, params=None, shards=None):
+        del params, shards          # elementwise
         if momentum == 0.0:
             return tree_map(lambda g: _mul(-lr, g), grads), state
         new_m = tree_map(lambda m, g: _mul(momentum, m) + g, state, grads)
@@ -119,7 +165,8 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
             nu=tree_map(lambda p: torch.zeros_like(p, dtype=F32), params),
         )
 
-    def update(grads, state: AdamState, params=None):
+    def update(grads, state: AdamState, params=None, shards=None):
+        del shards                  # elementwise
         step = state.step + 1
         mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.to(F32),
                       state.mu, grads)
@@ -187,17 +234,22 @@ def adafactor(lr: float, decay: float = 0.8, eps: float = 1e-30,
             torch.zeros((), dtype=torch.int32, device=_device(params)),
             tree_map(slot, params), mu)
 
-    def update(grads, state: AdafactorState, params=None):
+    def update(grads, state: AdafactorState, params=None, shards=None):
         step = state.step + 1
         beta = 1.0 - (step.to(F32) + 1.0) ** -decay
 
-        def upd_leaf(g, s):
+        def upd_leaf(g, s, d=-1):
             g = g.to(F32)
             g2 = torch.square(g) + eps
             if isinstance(s, _FactoredSlot):
-                vr = beta * s.vr + (1 - beta) * g2.mean(dim=-1)
-                vc = beta * s.vc + (1 - beta) * g2.mean(dim=-2)
-                denom = vr.mean(dim=-1, keepdim=True)
+                nd = g.ndim
+                vr = beta * s.vr + (1 - beta) * _split_mean(
+                    g2, -1, False, d, shards)
+                vc = beta * s.vc + (1 - beta) * _split_mean(
+                    g2, -2, False, d, shards)
+                # vr is g's shape[:-1]: its last dim is g's dim nd - 2
+                denom = _split_mean(vr, -1, True,
+                                    nd - 2 if d == nd - 2 else -1, shards)
                 rms = ((vr / torch.clamp_min(denom, eps))[..., None]
                        * vc[..., None, :])
                 precond = g * torch.rsqrt(torch.clamp_min(rms, eps))
@@ -207,12 +259,21 @@ def adafactor(lr: float, decay: float = 0.8, eps: float = 1e-30,
                 precond = g * torch.rsqrt(torch.clamp_min(nu, eps))
                 new_s = nu
             # update clipping (Adafactor's RMS clip)
-            rms_u = torch.sqrt(torch.mean(torch.square(precond)) + 1e-12)
+            sq = torch.square(precond)
+            if shards is not None and d >= 0:
+                msq = _div(shards.sum(torch.sum(sq).reshape(1))[0],
+                           float(sq.numel() * shards.n))
+            else:
+                msq = torch.mean(sq)
+            rms_u = torch.sqrt(msq + 1e-12)
             precond = precond / torch.clamp_min(_div(rms_u, clip_threshold),
                                                 1.0)
             return -lr * precond, new_s
 
-        pairs = tree_map(upd_leaf, grads, state.slots)
+        if shards is None:
+            pairs = tree_map(upd_leaf, grads, state.slots)
+        else:
+            pairs = tree_map(upd_leaf, grads, state.slots, shards.dims)
         updates = tree_map(lambda g, p: p[0], grads, pairs)
         slots = tree_map(lambda g, p: p[1], grads, pairs)
 

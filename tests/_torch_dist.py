@@ -412,3 +412,226 @@ def gpipe_case(shape, p_np, x_np, placed: bool):
     return (_np(out), _np(ref), torch.equal(out, ref),
             {k: _np(g) for k, g in zip(params, grads)},
             {k: _np(g) for k, g in zip(params, ref_g)})
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over 'model' (``parallel/tp.py``).
+# ---------------------------------------------------------------------------
+
+
+def _radix_cfg(t: int, **kw):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("gemma_2b", smoke=True),
+                               quant="radix", radix_steps=t, use_kernel=True,
+                               **kw)
+
+
+def tp_matmul_case(x_np, w_np, t, kmajor, seq):
+    """A radix product on a (1, 4) mesh, column- and row-parallel: (this
+    rank's output columns, the row-parallel output (this rank's tokens
+    under ``seq``), the row-parallel int32 accumulator summed over the
+    ranks)."""
+    from repro_torch.lm import radix
+    from repro_torch.parallel.tp import TP
+
+    mesh = _mesh((1, 4))
+    cfg = _radix_cfg(t)
+    tp = TP(mesh, {}).with_seq(seq)
+    n, r = tp.n, tp.rank
+    x = torch.from_numpy(x_np)
+    w = radix.quantize_weight(torch.from_numpy(w_np))
+    k_r, n_r = x.shape[-1] // n, w["q"].shape[-1] // n
+    cols = slice(r * n_r, (r + 1) * n_r)
+    rows = slice(r * k_r, (r + 1) * k_r)
+    w_col = {"q": w["q"][:, cols].contiguous(), "scale": w["scale"][cols]}
+    w_row = {"q": w["q"][rows].contiguous(), "scale": w["scale"]}
+    if kmajor:
+        w_col, w_row = radix.kmajor_weight(w_col), radix.kmajor_weight(w_row)
+    y_col = radix.maybe_radix_matmul(x, w_col, cfg=cfg)
+    y_row = radix.maybe_radix_matmul(x[..., rows], w_row, cfg=cfg, tp=tp)
+    qx, _ = radix._radix_activation(x[..., rows], t, tp)
+    acc = tp.sum_int(radix._int_product(qx, w["q"][rows]))
+    return _np(y_col), _np(y_row), acc.numpy()
+
+
+def tp_attn_merge_case(args, t, method, packed):
+    """Decode attention over this rank's quarter of the slots in the
+    partials mode, the ranks' partials all-gathered and merged: the
+    output (B, H, hd)."""
+    from repro_torch.kernels import radix_attn as ra
+    from repro_torch.parallel import collectives as C
+
+    mesh = _mesh((1, 4))
+    q, kq, ks, vq, vs, mask = (torch.from_numpy(a) for a in args)
+    n, r = 4, mesh.get_local_rank("model")
+    s_loc = kq.shape[1] // n
+    sl = slice(r * s_loc, (r + 1) * s_loc)
+    b, h, hd = q.shape
+    hkv = kq.shape[2]
+    split = ra.split_slots(kq.shape[1])
+    out = torch.full((ra.partials_size(b * hkv, -(-s_loc // split),
+                                       h // hkv, hd),), float("nan"))
+    part = ra.radix_decode_attn_cuda(
+        q, kq[:, sl], ks[:, sl], vq[:, sl], vs[:, sl], mask[:, sl],
+        num_steps=t, method=method, packed=packed, partials=True,
+        splits=(split, ra.MAX_SPLITS), out=out)
+    assert part is out
+    parts = C.gather_from(part[None], 0, mesh, ("model",)).unbind(0)
+    out = ra.merge_partials(parts, b * hkv, h // hkv, hd).reshape(b, h, hd)
+    return out.numpy()
+
+
+def _serve_params(cfg, mesh, placed):
+    from repro_torch.lm import model as M
+    from repro_torch.parallel import sharding as SH
+
+    params = M.init_params(torch.Generator().manual_seed(0), cfg)
+    if cfg.quant == "radix":
+        params = M.kmajor_params(M.radixify_params(params, cfg))
+    if placed:
+        params = SH.place(params, SH.param_specs(params, cfg, mesh), mesh)
+    return params
+
+
+def serve_batch(cfg, tok, s0):
+    """The prefill batch of ``tok[:, :s0 + 1]``; an encoder-decoder's
+    frame embeddings drawn from seed 0."""
+    batch = {"tokens": tok[:, :s0 + 1]}
+    if cfg.encoder_layers:
+        batch["enc_embeds"] = torch.randn(
+            (tok.shape[0], cfg.encoder_ctx, cfg.d_model),
+            generator=torch.Generator().manual_seed(0))
+    return batch
+
+
+def tp_serve_case(arch, shape, cfg_kw, tokens, s0, max_len, placed):
+    """Prefill of ``tokens[:, :s0 + 1]`` and decode of the next tokens of
+    ``tokens`` up to ``max_len`` over a ('data', 'model') mesh: every
+    step's logits (the prefill's first), and the cache leaves whose local
+    piece is not their spec's slice."""
+    from repro_torch.configs import get_config
+    from repro_torch.lm import model as M
+    from repro_torch.parallel import sharding as SH
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **cfg_kw)
+    mesh = _mesh(shape)
+    params = _serve_params(cfg, mesh, placed)
+    tok = torch.from_numpy(tokens)
+    last, caches = M.prefill(params, serve_batch(cfg, tok, s0), cfg, mesh,
+                             max_len=max_len)
+    bad = _local_shapes_ok(caches, SH.cache_specs(caches, cfg, mesh), mesh)
+    out = [_np(last)]
+    for pos in range(s0, tokens.shape[1]):
+        logits, caches = M.decode_step(params, caches, tok[:, pos:pos + 1],
+                                       pos, cfg, mesh)
+        out.append(_np(logits))
+    return out, bad
+
+
+def tp_gather_count_case(arch, shape, tokens, s0, max_len):
+    """Prefill and two decode steps over the mesh with parameters placed
+    by ``param_specs``, counting the gathers of a leaf split over 'model':
+    ``sharding.gather`` calls, ``full_tensor`` and ``redistribute`` calls
+    that join a 'model' split.  Returns the counts and the radix/float
+    parameter leaves placed over 'model'."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.lm import model as M
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train.tree import leaves
+
+    cfg = get_config(arch, smoke=True)
+    mesh = _mesh(shape)
+    params = _serve_params(cfg, mesh, True)
+    model_dim = list(SH.axis_sizes(mesh)).index("model")
+    counts = {"sharding.gather": 0, "full_tensor": 0, "redistribute": 0}
+
+    def over_model(dt):
+        return dt.placements[model_dim].is_shard()
+
+    orig = (SH.gather, DTensor.full_tensor, DTensor.redistribute)
+
+    def gather(tree):
+        counts["sharding.gather"] += 1
+        return orig[0](tree)
+
+    def full_tensor(self, *a, **k):
+        counts["full_tensor"] += int(over_model(self))
+        return orig[1](self, *a, **k)
+
+    def redistribute(self, device_mesh=None, placements=None, *a, **k):
+        if over_model(self) and placements is not None and \
+                not placements[model_dim].is_shard():
+            counts["redistribute"] += 1
+        return orig[2](self, device_mesh, placements, *a, **k)
+
+    SH.gather, DTensor.full_tensor, DTensor.redistribute = (
+        gather, full_tensor, redistribute)
+    try:
+        tok = torch.from_numpy(tokens)
+        _, caches = M.prefill(params, {"tokens": tok[:, :s0 + 1]}, cfg, mesh,
+                              max_len=max_len)
+        for pos in (s0, s0 + 1):
+            _, caches = M.decode_step(params, caches, tok[:, pos:pos + 1],
+                                      pos, cfg, mesh)
+    finally:
+        SH.gather, DTensor.full_tensor, DTensor.redistribute = orig
+    placed = sum(over_model(t) for t in leaves(params))
+    return counts, placed
+
+
+class WorkNotes:
+    """A sink of ``kernels/work`` notes: the radix kernels' operations by
+    kernel."""
+
+    def __init__(self):
+        self.muted, self.ops = 0, {}
+
+    def note(self, w):
+        self.ops[w.kernel] = self.ops.get(w.kernel, 0.0) + w.ops
+
+    def made(self, out):
+        pass
+
+
+def radix_serve_notes(cfg, params, tokens, s0, max_len, mesh):
+    """The radix kernels' noted operations of a prefill and of one decode
+    step (``kernels/work`` notes taken where each wrapper launches)."""
+    from repro_torch.kernels import work
+    from repro_torch.lm import model as M
+
+    tok = torch.from_numpy(tokens)
+    notes = [WorkNotes(), WorkNotes()]
+    work._SINKS.append(notes[0])
+    try:
+        _, caches = M.prefill(params, {"tokens": tok[:, :s0 + 1]}, cfg, mesh,
+                              max_len=max_len)
+    finally:
+        work._SINKS.remove(notes[0])
+    work._SINKS.append(notes[1])
+    try:
+        M.decode_step(params, caches, tok[:, s0:s0 + 1], s0, cfg, mesh)
+    finally:
+        work._SINKS.remove(notes[1])
+    return notes[0].ops, notes[1].ops
+
+
+def tp_analysis_case(cfg_kw, tokens, s0, max_len):
+    """A radix Gemma-2B SMOKE prefill over (1, 4) under
+    ``launch/op_analysis``: (its collectives' link bytes by kind, the
+    collectives' input bytes as the ranks pass them, and the radix
+    kernels' noted operations of a prefill and a decode step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import op_analysis
+    from repro_torch.lm import model as M
+
+    cfg = dataclasses.replace(get_config("gemma_2b", smoke=True), **cfg_kw)
+    mesh = _mesh((1, 4))
+    params = _serve_params(cfg, mesh, False)
+    tok = torch.from_numpy(tokens)
+    _, cost = op_analysis.analyze(lambda: M.prefill(
+        params, {"tokens": tok[:, :s0 + 1]}, cfg, mesh, max_len=max_len))
+    return (cost.per_collective,
+            radix_serve_notes(cfg, params, tokens, s0, max_len, mesh))
