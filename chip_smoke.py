@@ -282,6 +282,25 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` and runs:
    attention plan built in steady state; (b) Gemma-2B on a one-rank NCCL
    world, (1, 1): ``torch.equal`` to the one-card run.  The phase prints
    its wall and each rank's host times.
+20. ZeRO-3 over the data axes in the sharded train step: Gemma-2B at full
+   width and depth (18 layers), bf16, ``launch.train.train_loop(cfg,
+   mesh)`` with phase 17's ``MESH_TRAIN`` (adafactor, batch 8 x 512, lr
+   3e-3) for 2 of its 3 steps (``FSDP_TRAIN``: the script's time limit)
+   over 4 gloo ranks spawned on one world sharing the card, the (2, 2)
+   ('data', 'model') mesh: each layer's pieces gathered over 'data'
+   where it runs, the gradients reduce-scattered back, the optimizer on
+   the pieces, the loss on each rank's vocab columns.  Every rank's
+   losses the same and within 5e-4 relative of phase 17's unsharded
+   run's first 2 (phase 17 also saves that run's weights after them;
+   run alone, this phase trains the unsharded run itself); the trained
+   weights, gathered to rank 0, within ``FSDP_WEIGHT_BAR`` relative L2
+   of the unsharded run's over the whole tree and ``FSDP_LEAF_BAR`` in
+   each leaf (a norm's is where a fault in the gradient of a leaf
+   whole over 'data' shows); each rank
+   prints its peak GB, host ms a step, its largest gather over the data
+   axes (one layer's leaf, and a top-level leaf) and the bytes it holds
+   in parameters, gradients and optimizer state.  This path runs none of
+   the four kernels (float weights).  The phase prints its wall.
 
 Launch counters are set to 0 just before each path (phases 3-4, 7, 8, 9,
 10, 11, each arch of 12 and 13, 14, 15, 16, 17, 18 and 19: in each
@@ -298,6 +317,7 @@ beside it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -4220,7 +4240,8 @@ def phase_mesh_train(torch, mesh, results) -> None:
     cfg, mt = gemma_2b.ARCH, MESH_TRAIN
     kw = dict(steps=mt["steps"], batch_size=mt["batch_size"],
               seq_len=mt["seq_len"], lr=mt["lr"], seed=SEED, log=log)
-    plain, plain_losses = train_launch.train_loop(cfg, device=DEV, **kw)
+    with saving_plain(torch, FSDP_TRAIN["steps"]):   # for phase 20
+        plain, plain_losses = train_launch.train_loop(cfg, device=DEV, **kw)
     split = {"plain_train_s": time.perf_counter() - t0}
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         t1 = time.perf_counter()
@@ -4835,6 +4856,394 @@ def phase_tp(torch, results) -> tuple:
     return launches, copies
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: ZeRO-3 over the data axes in the sharded train step.
+# ---------------------------------------------------------------------------
+
+FSDP_RANKS = 4
+FSDP_MESH = (2, 2)            # ('data', 'model')
+# phase 17's MESH_TRAIN at 2 of its 3 steps: with 3 the script ran
+# 1135.4 s of its 1200 on the H100, each step over gloo ~26-33 s
+FSDP_TRAIN = dict(MESH_TRAIN, steps=2)
+FSDP_TIMEOUT_S = 900
+# the unsharded run's weights after FSDP_TRAIN's steps: phase 17 saves
+# them from its own unsharded run; phase 20 run alone trains one
+FSDP_PLAIN = ROOT / "build" / "fsdp_plain.pt"
+FSDP_LOSS_BAR = 5e-4          # relative, the CPU tests' bar
+# relative L2 of the whole trained tree against the unsharded run's: the
+# gradients' float order differs (rank-order sums of partial gradients
+# against one GEMM over the batch), and adafactor steps at lr 3e-3
+# round each weight to bf16 after an update of ~14% of its scale (4.68e-3
+# measured); the embedding, 128000 x 2048, weighs most in it
+FSDP_WEIGHT_BAR = 1e-2
+# each leaf's relative L2 against the unsharded run's, between the sound
+# run's worst leaf (a stacked norm, 3.06e-2) and what a fault in the
+# gradient of a leaf whole over 'data' gives (``fsdp_copy``'s backward
+# planted as the identity: ln1 0.580, ln2 0.201, the final norm 0.057,
+# while the losses and the whole tree stay within their bars)
+FSDP_LEAF_BAR = 0.1
+CHUNK = 1 << 26               # elements a weight comparison takes at once
+
+
+def save_plain(torch, params) -> None:
+    """Keep an unsharded run's weights on the host, in ``FSDP_PLAIN``
+    (which phase 20's rank 0 maps)."""
+    from repro_torch.train.tree import tree_map
+
+    FSDP_PLAIN.parent.mkdir(exist_ok=True)
+    torch.save(tree_map(lambda t: t.cpu(), params), str(FSDP_PLAIN))
+
+
+@contextlib.contextmanager
+def saving_plain(torch, steps: int):
+    """Within the block, the unsharded train step's weights after its
+    ``steps``-th call are saved (``save_plain``): phase 17's unsharded
+    run hands phase 20 its weights after ``FSDP_TRAIN``'s steps."""
+    from repro_torch.lm import model
+
+    make = model.make_train_step
+
+    def make_train_step(*a, **k):
+        step, calls = make(*a, **k), [0]
+
+        def saving(state, batch):
+            out = step(state, batch)
+            calls[0] += 1
+            if calls[0] == steps:
+                save_plain(torch, out[0]["params"])
+            return out
+        return saving
+
+    model.make_train_step = make_train_step
+    try:
+        yield
+    finally:
+        model.make_train_step = make
+
+
+def fsdp_cfg(smoke: bool):
+    from repro_torch.configs import gemma_2b
+
+    return gemma_2b.SMOKE if smoke else gemma_2b.ARCH
+
+
+def _nbytes(torch, tree) -> int:
+    from repro_torch.train.tree import leaves
+
+    return sum(t.numel() * t.element_size() for t in leaves(tree)
+               if torch.is_tensor(t))
+
+
+def watch_step(torch) -> dict:
+    """Wrap the train step's entry points of this process's
+    ``repro_torch`` to record, per step, its host ms (ended by a
+    synchronize), the bytes ``tp.shard_params`` hands it and the
+    gradients' bytes at the clip.  Returns the record."""
+    from repro_torch.lm import model
+    from repro_torch.parallel import tp as tp_lib
+
+    seen = {"step_ms": [], "pieces_bytes": 0, "grads_bytes": 0,
+            "gather_max_bytes": 0, "layer_leaf_max_bytes": 0,
+            "layer_gathered_bytes": 0}
+    make, shard = model.make_train_step, tp_lib.shard_params
+    clip = model.optim_lib.clip_by_global_norm
+
+    def make_train_step(*a, **k):
+        step = make(*a, **k)
+
+        def timed(state, batch):
+            sync(torch)
+            t0 = time.perf_counter()
+            out = step(state, batch)
+            float(out[1]["loss"])
+            sync(torch)
+            seen["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+
+    def shard_params(*a, **k):
+        out = shard(*a, **k)
+        seen["pieces_bytes"] = max(seen["pieces_bytes"],
+                                   _nbytes(torch, out[0]))
+        return out
+
+    def clip_by_global_norm(grads, *a, **k):
+        seen["grads_bytes"] = max(seen["grads_bytes"], _nbytes(torch, grads))
+        return clip(grads, *a, **k)
+
+    model.make_train_step, tp_lib.shard_params = make_train_step, shard_params
+    model.optim_lib.clip_by_global_norm = clip_by_global_norm
+    return seen
+
+
+def fsdp_watch(torch, mesh) -> dict:
+    """``watch_step``'s record, and also every gather over the data axes
+    (``collectives.fsdp_gather``) and each layer's (``TP.over_data``).
+    ``mesh`` is the rank's (unused here: a watch given to ``fsdp_world``
+    may stage collectives on it)."""
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import tp as tp_lib
+    from repro_torch.train.tree import leaves_with_paths
+
+    seen = watch_step(torch)
+    gather, over = C.fsdp_gather, tp_lib.TP.over_data
+
+    def fsdp_gather(x, *a, **k):
+        out = gather(x, *a, **k)
+        seen["gather_max_bytes"] = max(seen["gather_max_bytes"],
+                                       out.numel() * out.element_size())
+        return out
+
+    def over_data(self, tree, *prefix, layer=False):
+        out = over(self, tree, *prefix, layer=layer)
+        if layer and self.data:
+            got = [t.numel() * t.element_size()
+                   for p, t in leaves_with_paths(out)
+                   if tuple(prefix) + p in self.data]
+            seen["layer_gathered_bytes"] = max(seen["layer_gathered_bytes"],
+                                               sum(got))
+            seen["layer_leaf_max_bytes"] = max(seen["layer_leaf_max_bytes"],
+                                               max(got, default=0))
+        return out
+
+    C.fsdp_gather, tp_lib.TP.over_data = fsdp_gather, over_data
+    return seen
+
+
+def whole_leaf(leaf):
+    """A DTensor leaf joined whole on every rank by the port's
+    ``collectives.gather_from`` (through the host on gloo: DTensor's own
+    collectives on CUDA tensors over gloo crash the process)."""
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import sharding as SH
+
+    full = leaf.to_local()
+    for d, e in enumerate(SH.spec_of(leaf)):
+        if e is not None:
+            full = C.gather_from(full, d, leaf.device_mesh,
+                                 SH.entry_axes(e))
+    return full
+
+
+def fsdp_weights(torch, state_params, plain_params, rank: int) -> dict:
+    """Every trained leaf gathered whole (all ranks join each gather) and
+    held on rank 0 against the unsharded run's: the whole tree's relative
+    L2, each leaf's (by its path) and the worst leaf's."""
+    from repro_torch.train.tree import leaves, leaves_with_paths
+
+    num = den = 0.0
+    per = {}
+    wants = leaves(plain_params) if rank == 0 else None
+    for i, (path, leaf) in enumerate(leaves_with_paths(state_params)):
+        full = whole_leaf(leaf)
+        if rank != 0:
+            continue
+        a, b = full.reshape(-1), wants[i].reshape(-1)
+        ln = ld = 0.0
+        for j in range(0, a.numel(), CHUNK):
+            x = a[j:j + CHUNK].double()
+            y = b[j:j + CHUNK].to(x.device).double()
+            ln += float(torch.sum((x - y) ** 2))
+            ld += float(torch.sum(y ** 2))
+        num, den = num + ln, den + ld
+        per["/".join(map(str, path))] = math.sqrt(ln / max(ld, 1e-30))
+        del full
+    worst = max(per, key=per.get) if per else None
+    return {"rel_l2": math.sqrt(num / max(den, 1e-30)), "leaves": per,
+            "worst_name": worst, "worst_leaf": per.get(worst, 0.0)}
+
+
+def _fsdp_rank(rank: int, store: str, out_dir: str, src: str, dev: str,
+               smoke: bool, plain_path, watch) -> None:
+    """One rank of phase 20's world (a spawned process): gloo over a file
+    store, ``dev`` shared ("cuda": cuda:0), the ``FSDP_MESH`` ('data',
+    'model') mesh, ``train_loop`` over it with ``repro_torch`` from
+    ``src``, recorded by ``watch(torch, mesh)`` (``fsdp_watch``); rank 0
+    also holds the trained weights against ``plain_path``'s (None: not).
+    Writes its record to ``out_dir``."""
+    import datetime
+    import faulthandler
+    import traceback
+
+    global DEV
+    DEV = dev
+    # a rank that dies outside Python (a signal) leaves its trace here
+    trail = open(Path(out_dir) / f"rank{rank}.log", "a", buffering=1)
+    faulthandler.enable(file=trail)
+    trail.write(f"start pid {os.getpid()}\n")
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    res = {}
+    try:
+        if dev == "cuda":
+            torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(store, FSDP_RANKS), rank=rank,
+            world_size=FSDP_RANKS,
+            timeout=datetime.timedelta(seconds=FSDP_TIMEOUT_S))
+        trail.write("joined the world\n")
+        from repro_torch.launch import dryrun
+        from repro_torch.launch import train as train_launch
+
+        mesh = DeviceMesh(dev, torch.arange(FSDP_RANKS).reshape(FSDP_MESH),
+                          mesh_dim_names=("data", "model"))
+        seen = watch(torch, mesh)
+        cfg = fsdp_cfg(smoke)
+        reset_peak(torch)
+        t0 = time.perf_counter()
+        state, losses = train_launch.train_loop(
+            cfg, mesh, seed=SEED, log=lambda line: trail.write(line + "\n"),
+            **FSDP_TRAIN)
+        trail.write(f"trained {losses}\n")
+        res = dict(seen, losses=losses, peak_gb=peak_gb(torch),
+                   train_s=time.perf_counter() - t0,
+                   params_bytes=dryrun.local_bytes(state["params"]),
+                   opt_bytes=dryrun.local_bytes(state["opt"]),
+                   src=src)
+        if plain_path is not None:
+            t0 = time.perf_counter()
+            plain = (torch.load(plain_path, mmap=True, weights_only=False)
+                     if rank == 0 else None)
+            res["weights"] = fsdp_weights(torch, state["params"], plain,
+                                          rank)
+            res["weights_s"] = time.perf_counter() - t0
+    except BaseException:
+        res = {"error": traceback.format_exc(), "peak_gb": peak_gb(torch)}
+    finally:
+        trail.write(f"writing {sorted(res)}\n")
+        torch.save(res, str(Path(out_dir) / f"rank{rank}.pt"))
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        trail.close()
+
+
+def fsdp_world(torch, tmp: str, src: str, dev: str, smoke: bool,
+               plain_path, watch=fsdp_watch) -> list:
+    """Spawn phase 20's 4 ranks (``watch``: a module-level function, as
+    ``_fsdp_rank`` takes it) and collect their records (in rank order; a
+    rank that raised gives its traceback as "error" and its peak GB); a
+    rank that wrote nothing or a world that hangs fails the phase, and
+    every process is stopped."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_fsdp_rank, args=(
+        r, str(Path(tmp) / "fsdp.store"), tmp, src, dev, smoke,
+        None if plain_path is None else str(plain_path), watch))
+        for r in range(FSDP_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + FSDP_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+    finally:
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join(10)
+    trails = {r: (Path(tmp) / f"rank{r}.log").read_text()
+              if (Path(tmp) / f"rank{r}.log").exists() else "(none)"
+              for r in range(FSDP_RANKS)}
+    why = (f"exit codes {[p.exitcode for p in procs]}; each rank's trail: "
+           + "; ".join(f"rank {r}: {t[-2000:]}" for r, t in trails.items()))
+    check(not hung, f"phase 20: {len(hung)} rank(s) hung; {why}")
+    out = []
+    for r in range(FSDP_RANKS):
+        f = Path(tmp) / f"rank{r}.pt"
+        check(f.exists(), f"phase 20: rank {r} wrote nothing; {why}")
+        out.append(torch.load(str(f), weights_only=False))
+    return out
+
+
+def fsdp_rank_line(r: int, res: dict) -> str:
+    gb = 1e9
+    return (f"rank {r}: peak {res['peak_gb']:.2f} GB; host ms a step "
+            f"{[round(x, 1) for x in res['step_ms']]}; the step's pieces "
+            f"{res['pieces_bytes'] / gb:.3f} GB; largest gather over the "
+            f"data axes {res['gather_max_bytes'] / 1e6:.1f} MB (a layer's "
+            f"largest leaf {res['layer_leaf_max_bytes'] / 1e6:.1f} MB, a "
+            f"layer's leaves {res['layer_gathered_bytes'] / 1e6:.1f} MB); "
+            f"held between steps: parameters "
+            f"{res['params_bytes'] / gb:.3f} GB, optimizer state "
+            f"{res['opt_bytes'] / gb:.4f} GB; gradients at the clip "
+            f"{res['grads_bytes'] / gb:.3f} GB")
+
+
+def phase_fsdp(torch, results, smoke: bool = False) -> None:
+    """Phase 20: Gemma-2B trained over the (2, 2) mesh by 4 gloo ranks
+    sharing the card, against the unsharded run of ``FSDP_TRAIN``'s
+    steps: phase 17's (its losses, and its weights in ``FSDP_PLAIN``)
+    where phase 17 ran, else one this phase trains."""
+    import tempfile
+
+    from repro_torch.launch import train as train_launch
+
+    t0 = time.perf_counter()
+    p17 = results.get("mesh", {}).get("gemma_2b", {}).get("losses")
+    if p17 is not None and FSDP_PLAIN.exists():
+        want, whence = p17[:FSDP_TRAIN["steps"]], "phase 17's"
+    else:
+        plain, want = train_launch.train_loop(
+            fsdp_cfg(smoke), device=DEV, seed=SEED, log=lambda line: None,
+            **FSDP_TRAIN)
+        save_plain(torch, plain["params"])
+        whence = "this phase's"
+        del plain
+    empty_cache(torch)            # the ranks share the card
+    split = {"plain_s": time.perf_counter() - t0}
+    t1 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            ranks = fsdp_world(torch, tmp, str(ROOT / "src"), DEV, smoke,
+                               FSDP_PLAIN)
+    finally:
+        FSDP_PLAIN.unlink(missing_ok=True)
+    errors = "\n".join(f"rank {r}: {res['error']}"
+                       for r, res in enumerate(ranks) if "error" in res)
+    check(not errors, f"phase 20: ranks failed:\n{errors}")
+    split.update(world_s=time.perf_counter() - t1,
+                 train_s=ranks[0]["train_s"],
+                 weights_s=ranks[0]["weights_s"])
+    losses = ranks[0]["losses"]
+    check(all(r["losses"] == losses for r in ranks),
+          f"phase 20: the ranks' losses differ {[r['losses'] for r in ranks]}")
+    check(len(losses) == len(want) and all(
+        abs(a - b) <= FSDP_LOSS_BAR * max(1.0, abs(b))
+        for a, b in zip(losses, want)),
+        f"phase 20: losses {losses} against the unsharded {want}")
+    w = ranks[0]["weights"]
+    check(w["rel_l2"] <= FSDP_WEIGHT_BAR and w["worst_leaf"] <= FSDP_LEAF_BAR,
+          f"phase 20: trained weights {w} from the unsharded run's (bars "
+          f"{FSDP_WEIGHT_BAR} the tree, {FSDP_LEAF_BAR} a leaf)")
+    out = dict(losses=losses, plain_losses=want, plain_from=whence,
+               weights=w,
+               ranks=[{k: v for k, v in r.items() if k != "src"}
+                      for r in ranks],
+               phase_s=time.perf_counter() - t0, **split)
+    results["fsdp"] = out
+    mt = FSDP_TRAIN
+    log(f"[fsdp] gemma_2b {fsdp_cfg(smoke).n_layers} layers, train_loop "
+        f"over the {FSDP_MESH} ('data', 'model') mesh by {FSDP_RANKS} gloo "
+        f"ranks on one card (adafactor, batch {mt['batch_size']} x "
+        f"{mt['seq_len']}, {mt['steps']} steps): losses "
+        f"{[round(x, 5) for x in losses]} against {whence} unsharded "
+        f"{[round(x, 5) for x in want]} (bar {FSDP_LOSS_BAR} relative), "
+        f"every rank the same; trained weights rel L2 {w['rel_l2']:.3g} "
+        f"(bar {FSDP_WEIGHT_BAR}), worst leaf {w['worst_name']} "
+        f"{w['worst_leaf']:.3g} (bar {FSDP_LEAF_BAR}); each leaf: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in w["leaves"].items()))
+    for r, res in enumerate(ranks):
+        log(f"[fsdp] {fsdp_rank_line(r, res)}")
+    log(f"[fsdp] phase 20: {out['phase_s']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+        + "; gloo moves every collective through the host: these times "
+        "say nothing of NCCL)")
+
+
 def main() -> int:
     # phase 16's Adam step on Gemma-2B holds ~65 GB (bf16 weights, float32
     # moments, their successors, clipped gradients and updates): without
@@ -5018,6 +5427,9 @@ def main() -> int:
 
     paths["tp"], copies["tp"] = phase_tp(torch, results)
     log(f"[tp] script wall so far {time.perf_counter() - t_start:.1f} s")
+
+    phase_fsdp(torch, results)
+    log(f"[fsdp] script wall so far {time.perf_counter() - t_start:.1f} s")
 
     results["path_launches"] = paths
     cnn_kernels = ("radix_conv2d", "radix_matmul")

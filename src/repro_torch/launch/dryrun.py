@@ -22,8 +22,9 @@ Memory per device (rank 0): ``argument_bytes`` the local bytes of the
 step's inputs, ``output_bytes`` those of its outputs, ``temp_bytes`` the
 peak bytes of tensors the step made and held at once, ``alias_bytes`` 0.
 
-The numbers are the port's as it is (ROADMAP queue 1): dense layers run
-whole on every 'model' rank, and the train step gathers the whole state.
+The numbers are the port's as it is (ROADMAP queue 1): dense layers split
+over 'model', and the train step keeps its state split over the data
+axes, gathering one layer at a time (ZeRO-3).
 
 Usage (CPU only; no GPU is touched):
   python -m repro_torch.launch.dryrun --arch gemma_2b --cell train_4k

@@ -45,11 +45,15 @@ residual stream between blocks is split over the sequence when
 ``_constrain`` / ``_resid_spec``, Megatron-SP); decode keeps it whole.
 A MoE layer's experts run through its mesh dispatch (``lm/moe.py``).
 Parameters and caches may be DTensors placed by ``parallel/sharding.py``'s
-specs, or whole tensors: each rank uses its pieces over 'model', the data
-axes gathered (``tp.shard_params``; :func:`shard` cuts them once for a
-deployment).  The KV cache stays split over its slots on 'model', and
-decode merges the ranks' attention states (flash-decoding).  The logits
-are gathered whole.
+specs, or whole tensors.  Serving uses each rank's pieces over 'model',
+the data axes gathered (``tp.shard_params``; :func:`shard` cuts them once
+for a deployment); the KV cache stays split over its slots on 'model',
+decode merges the ranks' attention states (flash-decoding), and the
+logits are gathered whole.  Training keeps each DTensor leaf's piece over
+the data axes too (ZeRO-3): a layer's pieces are gathered where it runs
+and its gradients reduce-scattered back (:func:`make_train_step`), and
+the loss is computed on this rank's vocab columns where the head splits
+the vocab over 'model' (:func:`loss_fn`).
 """
 
 from __future__ import annotations
@@ -526,8 +530,9 @@ def _apply_layer(h, lp, btype: str, cfg: ArchConfig, positions, mode: str,
     elif cfg.moe is not None:
         # the mesh dispatches take the whole (replicated) activations
         xm = hn if tp is None or not tp.seq else tp.gather(hn, 1)
-        y, aux = moe_lib.moe_ffn(xm, lp["ffn"], cfg, mesh,
-                                 decode=mode == "decode")
+        y, aux = moe_lib.moe_ffn(
+            xm, lp["ffn"], cfg, mesh, decode=mode == "decode",
+            local=tffn is not None and tffn.kind("w_gate") == "expert")
         if tp is not None:
             y = tp.exit_whole(y)
         if cfg.moe.num_shared:
@@ -538,6 +543,18 @@ def _apply_layer(h, lp, btype: str, cfg: ArchConfig, positions, mode: str,
         hn = tp.enter(hn) if tp is not None else hn
         y = blocks.ffn(hn, lp["ffn"], cfg, tp=tffn)
     return h + y, aux, new_mix
+
+
+def _run_layer(h, lp, btype: str, cfg: ArchConfig, positions, mode: str,
+               data_key=None, **kw):
+    """:func:`_apply_layer` on ``lp``, this rank's pieces of one layer,
+    gathered over the data axes first in a train step (``kw["tp"]``'s
+    ``over_data``; ``data_key`` the path of the layer's stacked leaves):
+    under ``torch.utils.checkpoint`` the backward gathers them again."""
+    tp = kw.get("tp")
+    if tp is not None and data_key is not None:
+        lp = tp.over_data(lp, *data_key, layer=True)
+    return _apply_layer(h, lp, btype, cfg, positions, mode, **kw)
 
 
 def _write_back(dst, src) -> None:
@@ -574,7 +591,10 @@ def _backbone(params, h, cfg: ArchConfig, positions, mode: str,
     train has none.  In train mode with ``cfg.remat``, each layer runs
     under ``torch.utils.checkpoint`` (its activations recomputed in the
     backward; the values do not change).  ``kv_splits`` holds, per
-    segment and slot, the ``kv_split`` of :func:`_apply_layer`."""
+    segment and slot, the ``kv_split`` of :func:`_apply_layer`.  In a
+    train step's ``tp`` each layer's slices of the stacked leaves are
+    gathered over the data axes just before it runs (:func:`_run_layer`),
+    never the stack, and dropped after it."""
     train = mode == "train"
     aux_total = (torch.zeros((), dtype=torch.float32, device=h.device)
                  if train else None)
@@ -591,14 +611,15 @@ def _backbone(params, h, cfg: ArchConfig, positions, mode: str,
                         if seg_c is not None else None)
                 kw = dict(cache=c_in, pos=pos, max_len=max_len, enc_h=enc_h,
                           causal=causal, mesh=mesh, tp=tp,
-                          kv_split=kv_splits[i][si] if kv_splits else None)
+                          kv_split=kv_splits[i][si] if kv_splits else None,
+                          data_key=(segments_key, i, si))
                 if train and cfg.remat and h.requires_grad:
                     h, a, nc = torch.utils.checkpoint.checkpoint(
-                        _apply_layer, h, lp, btype, cfg, positions, mode,
+                        _run_layer, h, lp, btype, cfg, positions, mode,
                         use_reentrant=False, **kw)
                 else:
-                    h, a, nc = _apply_layer(h, lp, btype, cfg, positions,
-                                            mode, **kw)
+                    h, a, nc = _run_layer(h, lp, btype, cfg, positions,
+                                          mode, **kw)
                 if train:
                     aux_total = aux_total + a
                 if mode == "decode":
@@ -617,11 +638,18 @@ def _backbone(params, h, cfg: ArchConfig, positions, mode: str,
 # ---------------------------------------------------------------------------
 
 
+def _param(params, key: str, tp):
+    """``params[key]`` (a top-level leaf or subtree) as a call uses it:
+    in a train step whole over the data axes, gathered here
+    (``TP.over_data``)."""
+    return params[key] if tp is None else tp.over_data(params[key], key)
+
+
 def _embed(params, tokens, cfg: ArchConfig, tp=None):
     """Token embeddings; under ``tp`` with the table's rows (the vocab)
     split over 'model' each rank looks up the tokens it holds, zeros
     elsewhere, and the ranks' rows are summed (exact: one is nonzero)."""
-    table = params["embed"]
+    table = _param(params, "embed", tp)
     if tp is not None and tp.kind("embed") == "vocab":
         n = table.shape[0]
         idx = tokens - tp.rank * n
@@ -636,32 +664,41 @@ def _embed(params, tokens, cfg: ArchConfig, tp=None):
     return h
 
 
-def _lm_head(h, params, cfg: ArchConfig, tp=None):
+def _vocab_split(cfg: ArchConfig, tp) -> bool:
+    """Whether the head's vocab columns are split over 'model' (a tied
+    table of kind ``"vocab"`` or an unembed of kind ``"column"``)."""
+    if tp is None:
+        return False
+    if cfg.tie_embeddings:
+        return tp.kind("embed") == "vocab"
+    return tp.kind("unembed") == "column"
+
+
+def _lm_head(h, params, cfg: ArchConfig, tp=None, gather: bool = True):
     """Logits of (B, S, d) ``h``; under ``tp`` (``h`` whole on this rank,
     from ``TP.enter``) the head's vocab columns are computed here and
-    gathered whole; a head split over d_model is row-parallel, one split
-    over neither runs whole on every rank."""
+    gathered whole (``gather=False``: this rank's columns only); a head
+    split over d_model is row-parallel, one split over neither runs whole
+    on every rank."""
+    split = _vocab_split(cfg, tp)
     if cfg.tie_embeddings:
-        split = tp is not None and tp.kind("embed") == "vocab"
         if tp is not None and not split:
             h = tp.replicated(h)
-        logits = torch.einsum("bsd,vd->bsv", h, params["embed"])
-        if split:
-            logits = tp.gather(logits, -1)
+        logits = torch.einsum("bsd,vd->bsv", h, _param(params, "embed", tp))
     else:
         kind = tp.kind("unembed") if tp is not None else None
+        w = _param(params, "unembed", tp)
         if kind == "row":
             n = h.shape[-1] // tp.n
             logits = radix_lib.maybe_radix_matmul(
-                h[..., tp.rank * n:(tp.rank + 1) * n], params["unembed"],
+                h[..., tp.rank * n:(tp.rank + 1) * n], w,
                 cfg=cfg, tp=tp.with_seq(False))
         else:
             if kind not in (None, "column"):
                 h = tp.replicated(h)
-            logits = radix_lib.maybe_radix_matmul(h, params["unembed"],
-                                                  cfg=cfg)
-            if kind == "column":
-                logits = tp.gather(logits, -1)
+            logits = radix_lib.maybe_radix_matmul(h, w, cfg=cfg)
+    if split and gather:
+        logits = tp.gather(logits, -1)
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
@@ -686,7 +723,7 @@ def _input_h(params, batch, cfg: ArchConfig, tp=None):
         tokens = batch["tokens"]
         h, labels = _embed(params, tokens[:, :-1], cfg, tp), tokens[:, 1:]
     if cfg.pos_embed == "learned":
-        h = h + params["pos_embed"][:h.shape[1]][None].to(h.dtype)
+        h = h + _param(params, "pos_embed", tp)[:h.shape[1]][None].to(h.dtype)
     return h, labels
 
 
@@ -709,7 +746,7 @@ def _encode_whisper(params, enc_embeds, cfg: ArchConfig, mesh=None, tp=None):
     positions through the non-causal ``enc_segments`` stack, then its
     final norm (under ``tp``: this rank's frames under its ``seq``)."""
     dt = _dt(cfg)
-    h = enc_embeds.to(dt) + params["enc_pos_embed"][None].to(dt)
+    h = enc_embeds.to(dt) + _param(params, "enc_pos_embed", tp)[None].to(dt)
     pos = _positions(cfg, h.shape[0], h.shape[1], device=h.device)
     if tp is not None:
         tp = tp.with_seq(_seq_split(cfg, tp, h.shape[1]))
@@ -718,7 +755,7 @@ def _encode_whisper(params, enc_embeds, cfg: ArchConfig, mesh=None, tp=None):
                         segments_key="enc_segments",
                         segments=((("attn",), cfg.encoder_layers),),
                         causal=False, mesh=mesh, tp=tp)
-    h = _norm(h, params["enc_final_norm"], cfg, tp)
+    h = _norm(h, _param(params, "enc_final_norm", tp), cfg, tp)
     if tp is not None and tp.seq:
         h = tp.gather(h, 1)
     return h
@@ -734,11 +771,19 @@ def forward_train(params, batch, cfg: ArchConfig, mesh=None, tp=None):
     it, ``labels`` too for an embedding-input arch).  Returns (logits
     (B, S, V), labels (B, S), aux): ``aux`` the MoE layers' summed router
     loss (0 without MoE).  With a mesh: this rank's batch shard and its
-    pieces of the parameters over 'model' with their layout ``tp``
-    (what :func:`make_train_step` passes; whole parameters are cut
-    here); the logits are gathered whole."""
+    pieces of the parameters with their layout ``tp`` (what
+    :func:`make_train_step` passes; else they are cut here, keeping their
+    pieces over the data axes); the logits are gathered whole."""
+    h, labels, aux, params, tp = _train_h(params, batch, cfg, mesh, tp)
+    return _lm_head(h, params, cfg, tp), labels, aux
+
+
+def _train_h(params, batch, cfg: ArchConfig, mesh, tp):
+    """:func:`forward_train` up to the head: (h (B, S, d) after the final
+    norm, whole on this rank under ``tp``, labels, aux, the parameters'
+    pieces, ``tp``)."""
     if mesh is not None and tp is None:
-        params, tp = tp_lib.shard_params(params, cfg, mesh)
+        params, tp = tp_lib.shard_params(params, cfg, mesh, keep_data=True)
     h, labels = _input_h(params, batch, cfg, tp)
     enc_h = None
     if cfg.encoder_layers:
@@ -749,10 +794,10 @@ def forward_train(params, batch, cfg: ArchConfig, mesh=None, tp=None):
         h = _seq_piece(h, tp)
     h, aux, _ = _backbone(params, h, cfg, positions, "train", enc_h=enc_h,
                           mesh=mesh, tp=tp)
-    h = _norm(h, params["final_norm"], cfg, tp)
+    h = _norm(h, _param(params, "final_norm", tp), cfg, tp)
     if tp is not None:
         h = tp.enter(h)
-    return _lm_head(h, params, cfg, tp), labels, aux
+    return h, labels, aux, params, tp
 
 
 def loss_fn(params, batch, cfg: ArchConfig, mesh=None,
@@ -761,15 +806,51 @@ def loss_fn(params, batch, cfg: ArchConfig, mesh=None,
     ``aux_weight`` times the router loss.  The gold logit is gathered
     where the reference contracts a one-hot (the same value for finite
     logits, without a (B, S, V) one-hot: 4.19 GB at Gemma-2B's vocab and
-    8 x 512 tokens)."""
-    logits, labels, aux = forward_train(params, batch, cfg, mesh, tp)
-    lf = logits.to(torch.float32)
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
-    ce = (lse - gold).mean()
+    8 x 512 tokens).  With a mesh whose head splits the vocab over
+    'model', each rank computes on its own vocab columns and no rank
+    joins them (:func:`_vocab_parallel_ce`)."""
+    h, labels, aux, params, tp = _train_h(params, batch, cfg, mesh, tp)
+    if _vocab_split(cfg, tp) and tp.n > 1:
+        ce, acc = _vocab_parallel_ce(
+            _lm_head(h, params, cfg, tp, gather=False), labels, tp)
+    else:
+        lf = _lm_head(h, params, cfg, tp).to(torch.float32)
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+        ce = (lse - gold).mean()
+        acc = (lf.argmax(-1) == labels).to(torch.float32).mean()
     loss = ce + aux_weight * aux
-    acc = (lf.argmax(-1) == labels).to(torch.float32).mean()
     return loss, {"ce": ce, "aux": aux, "acc": acc}
+
+
+def _vocab_parallel_ce(logits, labels, tp):
+    """(ce, acc) of this rank's vocab columns ``logits`` (B, S, V / model;
+    columns ``rank * V / model`` on, softcapped) of a head split over
+    'model', no rank holding every column: logsumexp as the max over
+    'model' and the sum over 'model' of each rank's ``exp`` sums; the
+    gold logit from the rank that holds it, summed over 'model' (exact:
+    the others add 0); the argmax as the (value, global index) max over
+    'model', ties to the lowest index as ``argmax``.  The sums over
+    'model' pass the gradient through unchanged (``TP.reduce``), so each
+    rank's columns get their own."""
+    lf = logits.to(torch.float32)
+    n_v = lf.shape[-1]
+    lo = tp.rank * n_v
+    top = tp.max(lf.detach().amax(-1))
+    z = tp.reduce(torch.exp(lf - top[..., None]).sum(-1))
+    lse = top + torch.log(z)
+    idx = labels.long() - lo
+    held = (idx >= 0) & (idx < n_v)
+    g = torch.gather(lf, -1, idx.clamp(0, n_v - 1)[..., None])[..., 0]
+    gold = tp.reduce(torch.where(held, g, torch.zeros_like(g)))
+    ce = (lse - gold).mean()
+    arg = lf.detach().argmax(-1)
+    val = torch.gather(lf.detach(), -1, arg[..., None])[..., 0]
+    cand = torch.where(val == tp.max(val), arg + lo,
+                       torch.full_like(arg, n_v * tp.n))
+    pred = -tp.max(-cand)
+    acc = (pred == labels).to(torch.float32).mean()
+    return ce, acc
 
 
 def _data_shard(batch: dict, cfg: ArchConfig, mesh) -> dict:
@@ -786,48 +867,88 @@ def _data_shard(batch: dict, cfg: ArchConfig, mesh) -> dict:
             for k, v in batch.items()}
 
 
+def _over_data(t, n: int):
+    """``t`` divided by ``n`` in its dtype, on its device (the data
+    ranks' summed gradients -> their mean)."""
+    return t / torch.tensor(float(n), dtype=t.dtype, device=t.device)
+
+
 def _mean_over_data(tree, mesh):
-    """Each leaf summed over the data axes and divided by their size (a
-    float32 divisor on the leaf's device); the identity on one data
-    rank."""
+    """Each leaf (the loss and metrics) summed over the data axes in rank
+    order and divided by their size (``collectives.sum_fixed``: the same
+    bits on every rank); the identity on one data rank."""
     dp = SH.dp_axes(mesh)
     n = C.group_size(mesh, dp)
     if n == 1:
         return tree
-    pg = C.group(mesh, dp)
-
-    def mean(t):
-        t = C.all_reduce_(t.detach().contiguous().clone(), pg)
-        return t / torch.tensor(float(n), dtype=t.dtype, device=t.device)
-
-    return tree_map(mean, tree)
+    return tree_map(lambda t: _over_data(C.sum_fixed(t, mesh, dp), n), tree)
 
 
-def _model_spec(local, whole) -> tuple:
-    """'model' on each dim where this rank's piece is shorter than the
-    whole leaf."""
+def _piece_spec(local, whole) -> tuple:
+    """The spec of this rank's piece ``local`` of the leaf ``whole``: a
+    DTensor's entries on the dims where the piece is shorter, 'model'
+    there for a whole tensor (cut over 'model' only)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(whole, DTensor):
+        return tuple(e if a < b else None for e, a, b in zip(
+            SH.spec_of(whole), local.shape, whole.shape))
     return tuple("model" if a < b else None
                  for a, b in zip(local.shape, whole.shape))
 
 
+def _live(spec, mesh) -> tuple:
+    """``spec`` without the mesh axes of one rank."""
+    sizes = SH.axis_sizes(mesh)
+    out = []
+    for e in spec:
+        axes = tuple(a for a in SH.entry_axes(e) if sizes[a] > 1)
+        out.append(axes or None)
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def _split_dim(spec, axes) -> int:
+    """The dim of ``spec`` split over ``axes`` (-1: none)."""
+    return next((d for d, e in enumerate(spec)
+                 if set(SH.entry_axes(e)) & set(axes)), -1)
+
+
 def _piece_of(t, lspec, mesh):
     """A leaf (DTensor or whole tensor) as the step computes on it: its
-    piece over 'model' as ``lspec`` lays it out, the data axes
-    gathered."""
+    piece as ``lspec`` lays it out.  A DTensor stored so gives its own
+    piece; one that splits a dim ``lspec`` keeps whole (an Adafactor
+    statistic ``opt_state_specs`` moved onto another dim) is gathered
+    over those axes by ``collectives.gather_from`` (through the host on
+    gloo, as DTensor's own collectives are not), and one that ``lspec``
+    splits further is cut."""
     from torch.distributed.tensor import DTensor
 
     if not isinstance(t, DTensor):
         return SH.local_slice(t, lspec, mesh)
-    want = SH.placements(lspec, mesh)
-    if tuple(t.placements) == tuple(want):
-        return t.to_local()
-    return t.redistribute(mesh, want).to_local()
+    have, want = _live(SH.spec_of(t), mesh), _live(lspec, mesh)
+    piece = t.to_local()
+    if have == want:
+        return piece
+    cut = []
+    for d in range(piece.ndim):
+        h = have[d] if d < len(have) else None
+        w = want[d] if d < len(want) else None
+        if h != w and h is not None:
+            if w is not None:
+                raise ValueError(f"a piece laid out as {have} cannot be "
+                                 f"taken as {want}")
+            piece = C.gather_from(piece, d, mesh, h)
+        cut.append(w if h != w else None)
+    return SH.local_slice(piece, tuple(cut), mesh)
 
 
 def _put_back(new, old, lspec, mesh):
     """The step's new ``lspec`` piece of a leaf stored as ``old``: this
-    rank's piece in ``old``'s placements (a DTensor), or the whole
-    tensor gathered over 'model' (a whole tensor)."""
+    rank's piece in ``old``'s placements (a DTensor: cut where ``old``
+    splits a dim ``lspec`` does not), or the whole tensor gathered over
+    'model' (a whole tensor)."""
     from torch.distributed.tensor import DTensor
 
     if not isinstance(old, DTensor):
@@ -851,16 +972,37 @@ def make_train_step(cfg: ArchConfig, opt: optim_lib.Optimizer,
 
     With a ``mesh`` the state's leaves may be DTensors (each rank storing
     its piece, ``parallel/sharding.place``) or whole tensors, and the
-    batch global tensors or ``ShardedLoader`` DTensors.  The step takes
-    each leaf's piece over 'model' (the data axes gathered: ZeRO-3's
-    gather, kept to the data axes), runs the forward and backward over
-    'model' (``parallel/tp.py``) on this data rank's batch shard,
-    averages the gradients, loss and metrics over the data axes (an
-    all-reduce and a divide), clips and updates each piece (the global
-    norm and Adafactor's factored statistics summed over 'model',
-    ``optim.Shards``) and keeps this rank's piece of each new leaf in
-    its old placement.  A MoE layer's experts, which its mesh dispatch
-    slices itself, are gathered whole and updated whole."""
+    batch global tensors or ``ShardedLoader`` DTensors.  The step is the
+    reference's ZeRO-3 layout written out: it keeps each DTensor leaf's
+    stored piece over the data axes and 'model' (``tp.shard_params(...,
+    keep_data=True)``; a whole tensor is cut over 'model' only) and
+    gathers nothing at its start.  On this data rank's batch shard the
+    forward and backward run over 'model' (``parallel/tp.py``; a MoE
+    layer's mesh dispatch on this rank's experts), each layer's pieces
+    gathered over the data axes just before the layer runs and dropped
+    after it (regathered in the backward under ``cfg.remat``), each
+    top-level leaf where it is used; a piece's gradient comes back
+    reduce-scattered over the data axes, a leaf stored whole over them
+    gets its gradient summed over them (``collectives.fsdp_gather`` /
+    ``fsdp_copy``, rank order), and each is divided by the data size.
+    With ``cfg.grad_accum`` > 1 the pieces' gradients are summed in
+    float32 over the microbatches.  Only the loss, the metrics and the
+    optimizer's partial sums are summed over the data axes
+    (``collectives.sum_fixed``).  The optimizer updates the pieces in
+    the state's placements (``sharding.opt_state_specs``; ``optim.Shards``
+    per group of ranks: the global norm, Adafactor's factored statistics
+    and RMS clip summed over the groups that split them), except that an
+    Adafactor statistic the specs move onto another dim (ZeRO-2 of the
+    statistics: O(rows + columns)) is gathered for the update and cut
+    back; each new leaf keeps its old placement, with no gather.
+
+    Float order: a piece's gradient is the data ranks' partial gradients
+    added in rank order in float32, where one card's backward takes one
+    GEMM over the whole batch; the loss and metrics, the global norm's
+    sums and Adafactor's statistics are sums of per-rank partial sums;
+    the vocab-parallel loss adds the ranks' ``exp`` sums.  So a step over
+    the mesh agrees with one card's to float rounding, not bit for
+    bit."""
 
     def grads_of(params, batch, tp=None):
         ps = tree_map(lambda t: t.detach().requires_grad_(True), params)
@@ -890,20 +1032,30 @@ def make_train_step(cfg: ArchConfig, opt: optim_lib.Optimizer,
         return lsum / div, metrics, grads
 
     def sharded_step(state, batch):
-        params, tp = tp_lib.shard_params(state["params"], cfg, mesh)
-        lspecs = tree_map(_model_spec, params, state["params"])
-        ospecs = tree_map(lambda _, sp: tp_lib.model_only(sp), state["opt"],
-                          SH.opt_state_specs(lspecs, state["opt"], mesh))
+        params, tp = tp_lib.shard_params(state["params"], cfg, mesh,
+                                         keep_data=True)
+        lspecs = tree_map(_piece_spec, params, state["params"])
+        ospecs = SH.opt_state_specs(lspecs, state["opt"], mesh,
+                                    replace_dp=False)
         opt_l = tree_map(lambda t, sp: _piece_of(t, sp, mesh), state["opt"],
                          ospecs)
         loss, metrics, grads = accumulate(params,
                                           _data_shard(batch, cfg, mesh), tp)
-        loss, metrics, grads = _mean_over_data((loss, metrics, grads), mesh)
+        dp = SH.dp_axes(mesh)
+        n_dp = C.group_size(mesh, dp)
+        if n_dp > 1:
+            grads = tree_map(lambda g: _over_data(g, n_dp), grads)
+        loss, metrics = _mean_over_data((loss, metrics), mesh)
         pg = C.group(mesh, ("model",))
-        shards = optim_lib.Shards(
-            dims=tree_map(lambda _, sp: sp.index("model") if "model" in sp
-                          else -1, params, lspecs),
-            n=tp.n, sum=lambda t: C.all_reduce_(t, pg))
+        shards = [optim_lib.Shards(
+            dims=tree_map(lambda _, sp: _split_dim(sp, ("model",)), params,
+                          lspecs),
+            n=tp.n, sum=lambda t: C.all_reduce_(t, pg))]
+        if n_dp > 1:
+            shards.insert(0, optim_lib.Shards(
+                dims=tree_map(lambda _, sp: _split_dim(sp, dp), params,
+                              lspecs),
+                n=n_dp, sum=lambda t: C.sum_fixed(t, mesh, dp)))
         if clip_norm:
             grads, gnorm = optim_lib.clip_by_global_norm(grads, clip_norm,
                                                          shards)

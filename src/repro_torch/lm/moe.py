@@ -22,15 +22,18 @@ reference's stable sort and ``searchsorted`` slots, so its integer
 metadata is exact; ``_combine`` adds each token's k outputs in the order
 the reference's ``.at[st].add`` applies them.
 
-In the port a mesh step hands a MoE layer its expert weights whole
-(``parallel/tp.shard_params`` gathers them: their split kind is
-``"whole"``), so where the reference all-gathers the FSDP weight shards
-over the data axes (``_gathered_weights``), :func:`_local_weights` takes
-this model rank's experts or d_ff slice; its backward all-gathers the
-slice's gradient, so every rank ends with the whole gradient.  The
-router, the shared experts and every dense layer follow the dense rules
-of ``parallel/tp.py`` (``lm/model._apply_layer``).  The collectives and their
-gradients are ``parallel/collectives.py``'s.
+In a train step a mesh dispatch gets this model rank's experts or d_ff
+slice (``local=True``; split kind ``"expert"``), gathered over the data
+axes for the layer where the reference all-gathers its FSDP weight
+shards (``_gathered_weights``; here ``parallel/tp.TP.over_data`` in
+``lm/model._backbone``), so each expert's gradient is this rank's own,
+reduce-scattered back over the data axes to the piece the rank stores.
+Serving hands it the experts whole (``tp.shard_params`` gathers them)
+and :func:`_local_weights` takes the rank's share; its backward
+all-gathers the slice's gradient, so every rank ends with the whole
+gradient.  The router, the shared experts and every dense layer follow
+the dense rules of ``parallel/tp.py`` (``lm/model._apply_layer``).  The
+collectives and their gradients are ``parallel/collectives.py``'s.
 
 Float steps follow the reference's: the router runs in float32, the
 gates are renormalized with ``+ 1e-9``, ``_act``'s GELU is the tanh
@@ -199,10 +202,13 @@ def _expert_ffn(buf, wg, wu, wd, cfg: ArchConfig):
     return torch.matmul(_act(cfg, g, u), wd)
 
 
-def _local_weights(p: dict, mesh, tp: bool = False):
+def _local_weights(p: dict, mesh, tp: bool = False, local: bool = False):
     """This model rank's expert weights from the gathered (E, d, f) /
     (E, f, d) stacks: its experts (``ep_*``) or every expert's d_ff slice
-    (``tp``).  Backward all-gathers the slice's gradient over 'model'."""
+    (``tp``).  Backward all-gathers the slice's gradient over 'model'.
+    ``local``: ``p`` holds them already."""
+    if local:
+        return p["w_gate"], p["w_up"], p["w_down"]
     if tp:
         return (C.slice_of(p["w_gate"], 2, mesh, MODEL),
                 C.slice_of(p["w_up"], 2, mesh, MODEL),
@@ -225,7 +231,8 @@ def _capacity(n_loc: int, m: MoEConfig) -> int:
                             * m.capacity_factor))
 
 
-def _moe_over_model(x, p, cfg: ArchConfig, mesh, tp: bool):
+def _moe_over_model(x, p, cfg: ArchConfig, mesh, tp: bool,
+                    local: bool = False):
     """``ep_psum`` (this model rank's E / ep experts) or ``tp`` (every
     expert's d_ff slice): each model rank routes the whole batch shard,
     dispatches it locally by capacity, and the ranks' partial outputs
@@ -238,7 +245,7 @@ def _moe_over_model(x, p, cfg: ArchConfig, mesh, tp: bool):
     b, s_len, d = x.shape
     x2 = x.reshape(-1, d)
     gates, idx, probs = _router(x2, p["router"], m)
-    wg, wu, wd = _local_weights(p, mesh, tp=tp)
+    wg, wu, wd = _local_weights(p, mesh, tp=tp, local=local)
     buf, meta = _dispatch(C.copy_to(x2, mesh, MODEL), idx - lo,
                           C.copy_to(gates, mesh, MODEL), 0, e_loc,
                           _capacity(x2.shape[0], m))
@@ -248,7 +255,7 @@ def _moe_over_model(x, p, cfg: ArchConfig, mesh, tp: bool):
     return y.reshape(b, s_len, d), _replicated_aux(aux, mesh, False)
 
 
-def _moe_ep_a2a(x, p, cfg: ArchConfig, mesh):
+def _moe_ep_a2a(x, p, cfg: ArchConfig, mesh, local: bool = False):
     """Tokens split over 'model' along the sequence; ``all_to_all``
     expert dispatch."""
     m = cfg.moe
@@ -261,7 +268,7 @@ def _moe_ep_a2a(x, p, cfg: ArchConfig, mesh):
     x_r = C.slice_of(x, 1, mesh, MODEL)                         # (b, S/ep, d)
     x2 = x_r.reshape(-1, d)
     gates, idx, probs = _router(x2, C.copy_to(p["router"], mesh, MODEL), m)
-    wg, wu, wd = _local_weights(p, mesh)
+    wg, wu, wd = _local_weights(p, mesh, local=local)
     cap = _capacity(x2.shape[0], m)
     # capacity buffers for ALL experts, grouped by owner rank
     buf, meta = _dispatch(x2, idx, gates, 0, m.num_experts, cap)
@@ -278,18 +285,34 @@ def _moe_ep_a2a(x, p, cfg: ArchConfig, mesh):
 
 
 _IMPL_FNS = {
-    "ep_psum": lambda x, p, cfg, mesh: _moe_over_model(x, p, cfg, mesh, False),
+    "ep_psum": lambda x, p, cfg, mesh, local: _moe_over_model(
+        x, p, cfg, mesh, False, local),
     "ep_a2a": _moe_ep_a2a,
-    "tp": lambda x, p, cfg, mesh: _moe_over_model(x, p, cfg, mesh, True)}
+    "tp": lambda x, p, cfg, mesh, local: _moe_over_model(
+        x, p, cfg, mesh, True, local)}
 
 
 def moe_ffn(x: torch.Tensor, p: dict, cfg: ArchConfig, mesh=None, *,
-            decode: bool = False):
+            decode: bool = False, local: bool = False):
     """Routed experts (shared experts are the caller's): x (B, S, d) ->
     (y (B, S, d), aux loss).  With a mesh, ``x`` is this rank's batch
     shard, the same on every model rank of its data group, and so is
-    ``y``; the aux loss is the mean over every rank."""
+    ``y``; the aux loss is the mean over every rank.  ``local``: ``p``
+    holds this model rank's experts or d_ff slice (a train step's),
+    not every expert whole."""
     impl = pick_impl(cfg, mesh, decode)
     if impl == "ref":
-        return _moe_ref(x, p, cfg)
-    return _IMPL_FNS[impl](x, p, cfg, mesh)
+        return _moe_ref(x, _whole_weights(p, cfg, mesh) if local else p, cfg)
+    return _IMPL_FNS[impl](x, p, cfg, mesh, local)
+
+
+def _whole_weights(p: dict, cfg: ArchConfig, mesh) -> dict:
+    """``p`` with this model rank's share of the experts (split as the
+    rule table splits them: the experts where they divide 'model', else
+    d_ff) joined into every expert whole (backward: the rank's slice)."""
+    if cfg.moe.num_experts % axis_sizes(mesh).get("model", 1) == 0:
+        dims = {"w_gate": 0, "w_up": 0, "w_down": 0}
+    else:
+        dims = {"w_gate": 2, "w_up": 2, "w_down": 1}
+    return dict(p, **{k: C.gather_from(p[k], d, mesh, MODEL)
+                      for k, d in dims.items()})

@@ -33,7 +33,17 @@ per model rank):
   partial sums, backward all-gather;
 * :func:`sum_int` and :func:`max_over` (no gradient: the integer
   accumulators of a row-parallel radix product, summed exactly, and a
-  per-token or per-head scale whose absmax is split over the ranks).
+  per-token or per-head scale whose absmax is split over the ranks);
+* :func:`fsdp_gather` / :func:`fsdp_copy` (ZeRO-3 over the data axes: a
+  parameter piece split over them all-gathered where it is used,
+  backward the data ranks' gradients reduce-scattered back to the
+  piece; a parameter whole over them, backward its gradient summed
+  over them) and :func:`sum_fixed` (a sum with no gradient: the loss,
+  the metrics and the optimizer's partial sums).  These three add the
+  ranks' contributions in one fixed order, rank 0 first, in float32:
+  one all-to-all hands each rank every rank's chunk of its piece, which
+  it adds up itself, so every rank gets the same bits for a piece on
+  any backend.
 
 A group of one rank skips its communication (every function is then the
 identity, or a slice of the whole).  Gloo moves CUDA tensors through the
@@ -54,7 +64,8 @@ from repro_torch.parallel.sharding import axis_sizes
 __all__ = ["group", "group_size", "group_rank", "copy_to", "reduce_from",
            "slice_of", "gather_from", "all_to_all", "mean_over",
            "permute", "all_reduce_", "seq_gather", "seq_scatter",
-           "sum_int", "max_over"]
+           "sum_int", "max_over", "fsdp_gather", "fsdp_copy",
+           "sum_fixed"]
 
 
 def group(mesh, axes: Sequence[str]):
@@ -129,6 +140,34 @@ def _reduce_scatter(x: torch.Tensor, dim: int, pg, n: int,
     return out.movedim(0, dim).contiguous()
 
 
+def _reduce_scatter_fixed(x: torch.Tensor, dim: int, pg, n: int
+                          ) -> torch.Tensor:
+    """This rank's chunk along ``dim`` of ``x`` summed over ``pg``: one
+    all-to-all brings every rank's chunk here, added in rank order in
+    float32 and rounded once to ``x``'s dtype."""
+    if x.is_cuda and _gloo(pg):
+        return _reduce_scatter_fixed(x.cpu(), dim, pg, n).to(x.device)
+    xm = x.movedim(dim, 0).contiguous()
+    recv = torch.empty_like(xm)
+    dist.all_to_all_single(recv, xm, group=pg)
+    parts = recv.chunk(n, 0)
+    out = parts[0].to(torch.float32)
+    for p in parts[1:]:
+        out = out + p.to(torch.float32)
+    return out.to(x.dtype).movedim(0, dim).contiguous()
+
+
+def _all_reduce_fixed(x: torch.Tensor, pg, n: int) -> torch.Tensor:
+    """``x`` summed over ``pg`` as :func:`_reduce_scatter_fixed` adds a
+    chunk, the chunks then all-gathered: the same bits on every rank."""
+    flat = x.reshape(-1)
+    pad = -flat.numel() % n
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    whole = _gather(_reduce_scatter_fixed(flat, 0, pg, n), 0, pg, n)
+    return whole[:x.numel()].reshape(x.shape)
+
+
 class _CopyTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, pg):
@@ -193,6 +232,29 @@ class _SeqScatter(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _gather(g, ctx.dim, ctx.pg, ctx.n), None, None, None, None
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, pg, n):
+        ctx.dim, ctx.pg, ctx.n = dim, pg, n
+        return _gather(x, dim, pg, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_reduce_scatter_fixed(g, ctx.dim, ctx.pg, ctx.n), None, None,
+                None)
+
+
+class _FsdpCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pg, n):
+        ctx.pg, ctx.n = pg, n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_fixed(g, ctx.pg, ctx.n), None, None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -338,3 +400,28 @@ def max_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     return all_reduce_(x.detach().contiguous().clone(), pg,
                        dist.ReduceOp.MAX)
 
+
+def fsdp_gather(x, dim: int, mesh, axes):
+    """ZeRO-3's gather: the data ranks' pieces of a parameter along
+    ``dim`` joined where it is used; backward, the ranks' gradients of
+    the whole summed (rank order, float32) and cut back to this rank's
+    piece.  The identity over a group of one rank."""
+    pg, n, _ = _axes_info(mesh, axes)
+    return x if n == 1 else _FsdpGather.apply(x, dim, pg, n)
+
+
+def fsdp_copy(x, mesh, axes):
+    """A parameter whole over ``axes`` used on this data rank's batch:
+    forward the identity, backward its gradient summed over the group
+    (rank order, float32; the same bits on every rank)."""
+    pg, n, _ = _axes_info(mesh, axes)
+    return x if n == 1 else _FsdpCopy.apply(x, pg, n)
+
+
+def sum_fixed(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``x`` summed over ``axes`` in rank order (float32; the same bits
+    on every rank).  No gradient."""
+    pg, n, _ = _axes_info(mesh, axes)
+    if n == 1:
+        return x
+    return _all_reduce_fixed(x.detach(), pg, n)

@@ -214,9 +214,11 @@ def model_split(names: Tuple[str, ...], shape, cfg: ArchConfig,
     * ``"head_dim"``: a QKV projection's head_dim, the fallback where the
       heads do not divide the axis; ``"row_hd"`` the same for ``wo``;
     * ``"vocab"``: the embedding table's rows;
-    * ``"whole"``: leaves used whole although stored split (the MoE
-      experts, which the mesh dispatches of ``lm/moe.py`` slice
-      themselves, and tables split over d_model);
+    * ``"expert"``: the MoE experts, of which a mesh dispatch of
+      ``lm/moe.py`` runs this rank's experts or d_ff slice (serving
+      hands it them whole, ``parallel/tp.shard_params``);
+    * ``"whole"``: leaves used whole although stored split (tables
+      split over d_model);
     * ``"replicated"``: no 'model' entry.
 
     It reads the one rule table (:func:`_leaf_rule`), validated against
@@ -230,7 +232,7 @@ def model_split(names: Tuple[str, ...], shape, cfg: ArchConfig,
     if md is None:
         return "replicated", spec
     if in_moe and key in ("w_gate", "w_up", "w_down"):
-        return "whole", spec
+        return "expert", spec
     if spec[md] != "model":
         raise ValueError(f"{names}: 'model' shares dim {md} with another "
                          f"axis ({spec[md]!r})")
@@ -328,7 +330,8 @@ def cache_specs(cache_abstract, cfg: ArchConfig, mesh):
     return spec_tree_map(rule, cache_abstract)
 
 
-def opt_state_specs(pspecs, abstract_opt_state, mesh):
+def opt_state_specs(pspecs, abstract_opt_state, mesh,
+                    replace_dp: bool = True):
     """Optimizer-state specs derived from parameter specs.
 
     Adafactor's factored slots drop the last (vr) / second-to-last (vc)
@@ -336,14 +339,16 @@ def opt_state_specs(pspecs, abstract_opt_state, mesh):
     reuse the parameter spec (ZeRO: optimizer state is sharded wherever
     the parameter is).  When the dropped dim carried the data axes, they
     are re-placed on the largest remaining unsharded dim, so no slot
-    stays data-replicated (ZeRO-2 for the factored statistics)."""
+    stays data-replicated (ZeRO-2 for the factored statistics);
+    ``replace_dp=False`` leaves them off (each slot laid out as its
+    parameter's piece computes it: the train step's layout)."""
     sizes = axis_sizes(mesh)
     dp = _dp(mesh)
     dp_size = _axis_size(sizes, dp)
 
     def _replace_dp(entries, shape):
-        if dp is None or any(set(entry_axes(e)) & {"data", "pod"}
-                             for e in entries):
+        if not replace_dp or dp is None or any(
+                set(entry_axes(e)) & {"data", "pod"} for e in entries):
             return tuple(entries)
         dims = sorted(((d, i) for i, d in enumerate(shape)
                        if entries[i] is None and d % dp_size == 0),

@@ -5,8 +5,9 @@ GSPMD puts them for the reference.
 
 :func:`shard_params` cuts a parameter tree (DTensors placed by
 ``sharding.param_specs``, or whole tensors) to this rank's pieces over
-'model' (the data axes gathered) and returns them with a :class:`TP`, the
-layout the layers read: per weight its ``sharding.model_split`` kind.
+'model' (the data axes gathered, or kept in a train step) and returns
+them with a :class:`TP`, the layout the layers read: per weight its
+``sharding.model_split`` kind.
 The layers (``lm/blocks.py``, ``lm/radix.py``, ``lm/model.py``) then run
 Megatron's scheme:
 
@@ -30,12 +31,22 @@ parameter used on a piece of the work (a norm under sequence
 parallelism, RWKV's token-shift mixes) gets its gradient summed over
 'model' (:meth:`TP.param`); one used on replicated work keeps the whole
 gradient every rank computed.
+
+In a train step (``shard_params(..., keep_data=True)``) a DTensor leaf
+also keeps its piece over the data axes ('pod', 'data'), where the rule
+table splits d_model (the reference's FSDP, ZeRO-3 under GSPMD); the
+:class:`TP` records each such leaf's data-split dim (``TP.data``) and
+:meth:`TP.over_data` gathers a layer's pieces where the layer runs
+(``collectives.fsdp_gather``: backward, the data ranks' gradients
+reduce-scattered back to the piece), so the step's gradients and
+optimizer work on the pieces.  The MoE experts keep their 'model' piece
+then (kind ``"expert"``): this rank's experts or d_ff slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -43,7 +54,7 @@ from repro_torch.parallel import collectives as C
 from repro_torch.parallel import sharding as SH
 from repro_torch.train.tree import leaves_with_paths, unflatten
 
-__all__ = ["TP", "shard_params", "model_size", "model_only"]
+__all__ = ["TP", "shard_params", "model_size"]
 
 MODEL = ("model",)
 
@@ -74,14 +85,17 @@ class TP:
     """The 'model' layout of one call: the mesh, the split kind of each
     weight (keyed by its layer-relative path), whether the residual
     stream is split over the sequence (``seq``), the path prefix of the
-    block that holds it (:meth:`at`), and whether the block's KV cache
-    holds this rank's piece of its slots (``kv_split``)."""
+    block that holds it (:meth:`at`), whether the block's KV cache
+    holds this rank's piece of its slots (``kv_split``), and in a train
+    step (``data`` not None) each leaf that keeps its piece over the data
+    axes: ``{tree path: (split dim, data axes)}``."""
 
     mesh: object
     kinds: Dict[Tuple[str, ...], str]
     seq: bool = False
     prefix: Tuple[str, ...] = ()
     kv_split: bool = False
+    data: Optional[Dict[Tuple, Tuple[int, Tuple[str, ...]]]] = None
 
     @property
     def n(self) -> int:
@@ -164,6 +178,29 @@ class TP:
     def max(self, x: torch.Tensor) -> torch.Tensor:
         return C.max_over(x, self.mesh, MODEL)
 
+    # -- parameters over the data axes ------------------------------------
+
+    def over_data(self, tree, *prefix, layer: bool = False):
+        """``tree``, the parameters' subtree at path ``prefix``, whole
+        over the data axes for the work at hand: a leaf kept split over
+        them all-gathered (``collectives.fsdp_gather``; ``layer``: the
+        leaves are one layer's slices of stacked leaves, the split dim
+        one lower), a leaf stored whole over them entered with
+        ``collectives.fsdp_copy`` (its gradient summed over them).  The
+        identity outside a train step (``data`` None)."""
+        if self.data is None:
+            return tree
+        dp = SH.dp_axes(self.mesh)
+
+        def one(path, leaf):
+            hit = self.data.get(tuple(prefix) + path)
+            if hit is None:
+                return C.fsdp_copy(leaf, self.mesh, dp)
+            dim, axes = hit
+            return C.fsdp_gather(leaf, dim - int(layer), self.mesh, axes)
+
+        return unflatten(tree, [one(p, t) for p, t in leaves_with_paths(tree)])
+
 
 class _ScaleGrad(torch.autograd.Function):
     @staticmethod
@@ -176,7 +213,7 @@ class _ScaleGrad(torch.autograd.Function):
         return g * ctx.s, None
 
 
-def model_only(spec) -> tuple:
+def _model_only(spec) -> tuple:
     """``spec`` kept to its 'model' entries."""
     return tuple(e if e is not None and "model" in SH.entry_axes(e) else None
                  for e in spec)
@@ -231,7 +268,7 @@ def _local_dtensor(t, mesh):
     """A DTensor's piece over 'model' and its spec, the data axes
     gathered (no communication where they hold one rank)."""
     spec = SH.spec_of(t)
-    want = model_only(spec)
+    want = _model_only(spec)
     sizes = SH.axis_sizes(mesh)
     if all(sizes[a] == 1 for e in _data_only(spec, mesh)
            for a in SH.entry_axes(e)):
@@ -239,21 +276,67 @@ def _local_dtensor(t, mesh):
     return t.redistribute(mesh, SH.placements(want, mesh)).to_local(), want
 
 
-def shard_params(params, cfg, mesh, *, contiguous: bool = False):
+def _data_entry(spec, mesh) -> Optional[Tuple[int, Tuple[str, ...]]]:
+    """(dim, axes) of the entry of ``spec`` that splits a leaf over the
+    data axes, None where none does.  An entry must split over every
+    data axis of more than one rank, or over none, and not share its dim
+    with 'model' (``ValueError``): the step's sums over the data axes
+    count each piece once."""
+    sizes = SH.axis_sizes(mesh)
+    dp = SH.dp_axes(mesh)
+    live = {a for a in dp if sizes[a] > 1}
+    hit = None
+    for d, e in enumerate(spec):
+        axes = SH.entry_axes(e)
+        mine = tuple(a for a in axes if a in dp)
+        if not mine:
+            continue
+        if "model" in axes or hit is not None or \
+                {a for a in mine if sizes[a] > 1} not in (set(), live):
+            raise ValueError(f"spec {spec!r}: a leaf splits over the data "
+                             f"axes {dp} on one dim at most, over each of "
+                             "them of more than one rank, never with "
+                             "'model'")
+        hit = (d, mine)
+    return hit
+
+
+def _data_piece(leaf, mesh, kind: str):
+    """A DTensor leaf's piece as a train step keeps it: over the data
+    axes as stored (with its :func:`_data_entry`), over 'model' as
+    ``kind`` uses it (gathered for a ``"whole"`` leaf)."""
+    spec = SH.spec_of(leaf)
+    piece = leaf.to_local()
+    if kind == "whole":
+        for d, e in enumerate(spec):
+            if "model" in SH.entry_axes(e):
+                piece = C.gather_from(piece, d, mesh, MODEL)
+    return piece, _data_entry(spec, mesh)
+
+
+def shard_params(params, cfg, mesh, *, contiguous: bool = False,
+                 keep_data: bool = False):
     """(this rank's pieces of ``params`` over 'model', :class:`TP`).
 
     A DTensor leaf is gathered over the data axes only; a leaf the rule
     table splits over 'model' keeps its piece (a radix dict's levels,
     stored whole by the table, are cut here, locally).  A ``"whole"``
-    leaf (the MoE experts, which the mesh dispatches slice themselves)
+    leaf, the MoE experts (which the mesh dispatches slice themselves)
     and a weight's scale under a row split are gathered whole.  Whole
     (non-DTensor) leaves are cut locally, with no communication.
     ``contiguous`` copies each piece into its own storage (a deployment
     cutting its weights once, the K-major levels of a row split
-    included), so the whole tree can be freed."""
+    included), so the whole tree can be freed.
+
+    ``keep_data`` (a train step) keeps each float DTensor leaf's piece
+    over the data axes too, recorded in ``TP.data`` for
+    :meth:`TP.over_data`, and the MoE experts' piece over 'model' (kind
+    ``"expert"``; whole leaves are cut to it locally).  Radix leaves,
+    which only serving uses, are cut as without it."""
     from torch.distributed.tensor import DTensor
 
     kinds: Dict[Tuple[str, ...], str] = {}
+    data = {} if keep_data else None
     out = []
     for path, leaf in leaves_with_paths(params):
         names = SH._names_of(path)
@@ -267,7 +350,16 @@ def shard_params(params, cfg, mesh, *, contiguous: bool = False):
             kind, spec = kinds[_layer_key(wnames)], None
         else:
             kind, spec = SH.model_split(wnames, fshape, cfg, mesh)
+            if kind == "expert" and not keep_data:
+                kind = "whole"
             kinds[_layer_key(wnames)] = kind
+        if (isinstance(leaf, DTensor) and keep_data
+                and names[-1] not in SH.RADIX_KEYS):
+            piece, entry = _data_piece(leaf, mesh, kind)
+            if entry is not None:
+                data[path] = entry
+            out.append(piece)
+            continue
         if isinstance(leaf, DTensor):
             piece, have = _local_dtensor(leaf, mesh)
             split = any(e is not None for e in have)
@@ -282,4 +374,4 @@ def shard_params(params, cfg, mesh, *, contiguous: bool = False):
     if contiguous:
         out = [t.contiguous().clone() if torch.is_tensor(t) else t
                for t in out]
-    return unflatten(params, out), TP(mesh, kinds)
+    return unflatten(params, out), TP(mesh, kinds, data=data)

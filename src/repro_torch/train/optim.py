@@ -20,17 +20,20 @@ every division by a host scalar divides by a float32 tensor on the
 operand's device (CUDA turns a host-scalar divisor into a reciprocal
 multiply).
 
-``shards`` (a :class:`Shards`) runs an update on leaves split over a
-group of ranks (tensor parallelism: each rank holding its piece of a
-parameter, its gradient and its state): the global norm, Adafactor's
-factored row and column statistics and its RMS clip sum over the group
-where a leaf's reduced dim is split, so every rank updates its piece as
-the whole update would (in another float order).  Adam and SGD are
-elementwise and take it unchanged.
+``shards`` (a :class:`Shards`, or a sequence of them: one per group of
+ranks, as the data axes and 'model') runs an update on leaves split over
+groups of ranks (ZeRO-3 and tensor parallelism: each rank holding its
+piece of a parameter, its gradient and its state): the global norm sums
+each leaf's partial sum over every group that splits it, Adafactor's
+factored row and column statistics over the groups that split the dim
+they reduce, its RMS clip over every group that splits the leaf, so
+every rank updates its piece as the whole update would (in another
+float order).  Adam and SGD are elementwise and take it unchanged.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -52,29 +55,41 @@ class Optimizer(NamedTuple):
 class Shards(NamedTuple):
     """Leaves split over a group of ``n`` ranks: ``dims`` a tree like the
     parameters' of each leaf's split dim (-1: the leaf is whole on every
-    rank), ``sum`` the in-place sum of a tensor over the group."""
+    rank of the group), ``sum`` a tensor summed over the group (the sum
+    returned)."""
     dims: Any
     n: int
     sum: Callable[[torch.Tensor], torch.Tensor]
 
 
-def _split_sum(x: torch.Tensor, dim: int, keepdim: bool, d: int,
-               shards: Optional[Shards]) -> torch.Tensor:
-    """``x.sum(dim)`` of a leaf whose dim ``d`` (-1 none) is split over
-    ``shards``'s group: summed over the group where ``dim`` is ``d``."""
+def _groups(shards) -> tuple:
+    """``shards`` (None, a :class:`Shards` or a sequence of them) as a
+    tuple of :class:`Shards`."""
+    if shards is None:
+        return ()
+    return (shards,) if isinstance(shards, Shards) else tuple(shards)
+
+
+def _split_sum(x: torch.Tensor, dim: int, keepdim: bool,
+               split) -> torch.Tensor:
+    """``x.sum(dim)`` of a leaf split as ``split`` says (pairs of a
+    :class:`Shards` and the leaf's split dim over it, -1 none): summed
+    over each group that splits ``dim``."""
     out = x.sum(dim=dim, keepdim=keepdim)
-    if shards is not None and d >= 0 and dim % x.ndim == d:
-        out = shards.sum(out.contiguous())
+    for sh, d in split:
+        if d >= 0 and dim % x.ndim == d:
+            out = sh.sum(out.contiguous())
     return out
 
 
-def _split_mean(x, dim: int, keepdim: bool, d: int, shards) -> torch.Tensor:
-    """``x.mean(dim)``; where ``dim`` is the split dim ``d``, the sum over
-    the group divided by the whole length."""
-    if shards is None or d < 0 or dim % x.ndim != d:
+def _split_mean(x, dim: int, keepdim: bool, split) -> torch.Tensor:
+    """``x.mean(dim)``; where groups split ``dim``, the sum over them
+    divided by the whole length."""
+    ns = [sh.n for sh, d in split if d >= 0 and dim % x.ndim == d]
+    if not ns:
         return x.mean(dim=dim, keepdim=keepdim)
-    return _div(_split_sum(x, dim, keepdim, d, shards),
-                float(x.shape[dim] * shards.n))
+    return _div(_split_sum(x, dim, keepdim, split),
+                float(x.shape[dim] * math.prod(ns)))
 
 
 def _div(a, b: torch.Tensor) -> torch.Tensor:
@@ -103,23 +118,23 @@ def apply_updates(params, updates):
     return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
 
 
-def global_norm(tree, shards: Optional[Shards] = None) -> torch.Tensor:
+def global_norm(tree, shards=None) -> torch.Tensor:
     """sqrt of the leaves' float32 sums of squares, summed in leaf order
-    (a split leaf's sum summed over ``shards``'s group first: one
-    all-reduce of the split leaves' sums)."""
+    (a split leaf's sum summed over each group of ``shards`` that splits
+    it first: one sum of the split leaves' sums a group, in the groups'
+    order)."""
     sums = [torch.sum(torch.square(x.to(F32))) for x in leaves(tree)]
-    if shards is not None and sums:
-        split = [d >= 0 for d in leaves(shards.dims)]
-        if any(split):
+    for sh in _groups(shards):
+        split = [d >= 0 for d in leaves(sh.dims)]
+        if sums and any(split):
             vec = torch.stack([t if s else torch.zeros_like(t)
                                for t, s in zip(sums, split)])
-            vec = shards.sum(vec)
+            vec = sh.sum(vec)
             sums = [v if s else t for t, v, s in zip(sums, vec, split)]
     return torch.sqrt(sum(sums))
 
 
-def clip_by_global_norm(grads, max_norm: float,
-                        shards: Optional[Shards] = None):
+def clip_by_global_norm(grads, max_norm: float, shards=None):
     norm = global_norm(grads, shards)
     scale = torch.clamp(_div(max_norm, norm + 1e-12), max=1.0)
     return tree_map(lambda g: g.to(torch.promote_types(g.dtype, F32)) * scale,
@@ -238,18 +253,21 @@ def adafactor(lr: float, decay: float = 0.8, eps: float = 1e-30,
         step = state.step + 1
         beta = 1.0 - (step.to(F32) + 1.0) ** -decay
 
-        def upd_leaf(g, s, d=-1):
+        groups = _groups(shards)
+
+        def upd_leaf(g, s, *ds):
+            split = list(zip(groups, ds))
             g = g.to(F32)
             g2 = torch.square(g) + eps
             if isinstance(s, _FactoredSlot):
                 nd = g.ndim
                 vr = beta * s.vr + (1 - beta) * _split_mean(
-                    g2, -1, False, d, shards)
+                    g2, -1, False, split)
                 vc = beta * s.vc + (1 - beta) * _split_mean(
-                    g2, -2, False, d, shards)
+                    g2, -2, False, split)
                 # vr is g's shape[:-1]: its last dim is g's dim nd - 2
-                denom = _split_mean(vr, -1, True,
-                                    nd - 2 if d == nd - 2 else -1, shards)
+                denom = _split_mean(vr, -1, True, [
+                    (sh, d if d == nd - 2 else -1) for sh, d in split])
                 rms = ((vr / torch.clamp_min(denom, eps))[..., None]
                        * vc[..., None, :])
                 precond = g * torch.rsqrt(torch.clamp_min(rms, eps))
@@ -260,9 +278,13 @@ def adafactor(lr: float, decay: float = 0.8, eps: float = 1e-30,
                 new_s = nu
             # update clipping (Adafactor's RMS clip)
             sq = torch.square(precond)
-            if shards is not None and d >= 0:
-                msq = _div(shards.sum(torch.sum(sq).reshape(1))[0],
-                           float(sq.numel() * shards.n))
+            live = [sh for sh, d in split if d >= 0]
+            if live:
+                tot = torch.sum(sq).reshape(1)
+                for sh in live:
+                    tot = sh.sum(tot)
+                msq = _div(tot[0], float(sq.numel()
+                                         * math.prod(sh.n for sh in live)))
             else:
                 msq = torch.mean(sq)
             rms_u = torch.sqrt(msq + 1e-12)
@@ -270,10 +292,8 @@ def adafactor(lr: float, decay: float = 0.8, eps: float = 1e-30,
                                                 1.0)
             return -lr * precond, new_s
 
-        if shards is None:
-            pairs = tree_map(upd_leaf, grads, state.slots)
-        else:
-            pairs = tree_map(upd_leaf, grads, state.slots, shards.dims)
+        pairs = tree_map(upd_leaf, grads, state.slots,
+                         *(sh.dims for sh in groups))
         updates = tree_map(lambda g, p: p[0], grads, pairs)
         slots = tree_map(lambda g, p: p[1], grads, pairs)
 

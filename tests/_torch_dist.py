@@ -635,3 +635,204 @@ def tp_analysis_case(cfg_kw, tokens, s0, max_len):
         params, {"tokens": tok[:, :s0 + 1]}, cfg, mesh, max_len=max_len))
     return (cost.per_collective,
             radix_serve_notes(cfg, params, tokens, s0, max_len, mesh))
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-3 over the data axes and the vocab-parallel loss.
+# ---------------------------------------------------------------------------
+
+
+def fsdp_cfg(arch, cfg_kw):
+    """SMOKE ``arch`` with ``seq_shard``, MoE capacity 8.0, and
+    ``cfg_kw`` (``moe_impl`` names the MoE dispatch)."""
+    from repro_torch.configs import get_config
+
+    kw = dict(cfg_kw)
+    cfg = dataclasses.replace(get_config(arch, smoke=True), seq_shard=True)
+    impl = kw.pop("moe_impl", None)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0, impl=impl or cfg.moe.impl))
+    return dataclasses.replace(cfg, **kw)
+
+
+def fsdp_opt(name, lr):
+    from repro_torch.train import optim
+
+    return optim.adam(lr) if name == "adam" else optim.adafactor(lr)
+
+
+def fsdp_case(arch, shape, axes, tokens, steps, lr, opt_name, cfg_kw):
+    """``steps`` sharded steps of ``opt_name`` ("adafactor" / "adam"),
+    the state placed by the rule table: ((loss, grad_norm) of each step,
+    leaves whose local piece is not their spec's slice)."""
+    from repro_torch.lm import model as M
+
+    cfg = fsdp_cfg(arch, cfg_kw)
+    mesh = _mesh(shape, axes)
+    params = M.init_params(torch.Generator().manual_seed(0), cfg)
+    opt = fsdp_opt(opt_name, lr)
+    state, specs = _place_state(cfg, opt, params, mesh)
+    step = M.make_train_step(cfg, opt, mesh=mesh)
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, {"tokens": torch.from_numpy(tokens)})
+        losses.append((float(m["loss"]), float(m["grad_norm"])))
+    return losses, _local_shapes_ok(state, specs, mesh)
+
+
+def _layer_gather_shapes(params, cfg, mesh) -> set:
+    """The shapes a step may gather over the data axes: each float
+    leaf's piece, one layer of a stacked leaf, whole over them."""
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import tp as tp_lib
+    from repro_torch.train.tree import leaves_with_paths
+
+    pieces, tp = tp_lib.shard_params(params, cfg, mesh, keep_data=True)
+    got = dict(leaves_with_paths(pieces))
+    shapes = set()
+    for path, (d, axes) in tp.data.items():
+        shape = list(got[path].shape)
+        shape[d] *= C.group_size(mesh, axes)
+        if path[0] in ("segments", "enc_segments"):
+            shape = shape[1:]
+        shapes.add(tuple(shape))
+    return shapes
+
+
+def fsdp_structure_case(arch, shape, tokens, opt_name):
+    """One sharded step on ``shape`` with the collectives watched:
+    {"gathers": shapes every data-axis gather gave, "allowed": the
+    one-layer shapes, "layers": the stacked layers' leaf count, "stack":
+    the stacked pieces' shapes, "start": gathers of a parameter leaf by
+    ``redistribute`` / ``full_tensor``, "grads" / "slots": leaves the
+    optimizer got at another shape than their piece, "held": leaves of
+    the new state whose piece is not their spec's slice, "logits": the
+    head's output shapes in the loss}."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.lm import model as M
+    from repro_torch.parallel import collectives as C
+    from repro_torch.train.tree import leaves, leaves_with_paths
+
+    cfg = fsdp_cfg(arch, {})
+    mesh = _mesh(shape)
+    params = M.init_params(torch.Generator().manual_seed(0), cfg)
+    opt = fsdp_opt(opt_name, 1e-3)
+    state, specs = _place_state(cfg, opt, params, mesh)
+    placed = {id(t) for t in leaves(state["params"])}
+    allowed = sorted(_layer_gather_shapes(state["params"], cfg, mesh))
+    seen = {"gathers": [], "start": 0, "grads": [], "slots": [],
+            "logits": []}
+    orig = (C.fsdp_gather, DTensor.redistribute, DTensor.full_tensor,
+            M._lm_head, opt.update)
+
+    def fsdp_gather(x, dim, mesh_, axes):
+        out = orig[0](x, dim, mesh_, axes)
+        seen["gathers"].append(tuple(out.shape))
+        return out
+
+    def redistribute(self, *a, **k):
+        seen["start"] += int(id(self) in placed)
+        return orig[1](self, *a, **k)
+
+    def full_tensor(self, *a, **k):
+        seen["start"] += int(id(self) in placed)
+        return orig[2](self, *a, **k)
+
+    def lm_head(*a, **k):
+        out = orig[3](*a, **k)
+        seen["logits"].append(tuple(out.shape))
+        return out
+
+    local = [tuple(t.to_local().shape) for t in leaves(state["params"])]
+
+    def update(grads, st, params_=None, shards=None):
+        seen["grads"] += [(i, tuple(g.shape), want) for i, (g, want)
+                          in enumerate(zip(leaves(grads), local))
+                          if tuple(g.shape) != want]
+        if hasattr(st, "nu"):       # adam: mu and nu are the pieces
+            seen["slots"] += [(i, tuple(m.shape), want) for i, (m, want)
+                              in enumerate(zip(leaves(st.mu), local))
+                              if tuple(m.shape) != want]
+        return orig[4](grads, st, params_, shards)
+
+    C.fsdp_gather, M._lm_head = fsdp_gather, lm_head
+    DTensor.redistribute, DTensor.full_tensor = redistribute, full_tensor
+    opt = opt._replace(update=update)
+    try:
+        step = M.make_train_step(cfg, opt, mesh=mesh)
+        state, _ = step(state, {"tokens": torch.from_numpy(tokens)})
+    finally:
+        C.fsdp_gather, DTensor.redistribute, DTensor.full_tensor = orig[:3]
+        M._lm_head = orig[3]
+    seen["allowed"] = allowed
+    seen["stack"] = sorted({tuple(t.to_local().shape) for p, t
+                            in leaves_with_paths(state["params"])
+                            if p[0] == "segments"})
+    seen["layers"] = sum(t.shape[0] for p, t in leaves_with_paths(params)
+                         if p[0] == "segments" and p[-2:] == ("ln1", "w"))
+    seen["held"] = _local_shapes_ok(state, specs, mesh)
+    seen["vocab"] = cfg.vocab
+    return seen
+
+
+def vocab_ce_case(shape, logits_np, labels_np):
+    """``model._vocab_parallel_ce`` on this rank's rows and vocab columns
+    of ``logits`` against the whole-logit cross-entropy and argmax of its
+    rows: (ce, acc, the columns' gradient of ce, and the same three of
+    the whole path, the gradient cut to the rank's columns)."""
+    from repro_torch.lm import model as M
+    from repro_torch.parallel import tp as tp_lib
+
+    mesh = _mesh(shape)
+    tp = tp_lib.TP(mesh, {})
+    d, n = mesh.get_local_rank("data"), shape[0]
+    rows = logits_np.shape[0] // n
+    lg = torch.from_numpy(logits_np[d * rows:(d + 1) * rows])
+    lab = torch.from_numpy(labels_np[d * rows:(d + 1) * rows])
+    cols = lg.shape[-1] // tp.n
+    mine = lg[..., tp.rank * cols:(tp.rank + 1) * cols].clone()
+    mine.requires_grad_(True)
+    ce, acc = M._vocab_parallel_ce(mine, lab, tp)
+    ce.backward()
+    whole = lg.clone().requires_grad_(True)
+    w_ce = (torch.logsumexp(whole, -1)
+            - torch.gather(whole, -1, lab.long()[..., None])[..., 0]).mean()
+    w_ce.backward()
+    w_acc = (whole.argmax(-1) == lab).to(torch.float32).mean()
+    w_g = whole.grad[..., tp.rank * cols:(tp.rank + 1) * cols]
+    return (float(ce), float(acc), _np(mine.grad), float(w_ce),
+            float(w_acc), _np(w_g))
+
+
+def vocab_loss_case(shape, tokens, cfg_kw):
+    """``loss_fn`` over the mesh on this rank's pieces (the vocab-parallel
+    loss where the head splits the vocab) against the whole-logit loss of
+    ``forward_train`` on the same pieces: (the vocab-parallel path taken,
+    (ce, acc, gradient of the head's piece) of each)."""
+    from repro_torch.lm import model as M
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel import tp as tp_lib
+
+    cfg = fsdp_cfg("gemma_2b", cfg_kw)
+    mesh = _mesh(shape)
+    params = M.init_params(torch.Generator().manual_seed(0), cfg)
+    placed = SH.place(params, SH.param_specs(params, cfg, mesh), mesh)
+    pieces, tp = tp_lib.shard_params(placed, cfg, mesh, keep_data=True)
+    batch = M._data_shard({"tokens": torch.from_numpy(tokens)}, cfg, mesh)
+    out = []
+    for vocab_parallel in (True, False):
+        ps = M.tree_map(lambda t: t.detach().requires_grad_(True), pieces)
+        if vocab_parallel:
+            _, m = M.loss_fn(ps, batch, cfg, mesh, tp=tp)
+            ce, acc = m["ce"], m["acc"]
+        else:
+            lg, labels, _ = M.forward_train(ps, batch, cfg, mesh, tp)
+            lf = lg.to(torch.float32)
+            ce = (torch.logsumexp(lf, -1) - torch.gather(
+                lf, -1, labels.long()[..., None])[..., 0]).mean()
+            acc = (lf.argmax(-1) == labels).to(torch.float32).mean()
+        ce.backward()
+        out.append((float(ce), float(acc), _np(ps["embed"].grad)))
+    return M._vocab_split(cfg, tp), out
