@@ -11,8 +11,10 @@ block takes this rank's shards of its weights (``tp.shard_params``) and
 its input whole (``TP.enter``), computes its share of the block, and
 returns the block's output summed over 'model' (``TP.exit``): the
 QKV projections are column-parallel over the heads (or over head_dim
-where the heads do not divide the axis: the head's head_dim is gathered
-before RoPE, the scores and the KV quantization, as GSPMD must), the
+where the heads do not divide the axis: K and V's head_dim is gathered
+before RoPE, the scores and the KV quantization; under sequence
+parallelism each rank attends for its own rows, q exchanged over
+head_dim by an all-to-all, else q is gathered too), the
 output projection row-parallel; the FFNs' up/gate column- and down
 row-parallel; RG-LRU's width split over 'model'; RWKV-6's heads split
 over 'model', or where they do not divide it, each head's key dim (the
@@ -194,6 +196,42 @@ def _tp_out(o, p, cfg: ArchConfig, tp):
     return tp.exit_whole(_out_proj(tp.replicated(o), p["wo"], cfg))
 
 
+def _rows_path(cfg: ArchConfig, tp, cross: bool) -> bool:
+    """Whether attention under ``tp`` attends for this rank's sequence
+    piece of the queries only: self-attention whose q, k and v split
+    head_dim over 'model' (the heads do not divide it) while the residual
+    stream is split over the sequence (``tp.seq``: train and prefill, a
+    length that divides 'model')."""
+    return (tp is not None and tp.seq and not cross
+            and all(tp.kind(w) == "head_dim" for w in ("wq", "wk", "wv"))
+            and tp.kind("wo") == "row_hd")
+
+
+def _rows_of(q, tp):
+    """(B, S, H, hd/n), this rank's head_dim piece of every row, ->
+    (B, S/n, H, hd), every head_dim column of this rank's rows: one
+    all-to-all over 'model' (rank i holds head_dim piece i)."""
+    b, s, h, e = q.shape
+    n = tp.n
+    x = tp.exchange(q.reshape(b, n, s // n, h, e).movedim(1, 0).contiguous())
+    return x.movedim(0, 3).reshape(b, s // n, h, n * e)
+
+
+def _piece_of(o, tp):
+    """The inverse of :func:`_rows_of`: (B, S/n, H, hd) of this rank's
+    rows -> (B, S, H, hd/n), this rank's head_dim piece of every row."""
+    b, sl, h, hd = o.shape
+    n = tp.n
+    x = tp.exchange(o.reshape(b, sl, h, n, hd // n).movedim(3, 0)
+                    .contiguous())
+    return x.movedim(0, 1).reshape(b, n * sl, h, hd // n)
+
+
+# query rows each prefill/train attention call computed, by path: "rows"
+# (this rank's sequence piece, :func:`_rows_path`) or "whole"
+ATTN_ROWS = {"rows": 0, "whole": 0, "rows_calls": 0, "whole_calls": 0}
+
+
 def _gqa_scores(q, k):
     """(B,Sq,H,hd) x (B,Sk,Hkv,hd) -> (B,H,Sq,Sk) without repeating K."""
     b, sq, h, hd = q.shape
@@ -224,7 +262,15 @@ def attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
     ``positions[0]``, or ``positions[0, 0]`` of (3, B, S) M-RoPE
     streams.  Under ``tp`` (``x`` whole, ``cross_kv`` from this rank's
     ``wk``/``wv``) the output is summed over 'model' and ``return_kv``
-    gives K and V of every head."""
+    gives K and V of every head.
+
+    Where the heads split head_dim over 'model' under sequence
+    parallelism (:func:`_rows_path`) each rank attends for its own S/n
+    query rows against the whole K and V: an all-to-all hands it every
+    head_dim column of its rows' q and hands back its head_dim piece of
+    every row's output for the row-parallel ``wo``.  Each row is
+    computed as on one device, in the one-device query chunks where
+    S/n holds a whole number of them."""
     b, s_len, _ = x.shape
     hd = cfg.hd
     if cross_kv is None:
@@ -233,21 +279,33 @@ def attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
         q = _attn_proj(x, p["wq"], cfg, tp, "wq")
         k, v = cross_kv
         causal = False
+    rows = _rows_path(cfg, tp, cross_kv is not None)
+    q_positions = positions
     kv_heads = None
-    if tp is not None:
+    if rows:
+        q = _rows_of(q, tp)
+        # each rank's rows read every key: their gradients summed
+        k, v = tp.gather_sum(k, -1), tp.gather_sum(v, -1)
+        r0 = tp.rank * q.shape[1]
+        q_positions = positions[..., r0:r0 + q.shape[1]]
+    elif tp is not None:
         q, k, v, kv_heads = _tp_heads(q, k, v, cfg, tp)
     if cross_kv is None and cfg.pos_embed == "rope":
         sec = cfg.mrope_sections
-        q = rope_apply(q, positions, cfg.rope_theta, sec)
+        q = rope_apply(q, q_positions, cfg.rope_theta, sec)
         k = rope_apply(k, positions, cfg.rope_theta, sec)
     kv = k, v
     if kv_heads is not None:
         k, v = k[:, :, kv_heads], v[:, :, kv_heads]
 
     scale = hd ** -0.5
+    n_q = q.shape[1]
+    path = "rows" if rows else "whole"
+    ATTN_ROWS[path] += n_q
+    ATTN_ROWS[path + "_calls"] += 1
     chunk = min(cfg.attn_chunk, s_len) if cfg.attn_chunk else s_len
-    if s_len % chunk:
-        chunk = s_len          # irregular lengths: single pass
+    if s_len % chunk or n_q % chunk:
+        chunk = n_q            # irregular lengths: single pass
     kpos = torch.arange(k.shape[1], device=x.device)
 
     def attend_chunk(qc, qpos):
@@ -260,11 +318,14 @@ def attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
         pr = torch.softmax(s, dim=-1).to(x.dtype)
         return _gqa_out(pr, v)
 
-    qpos_all = positions[0] if positions.ndim == 2 else positions[0, 0]
+    qpos_all = (q_positions[0] if q_positions.ndim == 2
+                else q_positions[0, 0])
     o = torch.cat([attend_chunk(q[:, c0:c0 + chunk], qpos_all[c0:c0 + chunk])
-                   for c0 in range(0, s_len, chunk)], dim=1)
+                   for c0 in range(0, n_q, chunk)], dim=1)
     if tp is None:
         out = _out_proj(o, p["wo"], cfg)
+    elif rows:
+        out = _out_proj(_piece_of(o, tp), p["wo"], cfg, tp)
     else:
         out = _tp_out(o, p, cfg, tp)
         k, v = kv

@@ -124,17 +124,27 @@ def check_supported(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
+_DRAW_ELEMS = 1 << 26         # float32 elements a draw's transient holds
+
+
 def _nrm(gen: torch.Generator, shape, scale: float, dtype, device):
-    """N(0, scale^2) in ``dtype``, drawn in float32 one trailing matrix at
-    a time: a stacked leaf's float32 transient is one matrix, not the
-    leaf (Grok-1's stacked experts are 25.8 GB in float32 at 4 layers)."""
+    """N(0, scale^2) in ``dtype``: each trailing matrix drawn in float32
+    by its own ``normal_`` call (the draw's values depend on it), scaled
+    and cast a group of matrices at a time, the group's float32
+    transient at most ``_DRAW_ELEMS`` elements or one matrix (Grok-1's
+    stacked experts are 25.8 GB in float32 at 4 layers)."""
     out = torch.empty(shape, dtype=dtype, device=device)
-    if is_fake(out):            # abstract_params: no values to draw
+    if is_fake(out) or out.is_meta:     # no values to draw
         return out
-    mats = out.view((-1,) + tuple(shape[-2:])) if len(shape) > 2 else [out]
-    for m in mats:
-        m.copy_(torch.randn(m.shape, generator=gen, dtype=torch.float32,
-                            device=device).mul_(scale))
+    mats = out.view((-1,) + tuple(shape[-2:])) if len(shape) > 2 else out[None]
+    per = max(1, min(len(mats), _DRAW_ELEMS // max(1, mats[0].numel())))
+    buf = torch.empty((per,) + tuple(mats.shape[1:]), dtype=torch.float32,
+                      device=device)
+    for i in range(0, len(mats), per):
+        group = buf[:min(per, len(mats) - i)]
+        for m in group.unbind(0):
+            m.normal_(generator=gen)
+        mats[i:i + len(group)].copy_(group.mul_(scale))
     return out
 
 

@@ -271,8 +271,11 @@ class _AllToAll(torch.autograd.Function):
 def _exchange(x: torch.Tensor, pg) -> torch.Tensor:
     if x.is_cuda and _gloo(pg):
         return _exchange(x.cpu(), pg).to(x.device)
+    # a strided gradient's empty_like keeps its strides: the exchange
+    # writes dense chunks
+    x = x.contiguous()
     out = torch.empty_like(x)
-    dist.all_to_all_single(out, x.contiguous(), group=pg)
+    dist.all_to_all_single(out, x, group=pg)
     return out
 
 
@@ -293,8 +296,9 @@ def _shift(x: torch.Tensor, pg, send_to: int, recv_from: int):
     from ``recv_from``, as one batch of point-to-point operations."""
     if x.is_cuda and _gloo(pg):
         return _shift(x.cpu(), pg, send_to, recv_from).to(x.device)
+    x = x.contiguous()
     out = torch.empty_like(x)
-    ops = [dist.P2POp(dist.isend, x.contiguous(), send_to, group=pg),
+    ops = [dist.P2POp(dist.isend, x, send_to, group=pg),
            dist.P2POp(dist.irecv, out, recv_from, group=pg)]
     for work in dist.batch_isend_irecv(ops):
         work.wait()

@@ -172,6 +172,11 @@ class TP:
         """This rank's piece of a whole ``x`` (backward: all-gather)."""
         return C.slice_of(x, dim, self.mesh, MODEL)
 
+    def exchange(self, x: torch.Tensor) -> torch.Tensor:
+        """Chunk j of ``x``'s dim 0 sent to rank j; chunk i of the result
+        came from rank i (backward: the reverse exchange)."""
+        return C.all_to_all(x, self.mesh, MODEL)
+
     def sum_int(self, x: torch.Tensor, scatter_dim=None) -> torch.Tensor:
         return C.sum_int(x, self.mesh, MODEL, scatter_dim)
 

@@ -582,6 +582,99 @@ def tp_gather_count_case(arch, shape, tokens, s0, max_len):
     return counts, placed
 
 
+def tp_rows_serve_case(arch, shape, cfg_kw, tokens, s0, max_len):
+    """:func:`tp_serve_case` with whole parameters, and the prefill
+    attention's path counters (``blocks.ATTN_ROWS``: query rows and
+    calls by path; decode adds none)."""
+    from repro_torch.lm import blocks
+
+    before = dict(blocks.ATTN_ROWS)
+    out, bad = tp_serve_case(arch, shape, cfg_kw, tokens, s0, max_len, False)
+    return out, bad, {k: blocks.ATTN_ROWS[k] - before[k] for k in before}
+
+
+def _cfg(arch):
+    from repro_torch.configs import get_config
+
+    return get_config(arch, smoke=True)
+
+
+def tp_rows_share_case(cfg_kw, tokens, s0):
+    """A Gemma-2B SMOKE prefill (its 2 query heads split head_dim over
+    (1, 4)) sharded and unsharded, each rank: (the scores' flops of every
+    ``_gqa_scores`` call by ``launch/op_analysis`` at local shapes,
+    sharded and unsharded; the q shapes the scores took; the calls of
+    ``gather_from`` along a last dim; the sharded prefill's collectives'
+    link bytes by kind)."""
+    from repro_torch.launch import op_analysis
+    from repro_torch.lm import blocks
+    from repro_torch.lm import model as M
+    from repro_torch.parallel import collectives as C
+
+    cfg = dataclasses.replace(_cfg("gemma_2b"), **cfg_kw)
+    mesh = _mesh((1, 4))
+    params = _serve_params(cfg, mesh, False)
+    tok = torch.from_numpy(tokens)
+    flops, shapes, gathers = [0.0], [], [0]
+    orig_scores, orig_gather = blocks._gqa_scores, C.gather_from
+
+    def scores(q, k):
+        shapes.append(tuple(q.shape))
+        out, cost = op_analysis.analyze(orig_scores, q, k)
+        flops[0] += cost.flops
+        return out
+
+    def gather_from(x, dim, *a):
+        gathers[0] += int(dim in (-1, x.ndim - 1) and x.ndim == 4)
+        return orig_gather(x, dim, *a)
+
+    def run(mesh_):
+        blocks._gqa_scores, C.gather_from = scores, gather_from
+        try:
+            return M.prefill(params, {"tokens": tok[:, :s0 + 1]}, cfg, mesh_,
+                             max_len=s0)
+        finally:
+            blocks._gqa_scores, C.gather_from = orig_scores, orig_gather
+
+    run(None)
+    whole = flops[0]
+    flops[0] = gathers[0] = 0
+    shapes.clear()
+    run(mesh)
+    # the collectives of a second sharded prefill (analyses do not nest)
+    _, cost = op_analysis.analyze(M.prefill, params,
+                                  {"tokens": tok[:, :s0 + 1]}, cfg, mesh,
+                                  max_len=s0)
+    return flops[0], whole, shapes, gathers[0], cost.per_collective
+
+
+def tp_attn_grad_case(arch, shape, tokens):
+    """The loss's gradients of every attention layer's ``wq``/``wk``/
+    ``wv`` over the mesh, each rank's head_dim pieces gathered whole
+    (float SMOKE, ``seq_shard``: each rank attends for its rows)."""
+    from repro_torch.lm import model as M
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import tp as tp_lib
+    from repro_torch.train.tree import leaves, leaves_with_paths
+
+    cfg = dataclasses.replace(_cfg(arch), seq_shard=True)
+    mesh = _mesh(shape)
+    params = M.init_params(torch.Generator().manual_seed(0), cfg)
+    local, tp = tp_lib.shard_params(params, cfg, mesh, keep_data=True)
+    ps = M.tree_map(lambda t: t.detach().requires_grad_(True), local)
+    loss, _ = M.loss_fn(ps, {"tokens": torch.from_numpy(tokens)}, cfg, mesh,
+                        tp=tp)
+    grads = torch.autograd.grad(loss, leaves(ps), allow_unused=True,
+                                materialize_grads=True)
+    out = {}
+    for (path, _), g in zip(leaves_with_paths(ps), grads):
+        names = tuple(str(p) for p in path if not isinstance(p, int))
+        if names[-1] in ("wq", "wk", "wv") and "mix" in names:
+            out["/".join(str(p) for p in path)] = _np(
+                C.gather_from(g, -1, mesh, ("model",)))
+    return float(loss.detach()), out
+
+
 class WorkNotes:
     """A sink of ``kernels/work`` notes: the radix kernels' operations by
     kernel."""

@@ -303,6 +303,97 @@ def test_kernel_notes_and_collectives_at_local_shapes(world):
 
 
 # ---------------------------------------------------------------------------
+# Attention over 'model' where the query heads split head_dim.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch,cfg_kw,s0,path,exact", [
+    ("gemma_2b", RADIX, 64, "rows", True),
+    ("gemma_2b", RADIX, 9, "whole", True),
+    ("recurrentgemma_2b", {}, 16, "rows", False),
+    ("recurrentgemma_2b", RADIX, 64, "rows", False)],
+    ids=["radix-gemma_2b-rows-64", "radix-gemma_2b-whole-9",
+         "recurrentgemma_2b-rows-16", "radix-recurrentgemma_2b-rows-64"])
+def test_head_dim_attention_path(world, arch, cfg_kw, s0, path, exact):
+    """Over (1, 4) the SMOKE archs' 2 query heads split head_dim.  A
+    prompt whose length divides 'model' is split over the sequence and
+    each rank attends for its own S/4 query rows (64 tokens: 16 a rank,
+    one one-device query chunk, so the radix logits stay ``array_equal``
+    to the unsharded port); 9 tokens keep every rank on the whole
+    path.  RecurrentGemma-2B's local attention (window 8) over rows of
+    4 and 16, at the float bar: its RG-LRU block split over 'model' sums
+    its float products in another order, radix or not (~1e-6 apart on
+    either attention path)."""
+    tokens = _tokens(arch, 13, s=s0 + 3)
+    max_len = 128
+    want = _port_logits(arch, cfg_kw, tokens, s0, max_len)
+    cfg = tget(arch, smoke=True)
+    n_attn = sum(t in ("attn", "local_attn") for t in cfg.layer_types)
+    rows = s0 // 4 if path == "rows" else s0
+    other = "whole" if path == "rows" else "rows"
+    for got, bad, seen in world.run("tp_rows_serve_case", arch, (1, 4),
+                                    cfg_kw, tokens, s0, max_len):
+        assert not bad, bad
+        assert seen == {path: n_attn * rows, path + "_calls": n_attn,
+                        other: 0, other + "_calls": 0}, seen
+        for step, (g, w) in enumerate(zip(got, want)):
+            if exact:
+                np.testing.assert_array_equal(g, w, err_msg=f"step {step}")
+            else:
+                np.testing.assert_allclose(g, w, rtol=2e-4, atol=2e-4,
+                                           err_msg=f"step {step}")
+
+
+def test_head_dim_attention_share(world):
+    """Under ``launch/op_analysis`` at local shapes a rank's scores take
+    a quarter of the unsharded prefill's flops, every score call sees
+    whole head_dim and this rank's rows only, no q/k/v piece is gathered
+    along head_dim by ``gather_from`` (K and V join by ``seq_gather``,
+    q by an all-to-all)."""
+    s0 = 64
+    tokens = _tokens("gemma_2b", 15, s=s0 + 1)
+    cfg = tget("gemma_2b", smoke=True)
+    for flops, whole, shapes, gathers, per in world.run(
+            "tp_rows_share_case", RADIX, tokens, s0):
+        assert flops > 0 and flops * 4 == whole, (flops, whole)
+        assert sum(s[1] for s in shapes) == cfg.n_layers * s0 // 4, shapes
+        assert all(s[2:] == (cfg.n_heads, cfg.hd) for s in shapes), shapes
+        assert gathers == 0
+        assert per.get("all-to-all", 0) > 0, per
+
+
+@pytest.mark.parametrize("arch", ["gemma_2b", "recurrentgemma_2b"])
+def test_head_dim_attention_gradients(world, arch):
+    """The loss's gradients of ``wq``/``wk``/``wv`` over (1, 4), each
+    rank attending for its rows (K/V's gradient the ranks' partial sums
+    reduce-scattered, q's the reverse all-to-all), gathered whole: within
+    1e-5 relative L2 of the unsharded port's."""
+    from repro_torch.train.tree import leaves, leaves_with_paths
+
+    tokens = np.random.default_rng(2).integers(
+        0, tget(arch, smoke=True).vocab, (2, 65)).astype(np.int64)
+    cfg = dataclasses.replace(tget(arch, smoke=True), seq_shard=True)
+    params = tmodel.tree_map(
+        lambda t: t.detach().requires_grad_(True),
+        tmodel.init_params(torch.Generator().manual_seed(0), cfg))
+    loss, _ = tmodel.loss_fn(params, {"tokens": torch.from_numpy(tokens)},
+                             cfg)
+    grads = torch.autograd.grad(loss, leaves(params))
+    loss = float(loss.detach())
+    want = {"/".join(str(p) for p in path): g.numpy()
+            for (path, _), g in zip(leaves_with_paths(params), grads)
+            if str(path[-1]) in ("wq", "wk", "wv") and "mix" in
+            [str(p) for p in path]}
+    assert want
+    for got_loss, got in world.run("tp_attn_grad_case", arch, (1, 4),
+                                   tokens):
+        assert abs(got_loss - loss) <= 5e-4 * max(1.0, loss)
+        assert set(got) == set(want)
+        for k, w in want.items():
+            assert _rel(got[k], w) <= 1e-5, (k, _rel(got[k], w))
+
+
+# ---------------------------------------------------------------------------
 # The sharded train step.
 # ---------------------------------------------------------------------------
 
