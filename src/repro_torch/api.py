@@ -52,6 +52,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core import conversion, engine
 from repro_torch.core.conversion import QuantizedNet, convert
 from repro_torch.core.encoding import (
@@ -549,10 +550,11 @@ class LMExecutable:
         mdl, mx, scfg = lm_model, self.max_len, serve_cfg
 
         def prefill_builder(bucket):
-            def plan(p, tokens, true_len):
+            def plan(p, tokens, true_len, on_state=None):
                 with torch.inference_mode():
                     return mdl.prefill(p, {"tokens": tokens}, scfg,
-                                       max_len=mx, true_len=true_len)
+                                       max_len=mx, true_len=true_len,
+                                       on_state=on_state)
             return plan
 
         def decode_builder():
@@ -674,11 +676,20 @@ class LMExecutable:
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, dtype=torch.long, device=self.device)
 
-    def prefill(self, prompts) -> dict:
+    def prefill(self, prompts, *, on_state=None) -> dict:
         """Prefill ``prompts`` ((n, S0) int tokens, n <= batch) through
         the bucketed plan; returns the serving state dict
         ``{"caches", "pos", "logits", "n"}``: ``logits`` (n, vocab)
-        predict the token at position S0."""
+        predict the token at position S0.
+
+        ``on_state(layer, kind, h)``, when given, is handed each layer's
+        states as the plan computes them: ``kind`` ``"input"`` (the
+        layer's input), ``"attention"`` (its attention block's output),
+        ``"ffn"`` (its FFN block's output), and after the last layer
+        ``"output"`` (its output, under that layer's index).  Each ``h``
+        is (batch, bucket, d_model) over the compiled batch and the
+        padded bucket (rows ``[:n]`` and positions ``[:S0]`` are the
+        prompts'), the plan's own tensor: copy what you keep."""
         prompts = self._tokens(prompts)
         if prompts.ndim != 2:
             raise ValueError(
@@ -693,7 +704,9 @@ class LMExecutable:
                              device=self.device)
         tokens[:n, :s0] = prompts
         plan = self._cache.prefill_plan(bucket)
-        logits, caches = plan(self.params, tokens, s0)
+        with trace.span("lm.prefill", tokens=self.batch * bucket,
+                        true_tokens=n * s0):
+            logits, caches = plan(self.params, tokens, s0, on_state)
         self._cache.record_execution(
             padded_rows=(self.batch - n) + (bucket - s0))
         return {"caches": caches, "pos": s0, "logits": logits[:n], "n": n}

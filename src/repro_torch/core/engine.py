@@ -35,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.core import conversion, encoding, layers
 
 __all__ = ["CompiledPlan", "PlanLayerInfo", "PlanCache", "PlanCacheStats",
@@ -180,7 +181,8 @@ class CompiledPlan:
     """Per kernel layer: the layer name and its ``KernelConfig`` fields."""
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        out, skipped = self._fn(x)
+        with trace.span("plan.forward", images=x.shape[0]):
+            out, skipped = self._fn(x)
         self._skipped = skipped if self._skipped is None \
             else self._skipped + skipped
         self._calls += 1
@@ -295,8 +297,9 @@ def _compile_plan_impl(
     def _occ(state, in_bits):
         """Plane-occupancy prepass: the kernels' occupancy row and the plane
         passes they skip (bitserial) or mask (fused), on the device."""
-        row, occ_bits = kops.plane_occupancy(state, in_bits)
-        return row, (in_bits - occ_bits.sum()) * periods
+        with trace.span("plan.occupancy"):
+            row, occ_bits = kops.plane_occupancy(state, in_bits)
+            return row, (in_bits - occ_bits.sum()) * periods
 
     tune_rng = np.random.default_rng(0)   # the sweep's stand-in levels
     sms = gemm.device_sms(device)

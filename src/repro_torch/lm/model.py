@@ -58,6 +58,7 @@ the vocab over 'model' (:func:`loss_fn`).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, NamedTuple, Optional
 
@@ -65,6 +66,7 @@ import torch
 import torch.utils.checkpoint
 from torch._subclasses.fake_tensor import is_fake
 
+from repro_torch import trace
 from repro_torch.api import _resolve_device
 from repro_torch.lm import blocks, moe as moe_lib, radix as radix_lib
 from repro_torch.lm.config import ArchConfig, segments_for
@@ -424,7 +426,8 @@ def _kv_piece(k, v, cfg: ArchConfig, length: int, s_len: int, window: int,
 
 def _apply_layer(h, lp, btype: str, cfg: ArchConfig, positions, mode: str,
                  cache=None, pos=None, max_len: int = 0, enc_h=None,
-                 causal: bool = True, mesh=None, tp=None, kv_split=None):
+                 causal: bool = True, mesh=None, tp=None, kv_split=None,
+                 on_state=None):
     """One block: temporal mix (+ cross-attention over the encoder's
     output ``enc_h`` in a layer that has ``xattn``) + channel mix, each
     with its pre-norm and residual.  ``mode="train"`` runs the sequence
@@ -446,6 +449,8 @@ def _apply_layer(h, lp, btype: str, cfg: ArchConfig, positions, mode: str,
     this rank's tokens under ``tp.seq``) each block runs its share over
     'model'; the caches are this rank's pieces (``kv_split``: per cache
     (``"self"``, ``"cross"``) whether its slots are split over 'model').
+    ``on_state(kind, t)``, when given, receives the attention block's
+    output (``"attention"``) and the FFN block's (``"ffn"``).
     Returns (h, aux, cache): ``aux`` is a MoE layer's router loss (0.0
     elsewhere), ``cache`` None in train mode."""
     if mode not in ("train", "prefill", "decode"):
@@ -465,12 +470,14 @@ def _apply_layer(h, lp, btype: str, cfg: ArchConfig, positions, mode: str,
         if tmix is not None:
             tmix = tmix.with_kv_split(kv_split.get("self", False))
         if not stateful:
-            mix = blocks.attention(hn, lp["mix"], cfg, positions,
-                                   window=window, causal=causal, tp=tmix)
+            with trace.span("lm.attention", device=hn.device):
+                mix = blocks.attention(hn, lp["mix"], cfg, positions,
+                                       window=window, causal=causal, tp=tmix)
         elif prefill:
-            mix, (k, v) = blocks.attention(hn, lp["mix"], cfg, positions,
-                                           window=window, return_kv=True,
-                                           tp=tmix)
+            with trace.span("lm.attention", device=hn.device):
+                mix, (k, v) = blocks.attention(hn, lp["mix"], cfg, positions,
+                                               window=window, return_kv=True,
+                                               tp=tmix)
             length = min(window, max_len) if window else max_len
             k, v = _kv_piece(k, v, cfg, length, k.shape[1], window, tmix)
             new_mix = radix_lib.encode_cache_bulk(
@@ -495,6 +502,8 @@ def _apply_layer(h, lp, btype: str, cfg: ArchConfig, positions, mode: str,
             mix = blocks.rwkv6_block(hn, lp["mix"], cfg, tp=tmix)
     else:
         raise ValueError(btype)
+    if on_state is not None:
+        on_state("attention", mix)
     h = h + mix
 
     if has_x:           # whisper decoder: cross-attention before the FFN
@@ -547,11 +556,16 @@ def _apply_layer(h, lp, btype: str, cfg: ArchConfig, positions, mode: str,
             y = tp.exit_whole(y)
         if cfg.moe.num_shared:
             xs = hn if tp is None else tp.enter(hn)
-            y = y + blocks.ffn(xs, lp["ffn"]["shared"], cfg,
-                               tp=None if tp is None else tffn.at("shared"))
+            with trace.span("lm.ffn", device=xs.device):
+                y = y + blocks.ffn(
+                    xs, lp["ffn"]["shared"], cfg,
+                    tp=None if tp is None else tffn.at("shared"))
     else:
         hn = tp.enter(hn) if tp is not None else hn
-        y = blocks.ffn(hn, lp["ffn"], cfg, tp=tffn)
+        with trace.span("lm.ffn", device=hn.device):
+            y = blocks.ffn(hn, lp["ffn"], cfg, tp=tffn)
+    if on_state is not None:
+        on_state("ffn", y)
     return h + y, aux, new_mix
 
 
@@ -592,7 +606,8 @@ def _unstack(tree, count: int) -> list:
 def _backbone(params, h, cfg: ArchConfig, positions, mode: str,
               caches=None, pos=None, max_len: int = 0, enc_h=None,
               segments_key: str = "segments", segments=None,
-              causal: bool = True, mesh=None, tp=None, kv_splits=None):
+              causal: bool = True, mesh=None, tp=None, kv_splits=None,
+              on_state=None):
     """Every layer of ``params[segments_key]`` (laid out as ``segments``,
     default ``segments_for(cfg)``) in order.  Returns (h, aux, caches):
     ``aux`` the layers' summed router losses (float32) in train mode,
@@ -604,11 +619,15 @@ def _backbone(params, h, cfg: ArchConfig, positions, mode: str,
     segment and slot, the ``kv_split`` of :func:`_apply_layer`.  In a
     train step's ``tp`` each layer's slices of the stacked leaves are
     gathered over the data axes just before it runs (:func:`_run_layer`),
-    never the stack, and dropped after it."""
+    never the stack, and dropped after it.  ``on_state(layer, kind, h)``,
+    when given, receives each layer's input (``"input"``), its blocks'
+    outputs (:func:`_apply_layer`) and the last layer's output
+    (``"output"``), ``layer`` counting over the segments."""
     train = mode == "train"
     aux_total = (torch.zeros((), dtype=torch.float32, device=h.device)
                  if train else None)
     new_caches = []
+    layer = 0
     for i, (pattern, count) in enumerate(segments or segments_for(cfg)):
         seg_p = [_unstack(p, count) for p in params[segments_key][i]]
         seg_c = caches[i] if caches is not None else None
@@ -623,6 +642,10 @@ def _backbone(params, h, cfg: ArchConfig, positions, mode: str,
                           causal=causal, mesh=mesh, tp=tp,
                           kv_split=kv_splits[i][si] if kv_splits else None,
                           data_key=(segments_key, i, si))
+                if on_state is not None:
+                    on_state(layer, "input", h)
+                    kw["on_state"] = functools.partial(on_state, layer)
+                layer += 1
                 if train and cfg.remat and h.requires_grad:
                     h, a, nc = torch.utils.checkpoint.checkpoint(
                         _run_layer, h, lp, btype, cfg, positions, mode,
@@ -640,6 +663,8 @@ def _backbone(params, h, cfg: ArchConfig, positions, mode: str,
             new_caches.append(seg_c)
         elif mode == "prefill":
             new_caches.append(_stack_trees(per_layer))
+    if on_state is not None:
+        on_state(layer - 1, "output", h)
     return h, aux_total, tuple(new_caches)
 
 
@@ -1230,7 +1255,7 @@ def _place_piece(piece, spec, whole_shape, mesh):
 
 
 def prefill(params, batch, cfg: ArchConfig, mesh=None, max_len: int = 0,
-            *, true_len: Optional[int] = None):
+            *, true_len: Optional[int] = None, on_state=None):
     """Process the prompt; returns (last-token logits (B, V), caches).
 
     ``batch["tokens"]`` is (B, S + 1) (the last column is the label of the
@@ -1241,7 +1266,9 @@ def prefill(params, batch, cfg: ArchConfig, mesh=None, max_len: int = 0,
     ``true_len`` gathers the last-token state at ``true_len - 1`` of a
     right-padded prompt (bucketed prefill: exact for pure full-attention
     stacks, since the causal mask hides the pads; not for recurrent or
-    windowed blocks, whose state would absorb them).
+    windowed blocks, whose state would absorb them).  ``on_state(layer,
+    kind, h)``, when given, is handed each layer's states as they are
+    computed (``LMExecutable.prefill`` documents the kinds).
 
     With a ``mesh``: parameters (DTensors or whole tensors, each rank
     using its pieces over 'model'; or a :class:`Sharded`), the global
@@ -1250,14 +1277,16 @@ def prefill(params, batch, cfg: ArchConfig, mesh=None, max_len: int = 0,
     ``parallel.sharding.cache_specs`` (batch over the data axes, the KV
     sequence over 'model'), each rank having computed only its piece."""
     if mesh is None:
-        return _prefill(params, batch, cfg, None, max_len, true_len)
+        return _prefill(params, batch, cfg, None, max_len, true_len,
+                        on_state=on_state)
     local, tp = _sharded(params, cfg, mesh)
     first = batch["embeds"] if cfg.embedding_inputs else batch["tokens"]
     b_glob = first.shape[0]
     s_len = first.shape[1] - (0 if cfg.embedding_inputs else 1)
     specs, kv_splits = _cache_layout(cfg, b_glob, max_len or s_len, mesh)
     logits, caches = _prefill(local, _data_shard(batch, cfg, mesh), cfg,
-                              mesh, max_len, true_len, tp, kv_splits)
+                              mesh, max_len, true_len, tp, kv_splits,
+                              on_state)
     whole = init_cache(cfg, b_glob, max_len or s_len, device="meta")
     placed = tree_map(lambda c, w, spec: _place_piece(c, spec, tuple(w.shape),
                                                       mesh),
@@ -1266,7 +1295,7 @@ def prefill(params, batch, cfg: ArchConfig, mesh=None, max_len: int = 0,
 
 
 def _prefill(params, batch, cfg: ArchConfig, mesh, max_len: int, true_len,
-             tp=None, kv_splits=None):
+             tp=None, kv_splits=None, on_state=None):
     h, _ = _input_h(params, batch, cfg, tp)
     b, s_len = h.shape[0], h.shape[1]
     max_len = max_len or s_len
@@ -1279,7 +1308,7 @@ def _prefill(params, batch, cfg: ArchConfig, mesh, max_len: int, true_len,
         h = _seq_piece(h, tp)
     h, _, caches = _backbone(params, h, cfg, positions, "prefill",
                              max_len=max_len, enc_h=enc_h, mesh=mesh, tp=tp,
-                             kv_splits=kv_splits)
+                             kv_splits=kv_splits, on_state=on_state)
     idx = s_len if true_len is None else int(true_len)
     if tp is not None and tp.seq:       # the rank holding token idx - 1
         n = s_len // tp.n
