@@ -15,6 +15,15 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` and runs:
      row, plus ``periods=2`` and ``out_grid="pow2"`` at one shape each;
    - ``radix_matmul`` at Gemma-2B's four FFN shapes (decode M = 8 and
      prefill M = 2048, K and N up to 16384, int8 weights up to +-127);
+   - the LM's fused radix products (``lm_fused_check``): the dequantize
+     epilogue (bf16 and f32, both dataflows) at GLM4-9B's gate/up and
+     down shapes (M = 300), its unembed and its decode down product (M =
+     8, split over K) equal to ``radix_matmul.dequantize`` of the int32
+     sums; the one-pass quantize and its SwiGLU / GeGLU variants at
+     GLM4-9B's widths equal to their plain versions; each timed at M =
+     16,384 beside the int32 path's glue; a bf16 GLM4-9B SMOKE prefill
+     launching one ``radix_matmul_kernel`` a radix product, all fused,
+     its logits ``torch.equal`` to the int32 path's;
    - the edge cases of ``EDGES``: T = 8 levels reaching 255, int32
      (10-bit) carry levels, M = 1, ragged M, K and N, Cin = 3 and 1,
      stride 2, the small tile's split-K at decode shapes; each with both
@@ -1020,6 +1029,159 @@ def phase_lm_matmul(torch, cfg, results) -> None:
             f"torch._int_mm {row['library_ms']:.4f} ms "
             f"({row['library_device_ms']} on the device)")
     results["lm_matmul_rows"] = rows
+    lm_fused_check(torch, results)
+
+
+# GLM4-9B's radix products (M, K, N) for the fused path's check: gate/up
+# and down at a reduced M with ragged tile edges, the unembed (M = 8, the
+# small tile), and the down product at decode's M = 8 (split over K); and
+# the prefill benchmark's M = 16,384 for a check of the cell's own shape
+# and the times
+FUSED_PRODUCTS = [(300, 4096, 13696), (300, 13696, 4096), (8, 4096, 151552),
+                  (8, 13696, 4096)]
+FUSED_PREFILL_M = 8 * 2048
+
+
+def lm_fused_check(torch, results) -> None:
+    """The LM's fused radix products (``lm/radix.py``) on the card: the
+    dequantize epilogue at ``FUSED_PRODUCTS`` (bf16 and f32, both
+    dataflows) equal to :func:`radix_matmul.dequantize` of the int32
+    sums; the one-pass quantize and its SwiGLU variant at GLM4-9B's
+    widths equal to their plain versions; the gate product's epilogue
+    and the three quantize kernels at the prefill's M (``FUSED_PREFILL_M``)
+    equal to their plain versions, then timed against the int32 path's
+    glue; then a prefill of a bf16 GLM4-9B
+    SMOKE model: one ``radix_matmul_kernel`` a radix product (no other
+    kernel named so), every product fused, logits ``torch.equal`` to the
+    int32 path's."""
+    import dataclasses
+
+    from repro_torch import api
+    from repro_torch.configs import glm4_9b
+    from repro_torch.kernels import radix_matmul as rmm
+    from repro_torch.lm import radix as radix_lib
+
+    t0 = time.perf_counter()
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    lvl = (1 << T) - 1
+
+    def weight(k, n):
+        return radix_lib.kmajor_weight(radix_lib.quantize_weight(
+            torch.randn(k, n, generator=gen, device=dev) / k ** 0.5))
+
+    for m, k, n in FUSED_PRODUCTS:
+        x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        w = weight(k, n)
+        qx, sx = radix_lib._radix_activation(x, T)
+        colsum = w["qt"].sum(dim=-1, dtype=torch.int32)
+        for method in ("fused", "bitserial"):
+            acc = rmm.radix_matmul_cuda(qx, w["qt"], num_steps=T,
+                                        method=method, kmajor=True)
+            for dt in (torch.bfloat16, torch.float32):
+                d = rmm.Dequant(sx, w["scale"], colsum, 2.0 / lvl, dt)
+                got = rmm.radix_matmul_cuda(qx, w["qt"], num_steps=T,
+                                            method=method, kmajor=True,
+                                            dequant=d)
+                sync(torch)
+                check(torch.equal(got, rmm.dequantize(acc, d)),
+                      f"dequantize epilogue {(m, k, n)} {method} {dt}")
+    for act, k in ((None, 4096), ("swiglu", 13696), ("geglu", 13696)):
+        x, u = (torch.randn(333, k, generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        kw = {} if act is None else {"act": act, "up": u}
+        got, want = (rmm.radix_quantize_cuda(x, T, **kw),
+                     rmm.radix_quantize_plain(x, T, **kw))
+        sync(torch)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"one-pass quantize, act {act}, 333 x {k}")
+
+    # at the prefill's M: the checks, then the times beside the int32 path
+    rows = {}
+    m = FUSED_PREFILL_M
+    x = torch.randn(m, 4096, generator=gen, device=dev).to(torch.bfloat16)
+    g, u = (torch.randn(m, 13696, generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    w = weight(4096, 13696)
+    qx, sx = rmm.radix_quantize_cuda(x, T)
+    colsum = w["qt"].sum(dim=-1, dtype=torch.int32)
+    d = rmm.Dequant(sx, w["scale"], colsum, 2.0 / lvl, torch.bfloat16)
+
+    def int32_glue():
+        acc = rmm.radix_matmul_cuda(qx, w["qt"], num_steps=T,
+                                    method="fused", kmajor=True)
+        return rmm.dequantize(acc, d)
+
+    # the kernels at the shape the cell runs, against their plain versions
+    got = rmm.radix_matmul_cuda(qx, w["qt"], num_steps=T, method="fused",
+                                kmajor=True, dequant=d)
+    check(torch.equal(got, int32_glue()),
+          f"dequantize epilogue at M = {m}, {tuple(w['qt'].shape)}")
+    del got
+    for v, kw in ((x, {}), (g, {"act": "swiglu", "up": u}),
+                  (g, {"act": "geglu", "up": u})):
+        got, want = (rmm.radix_quantize_cuda(v, T, **kw),
+                     rmm.radix_quantize_plain(v, T, **kw))
+        sync(torch)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"one-pass quantize, act {kw.get('act')}, {m} x "
+              f"{v.shape[-1]}")
+    del got, want
+
+    rows["gate_int32_glue_ms"] = cuda_ms(torch, int32_glue, reps=5)
+    rows["gate_epilogue_ms"] = cuda_ms(
+        torch, lambda: rmm.radix_matmul_cuda(qx, w["qt"], num_steps=T,
+                                             method="fused", kmajor=True,
+                                             dequant=d), reps=5)
+    rows["quantize_x_torch_ms"] = cuda_ms(
+        torch, lambda: radix_lib._radix_activation(x, T), reps=5)
+    rows["quantize_x_ms"] = cuda_ms(
+        torch, lambda: rmm.radix_quantize_cuda(x, T), reps=5)
+    rows["swiglu_quantize_torch_ms"] = cuda_ms(
+        torch, lambda: radix_lib._radix_activation(
+            torch.nn.functional.silu(g) * u, T), reps=5)
+    rows["swiglu_quantize_ms"] = cuda_ms(
+        torch, lambda: rmm.radix_quantize_cuda(g, T, act="swiglu", up=u),
+        reps=5)
+    del x, g, u, w, qx, sx, colsum, d
+
+    cfg = dataclasses.replace(glm4_9b.SMOKE, dtype="bfloat16")
+    from repro_torch.lm import model as lm_model
+    params = lm_model.init_params(
+        torch.Generator(device=dev).manual_seed(SEED + 13), cfg)
+    exe = api.Accelerator(dataflow="fused", device=DEV).compile(
+        (params, cfg), (4, 64), buckets=(48,))
+    prompts = lm_prompts(torch, cfg, 4, 37, SEED + 14)
+    exe.prefill(prompts)
+    before = dict(radix_lib.PRODUCTS)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = exe.prefill(prompts)["logits"]
+        sync(torch)
+    names = [e.key for e in trace_kernels(prof, each=True)]
+    products = 3 * cfg.n_layers + 1
+    launched = sum("radix_matmul_kernel" in k for k in names)
+    check(launched == products and radix_lib.PRODUCTS["fused"]
+          == before["fused"] + products and radix_lib.PRODUCTS["int32"]
+          == before["int32"],
+          f"GLM4-9B SMOKE prefill: {launched} radix_matmul_kernel "
+          f"launches, {products} products")
+    fused_path = radix_lib.fused_path
+    radix_lib.fused_path = lambda *a, **k: False
+    try:
+        want = exe.prefill(prompts)["logits"]
+    finally:
+        radix_lib.fused_path = fused_path
+    sync(torch)
+    check(torch.equal(got, want),
+          "GLM4-9B SMOKE prefill: fused logits differ from the int32 path's")
+    rows["s"] = time.perf_counter() - t0
+    results["lm_fused"] = rows
+    log("[kernel] GLM4-9B fused radix products equal their int32 path "
+        f"({len(FUSED_PRODUCTS)} shapes and M = {m}, quantize x3 at 333 "
+        f"and {m} rows, SMOKE prefill: "
+        f"{launched} launches); at M = {m}: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in rows.items()))
 
 
 # Attention cases, each the kernel against its plain version with

@@ -1,7 +1,7 @@
 // The int8 tensor-core GEMM shared by the radix kernels: a multi-stage
 // shared-memory ring, u8 x s8 -> s32 MMAs (wgmma and mma.sync), the
-// dataflows as masked operand passes, split-K, and the fused output-logic
-// epilogue.
+// dataflows as masked operand passes, split-K, and the epilogues: the
+// fused output logic (uint8 levels) and the LM's dequantize (bf16 or f32).
 //
 // Counterpart of the helpers repro/kernels/radix_conv.py imports from
 // repro/kernels/radix_matmul.py (_accumulate_tile, gated, occ_mask,
@@ -64,14 +64,26 @@
 //   added << 8g.  Every order of integer sums is exact (mod 2^32, as the
 //   reference's int32 arithmetic), split-K included.
 //
-// Epilogue (repro/kernels/radix_matmul.py:_epilogue_store): on the final
-// sum, floor(f32(acc + bias) * mult) (round-to-nearest int->float and
-// multiply, no contraction), clamp to [0, out_level], optional pow2 floor,
-// store uint8; without it, int32.  Split-K with an epilogue (or a phase
-// divide) adds partials into a zeroed workspace and the last block to
-// arrive on an output tile finishes it.
+// Output (the Gemm's OutT), on the final sum:
+//   int            the raw int32 sum;
+//   uint8_t        the fused output logic (repro/kernels/radix_matmul.py:
+//                  _epilogue_store): floor(f32(acc + bias) * mult)
+//                  (round-to-nearest int->float and multiply, no
+//                  contraction), clamp to [0, out_level], optional pow2
+//                  floor;
+//   __nv_bfloat16, float
+//                  the LM's dequantize (lm/radix.py), its column rows in
+//                  bias (the weights' column sums) and mult (their
+//                  scales): the float of ((coef * f32(acc) - f32(bias[n]))
+//                  * sx[m]) * mult[n], each step rounded to nearest (no
+//                  contraction), then rounded to OutT: the order of the
+//                  unfused float32 glue.
+// Split-K with anything after the sum (or a phase divide) adds partials
+// into a zeroed workspace and the last block to arrive on an output tile
+// finishes it.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -98,10 +110,12 @@ struct Problem {
   Schedule s;
   const int* occ;      // plane-occupancy row, or null (ungated)
   const int* bias;     // epilogue rows (N), or null
-  const float* mult;   // null: int32 out
-  void* out;           // (M, N) int32 or uint8
+  const float* mult;   // epilogue rows (N); null: int32 out
+  void* out;           // (M, N) of the Gemm's OutT
   int* work;           // split-K: (M, N) int32 partials + one arrival count
                        // per output tile, zeroed; null otherwise
+  const float* sx;     // dequantize: the rows' scales (M); else unread
+  float coef;          // dequantize: 2 / lvl as a float; else unread
 };
 
 // Block tile: WR x WC warps, each MT 16-row x NT 8-column MMA tiles;
@@ -152,6 +166,24 @@ __device__ __forceinline__ uint8_t epilogue(int acc, int bias, float mult,
   q = fminf(fmaxf(q, 0.0f), static_cast<float>(out_level));
   int lvl = static_cast<int>(q);
   return static_cast<uint8_t>(pow2 ? pow2_floor(lvl) : lvl);
+}
+
+__device__ __forceinline__ float dequantize(int acc, int colsum, float sw,
+                                            float coef, float sx) {
+  const float y =
+      __fsub_rn(__fmul_rn(coef, __int2float_rn(acc)), __int2float_rn(colsum));
+  return __fmul_rn(__fmul_rn(y, sx), sw);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
 }
 
 // ---------------------------------------------------------------------------
@@ -319,8 +351,13 @@ struct RowMatrix {
 // The block's GEMM.
 // ---------------------------------------------------------------------------
 
-template <class Cfg, bool WIDE, bool EPI, class ActLoader>
+template <class Cfg, bool WIDE, typename OutT, class ActLoader>
 struct Gemm {
+  // what follows the sum: nothing (int32), the uint8 output logic, or the
+  // float dequantize
+  static constexpr bool LEVELS = std::is_same<OutT, uint8_t>::value;
+  static constexpr bool RAW = std::is_same<OutT, int>::value;
+  static constexpr bool DEQ = !LEVELS && !RAW;
   static constexpr bool ACT_ROWS = Cfg::ACT_ROWS;
   static constexpr int MT = Cfg::MT, NT = Cfg::NT, BK = Cfg::BK;
   static constexpr int STAGES = Cfg::STAGES, CHUNKS = Cfg::CHUNKS;
@@ -511,24 +548,29 @@ struct Gemm {
   }
 
   // The output value of a final (or finished split-K) sum: the phase
-  // divide, then the epilogue's uint8 level (column bias and multiplier)
-  // or the int32 sum.
-  __device__ __forceinline__ int finish(int v, int bias, float mult) const {
+  // divide, then the epilogue's uint8 level (column bias and multiplier),
+  // the dequantized float (column sum and scale, the row's scale sx) or
+  // the int32 sum.
+  __device__ __forceinline__ OutT finish(int v, int bias, float mult,
+                                         float sx) const {
     const int div = p.s.fused ? 1 : p.s.periods;
     if (div > 1) v = floor_div(v, div);
-    return EPI ? epilogue(v, bias, mult, p.s.out_level, p.s.pow2) : v;
+    if constexpr (LEVELS)
+      return epilogue(v, bias, mult, p.s.out_level, p.s.pow2);
+    else if constexpr (DEQ)
+      return from_float<OutT>(dequantize(v, bias, mult, p.coef, sx));
+    else
+      return v;
   }
-  __device__ __forceinline__ int finish(int n, int v) const {
-    return EPI ? finish(v, p.bias ? p.bias[n] : 0, p.mult[n])
-               : finish(v, 0, 0.f);
+  __device__ __forceinline__ OutT finish(int m, int n, int v) const {
+    return RAW ? finish(v, 0, 0.f, 0.f)
+               : finish(v, p.bias ? p.bias[n] : 0, p.mult[n],
+                        DEQ ? p.sx[m] : 0.f);
   }
 
   __device__ __forceinline__ void store(int m, int n, int v) const {
-    const size_t o = static_cast<size_t>(m) * p.N + n;
-    if (EPI)
-      static_cast<uint8_t*>(p.out)[o] = static_cast<uint8_t>(finish(n, v));
-    else
-      static_cast<int*>(p.out)[o] = finish(n, v);
+    static_cast<OutT*>(p.out)[static_cast<size_t>(m) * p.N + n] =
+        finish(m, n, v);
   }
 
   // The large tile's outputs, staged through the (drained) ring so they
@@ -536,7 +578,6 @@ struct Gemm {
   // adjacent columns of one row; shared-memory rows are XOR-swizzled by
   // 16-byte chunk like the operand tiles.
   __device__ __forceinline__ void store_tile(const Acc& acc) const {
-    using OutT = typename std::conditional<EPI, uint8_t, int>::type;
     constexpr int ROW_BYTES = Cfg::COLS * static_cast<int>(sizeof(OutT));
     constexpr int ROW_CHUNKS = ROW_BYTES / 16;
     constexpr int SWZ = ROW_CHUNKS < 8 ? ROW_CHUNKS - 1 : 7;
@@ -544,17 +585,25 @@ struct Gemm {
     static_assert(Cfg::ROWS * ROW_BYTES <= Cfg::SMEM, "tile fits the ring");
     const int lane = tid & 31, warp = tid >> 5;
     const int wr = warp / Cfg::WARPS_C, wc = warp % Cfg::WARPS_C;
-    // this thread's 2 * NT columns: their epilogue rows, read once
+    // this thread's 2 * NT columns: their epilogue rows, read once (and
+    // its 2 * MT rows' scales under the dequantize)
     int bias[NT][2];
-    float mult[NT][2];
+    float mult[NT][2], sx[MT][2];
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int n = w_base + wc * NT * 8 + nt * 8 + 2 * (lane & 3) + e;
-        const bool live = EPI && n < p.N;
+        const bool live = !RAW && n < p.N;
         bias[nt][e] = live && p.bias ? p.bias[n] : 0;
         mult[nt][e] = live ? p.mult[n] : 0.f;
+      }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = act_base + wr * MT * 16 + mt * 16 + lane / 4 + 8 * h;
+        sx[mt][h] = DEQ && m < p.M ? p.sx[m] : 0.f;
       }
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
@@ -571,8 +620,8 @@ struct Gemm {
 #pragma unroll
           for (int e = 0; e < 2; ++e)
             if (w_base + lc + e < p.N)  // columns past N are never stored
-              dst[e] = static_cast<OutT>(
-                  finish(acc[mt][nt][2 * h + e], bias[nt][e], mult[nt][e]));
+              dst[e] = finish(acc[mt][nt][2 * h + e], bias[nt][e],
+                              mult[nt][e], sx[mt][h]);
         }
     __syncthreads();
     const bool vec = (static_cast<long long>(p.N) * sizeof(OutT)) % 16 == 0;
@@ -654,7 +703,7 @@ struct Gemm {
                      2 * (lane & 3);
     const bool split = gridDim.z > 1;
     const int div = s.fused ? 1 : s.periods;
-    const bool direct_atomic = split && !EPI && div == 1;
+    const bool direct_atomic = split && RAW && div == 1;
     if (ACT_ROWS && !split) {
       store_tile(acc);
       return;

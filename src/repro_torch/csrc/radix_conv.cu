@@ -94,7 +94,8 @@ template <class Cfg, bool WIDE, bool EPI, typename TA>
 __global__ void __launch_bounds__(radix::THREADS, WIDE ? 1 : 2)
     radix_conv2d_kernel(ImageA<TA> la, radix::Problem p) {
   extern __shared__ __align__(128) uint8_t smem[];
-  radix::Gemm<Cfg, WIDE, EPI, ImageA<TA>> gemm(la, p, smem);
+  radix::Gemm<Cfg, WIDE, std::conditional_t<EPI, uint8_t, int>, ImageA<TA>>
+      gemm(la, p, smem);
   gemm.run();
 }
 
@@ -154,6 +155,8 @@ extern "C" int radix_conv2d_launch(const void* x, int x_int32, const void* w,
   p.mult = static_cast<const float*>(mult);
   p.out = out;
   p.work = static_cast<int*>(work);
+  p.sx = nullptr;  // the LM's dequantize only
+  p.coef = 0.f;
   const auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (x_int32) {

@@ -120,12 +120,15 @@ def device_sms(device: torch.device) -> Optional[int]:
 
 
 def buffers(m: int, n: int, launch: Launch, *, epilogue: bool, div: int,
-            device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(out, workspace) for one launch.  Split-K adds partials with int32
+            device, dtype: Optional[torch.dtype] = None
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(out, workspace) for one launch; the output's ``dtype`` defaults to
+    uint8 under an epilogue, else int32.  Split-K adds partials with int32
     atomics: straight into a zeroed int32 output when nothing follows the
     sum, else into a zeroed workspace of (M, N) partials and one arrival
     count per output tile, where the last block finishes the tile."""
-    dtype = torch.uint8 if epilogue else torch.int32
+    if dtype is None:
+        dtype = torch.uint8 if epilogue else torch.int32
     if launch.split == 1:
         return torch.empty((m, n), dtype=dtype, device=device), None
     if not epilogue and div == 1:

@@ -39,7 +39,7 @@ from repro_torch.kernels.autotune import KernelConfig
 from repro_torch.kernels.radix_attn import Q_BITS
 from repro_torch.kernels.radix_conv import (radix_conv2d_cuda,
                                             radix_conv2d_plain)
-from repro_torch.kernels.radix_matmul import (plane_occupancy,
+from repro_torch.kernels.radix_matmul import (Dequant, plane_occupancy,
                                                radix_matmul_cuda,
                                                radix_matmul_plain)
 from repro_torch.kernels.spike_encode import spike_encode_cuda
@@ -101,7 +101,7 @@ def _resolve_config(config: Optional[KernelConfig], autotune: bool,
 
 
 def _matmul_with_config(cfg: KernelConfig, x2, w_q, b_int, mult, sched,
-                        spec, method, sparsity, kmajor):
+                        spec, method, sparsity, kmajor, dequant):
     """One matmul launch (or the plain version) on (M, K) levels."""
     n = w_q.shape[0 if kmajor else -1]
     occ = plane_occupancy(x2, sched.packed_bits)[0] if sparsity else None
@@ -111,6 +111,8 @@ def _matmul_with_config(cfg: KernelConfig, x2, w_q, b_int, mult, sched,
         fn, kw["config"] = radix_matmul_cuda, cfg
     else:
         fn = radix_matmul_plain
+    if dequant is not None:
+        return fn(x2, w_q, dequant=dequant, **kw)
     if mult is None:
         out = fn(x2, w_q, **kw)
         return out if b_int is None else out + b_int.to(out.device)
@@ -126,11 +128,15 @@ def radix_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
                  method: str = "bitserial", mult=None,
                  sparsity: bool = False, autotune: bool = False,
                  config: Optional[KernelConfig] = None,
-                 kmajor: bool = False) -> torch.Tensor:
+                 kmajor: bool = False,
+                 dequant: Optional[Dequant] = None) -> torch.Tensor:
     """(..., K) packed levels @ (K, N) int8 (+bias) -> (..., N).
 
     ``mult=None``: raw int32 accumulator (+bias outside the kernel);
-    ``mult`` given: the fused epilogue, packed uint8 levels.  ``num_steps``
+    ``mult`` given: the fused epilogue, packed uint8 levels; ``dequant``
+    (a ``radix_matmul.Dequant``, no bias): the LM's dequantized floats,
+    its ``sx`` one scale a row of ``x_q``, at the raw product's tuned
+    launch (the LM tunes its products raw).  ``num_steps``
     may be a bare T or a kernels-capable spec.  ``sparsity=True`` runs
     the plane-occupancy prepass.  ``kmajor``: ``w_q`` is the (N, K) layout
     the kernel reads (``gemm.matmul_kmajor``); (K, N) weights on CUDA are
@@ -144,9 +150,12 @@ def radix_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
     x2 = x_q.reshape(-1, k).contiguous()
     m = x2.shape[0]
 
+    if dequant is not None and (b_int is not None or mult is not None):
+        raise ValueError("the dequantize epilogue takes no bias or mult")
+
     def run(c):
         return _matmul_with_config(c, x2, w_q, b_int, mult, sched, spec,
-                                   method, sparsity, kmajor)
+                                   method, sparsity, kmajor, dequant)
 
     cfg = _resolve_config(
         config, autotune,

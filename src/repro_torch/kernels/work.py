@@ -27,8 +27,8 @@ import dataclasses
 import functools
 from typing import Callable, List, Optional, TypeVar
 
-__all__ = ["Work", "gemm", "decode_attn", "encode", "noted", "notes",
-           "OCC_ROW_BYTES"]
+__all__ = ["Work", "gemm", "quantize", "decode_attn", "encode", "noted",
+           "notes", "OCC_ROW_BYTES"]
 
 OCC_ROW_BYTES = 512
 """The ``(1, OCC_LANES)`` int32 plane-occupancy row a GEMM reads."""
@@ -51,15 +51,32 @@ class Work:
 
 
 def gemm(kernel: str, m: int, k: int, n: int, *, x_bytes: int,
-         epilogue: bool, occupancy: bool) -> Work:
+         epilogue: bool, occupancy: bool,
+         out_bytes: Optional[int] = None) -> Work:
     """An (M, K) x (K, N) radix product (a conv as its implicit GEMM, with
     ``x_bytes`` its pre-padded input): one u8 x s8 product of 2·M·K·N
     operations; the levels (``x_bytes``), the int8 weights, the occupancy
     row, the output (uint8 levels under the epilogue, else int32) and the
-    epilogue's bias and multiplier rows."""
-    nbytes = (x_bytes + k * n + (OCC_ROW_BYTES if occupancy else 0)
-              + m * n * (1 if epilogue else 4) + (8 * n if epilogue else 0))
+    epilogue's bias and multiplier rows.  ``out_bytes``: the dequantize
+    epilogue's float output, that many bytes a value, and its rows (a
+    float32 scale a row, a float32 scale and an int32 column sum a
+    column)."""
+    if out_bytes is not None:
+        out, rows = out_bytes * m * n, 4 * m + 8 * n
+    else:
+        out, rows = m * n * (1 if epilogue else 4), 8 * n if epilogue else 0
+    nbytes = x_bytes + k * n + (OCC_ROW_BYTES if occupancy else 0) + out + rows
     return Work(kernel, float(nbytes), 2.0 * m * k * n)
+
+
+def quantize(rows: int, cols: int, *, x_bytes: int, glu: bool) -> Work:
+    """The one-pass activation quantize of (rows, cols) values held in
+    ``x_bytes`` (a GLU's gate and up rows: twice that): each read once, a
+    uint8 level written a value and a float32 scale a row; its float work
+    (a division and a few adds and multiplies a value) counts as one
+    operation a value."""
+    nbytes = x_bytes * (2 if glu else 1) + rows * cols + 4 * rows
+    return Work("radix_quantize", float(nbytes), 0.0, float(rows * cols))
 
 
 def decode_attn(b: int, s_len: int, hkv: int, g: int, hd: int, *,

@@ -522,10 +522,13 @@ def ffn(x: torch.Tensor, p: dict, cfg: ArchConfig, tp=None) -> torch.Tensor:
     if whole:
         x = tp.replicated(x)
     if cfg.act in ("swiglu", "geglu"):
-        g = matmul(x, p["w_gate"])
-        u = matmul(x, p["w_up"])
-        h = (F.silu(g) if cfg.act == "swiglu"
-             else F.gelu(g, approximate="tanh")) * u
+        # on the radix fused path x is quantized once for both products
+        # and h is the down product's levels, act(g) * u never written
+        xin = radix_lib.radix_input(x, p["w_gate"], cfg)
+        g = matmul(xin, p["w_gate"])
+        u = matmul(xin, p["w_up"])
+        h = radix_lib.glu_input(g, u, p["w_down"], cfg,
+                                tp=None if whole else tp)
     elif cfg.act == "gelu_mlp":
         h = F.gelu(matmul(x, p["w_up"]), approximate="tanh")
     elif cfg.act == "relu_sq":

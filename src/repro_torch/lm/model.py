@@ -58,6 +58,7 @@ the vocab over 'model' (:func:`loss_fn`).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Any, Dict, NamedTuple, Optional
@@ -424,6 +425,17 @@ def _kv_piece(k, v, cfg: ArchConfig, length: int, s_len: int, window: int,
     return k, v
 
 
+@contextlib.contextmanager
+def _ffn_span(device):
+    """The ``lm.ffn`` span around one FFN block; its count ``fused`` is the
+    block's radix products that took the fused path (``radix.PRODUCTS``)."""
+    with trace.span("lm.ffn", device=device) as span:
+        before = radix_lib.PRODUCTS["fused"]
+        yield
+        if span is not None:
+            span.counts["fused"] = radix_lib.PRODUCTS["fused"] - before
+
+
 def _apply_layer(h, lp, btype: str, cfg: ArchConfig, positions, mode: str,
                  cache=None, pos=None, max_len: int = 0, enc_h=None,
                  causal: bool = True, mesh=None, tp=None, kv_split=None,
@@ -556,13 +568,13 @@ def _apply_layer(h, lp, btype: str, cfg: ArchConfig, positions, mode: str,
             y = tp.exit_whole(y)
         if cfg.moe.num_shared:
             xs = hn if tp is None else tp.enter(hn)
-            with trace.span("lm.ffn", device=xs.device):
+            with _ffn_span(xs.device):
                 y = y + blocks.ffn(
                     xs, lp["ffn"]["shared"], cfg,
                     tp=None if tp is None else tffn.at("shared"))
     else:
         hn = tp.enter(hn) if tp is not None else hn
-        with trace.span("lm.ffn", device=hn.device):
+        with _ffn_span(hn.device):
             y = blocks.ffn(hn, lp["ffn"], cfg, tp=tffn)
     if on_state is not None:
         on_state("ffn", y)

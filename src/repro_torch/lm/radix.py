@@ -13,6 +13,18 @@ dominant memory movers of LM inference:
   rank-1 correction folds the shift back out.  A serving deployment keeps
   the levels K-major, ``{"qt": (..., d_out, d_in)}`` (``kmajor_weight``,
   made once at compile time), the layout the kernel reads.
+* **Two paths, one result.** Where :func:`fused_path` holds (the kernel
+  path on a CUDA tensor, no row-parallel ``tp``, no gradient needed),
+  the product runs "fused": the one-pass quantize kernel makes the
+  levels and the kernel's dequantize epilogue writes the bf16 / f32
+  output.  Elsewhere it runs "int32": the int32 accumulator, then the
+  float32 glue.  Both round every float the same way, so the two give
+  the same bits; :data:`PRODUCTS` counts the products by path.  The
+  routing lives here alone: :func:`radix_input` quantizes an input once
+  for the several products that read it (a :class:`Levels`), and
+  :func:`glu_input` makes a SwiGLU's or GeGLU's down-product levels from
+  its gate and up outputs without writing their product; each gives the
+  plain tensor where the fused path does not hold.
 * **Radix KV cache** (``cache_update`` / ``cache_read``): K/V stored as
   T-bit levels (uint8, two per byte when ``radix_kv_pack`` and T <= 4)
   with one f32 scale per (token, kv-head); ``packed_decode_attention``
@@ -30,15 +42,17 @@ which can move a level at its rounding boundary.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.core import encoding
+from repro_torch.kernels import radix_matmul as rmm
 from repro_torch.kernels import work
 from repro_torch.lm.config import ArchConfig
 
 __all__ = ["torch_dtype", "quantize_weight", "kmajor_weight",
+           "PRODUCTS", "Levels", "fused_path", "radix_input", "glu_input",
            "maybe_radix_matmul",
            "init_cache_entry", "cache_update", "cache_read",
            "packed_attn_enabled", "packed_decode_attention",
@@ -92,15 +106,9 @@ def _radix_activation(x: torch.Tensor, num_steps: int, tp=None):
     levels of the affine-shifted value ``(x / s + 1) / 2`` in [0, 1].
     With ``tp`` (``parallel.tp.TP``) ``x`` is this rank's slice of each
     row and the absmax is a max over 'model' (exact, so the scale is the
-    whole row's)."""
-    lvl = encoding.max_level(num_steps)
-    a = x.abs().amax(dim=-1, keepdim=True).to(torch.float32)
-    if tp is not None:
-        a = tp.max(a)
-    s = a + 1e-9
-    u = (x.to(torch.float32) / s + 1.0) * 0.5
-    q = torch.clamp(torch.round(u * lvl), 0, lvl).to(torch.uint8)
-    return q, s
+    whole row's).  The expression is ``rmm.quantize_rows``, the one-pass
+    quantize kernel's plain twin."""
+    return rmm.quantize_rows(x, num_steps, None if tp is None else tp.max)
 
 
 def _int_product_work(qx: torch.Tensor, qw: torch.Tensor) -> work.Work:
@@ -119,8 +127,73 @@ def _int_product(qx: torch.Tensor, qw: torch.Tensor) -> torch.Tensor:
                         qw.to(torch.float64)).to(torch.int32)
 
 
-def maybe_radix_matmul(x: torch.Tensor, w, *, cfg: ArchConfig,
-                       use_kernel=None, tp=None) -> torch.Tensor:
+PRODUCTS = {"fused": 0, "int32": 0}
+"""Radix products run, by path (the module note): "fused" (one-pass
+quantize, dequantize epilogue) or "int32" (int32 accumulator, float32
+glue)."""
+
+
+class Levels(NamedTuple):
+    """An activation's radix levels for fused products: ``q`` (..., K)
+    uint8, ``s`` (..., 1) float32 row scales, ``dtype`` the activation's
+    dtype (the products' output dtype)."""
+
+    q: torch.Tensor
+    s: torch.Tensor
+    dtype: torch.dtype
+
+
+def fused_path(x: torch.Tensor, w, cfg: ArchConfig, *, use_kernel=None,
+               tp=None, up: Optional[torch.Tensor] = None) -> bool:
+    """Whether a radix product of ``x`` (with ``up``: a GLU's gate and up
+    outputs, quantized as their product) with ``w`` takes the fused path:
+    a radix weight dict, the kernel path (``use_kernel``, default
+    ``cfg.use_kernel``) on a CUDA tensor whose rows the quantize kernel
+    takes (``quantize_fits``: bf16 or f32), no ``tp`` (a row-parallel
+    product sums its int32 accumulators over 'model' before any float),
+    and no input that needs a gradient."""
+    if use_kernel is None:
+        use_kernel = cfg.use_kernel
+    if not (isinstance(w, dict) and use_kernel and tp is None and x.is_cuda
+            and rmm.quantize_fits(x.shape[-1], x.dtype)):
+        return False
+    grads = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, up, w["scale"]))
+    return not grads
+
+
+def _levels(x: torch.Tensor, cfg: ArchConfig, *,
+            act: Optional[str] = None,
+            up: Optional[torch.Tensor] = None) -> Levels:
+    """``x``'s :class:`Levels` by the one-pass quantize kernel; ``act``
+    ("swiglu" / "geglu") quantizes ``act(x) * up`` as PyTorch rounds it,
+    without writing it."""
+    q, s = rmm.radix_quantize_cuda(x, cfg.radix_steps, act=act, up=up)
+    return Levels(q, s, x.dtype)
+
+
+def radix_input(x: torch.Tensor, w, cfg: ArchConfig
+                ) -> Union[torch.Tensor, Levels]:
+    """``x`` as the input of radix products with weights like ``w``, none
+    of them row-parallel: its :class:`Levels`, made once for them all,
+    where :func:`fused_path` holds, else ``x``."""
+    return _levels(x, cfg) if fused_path(x, w, cfg) else x
+
+
+def glu_input(g: torch.Tensor, u: torch.Tensor, w, cfg: ArchConfig, *,
+              tp=None) -> Union[torch.Tensor, Levels]:
+    """A GLU's (``cfg.act``: "swiglu" / "geglu") ``act(g) * u`` as the
+    input of its down product with ``w`` (row-parallel under ``tp``): the
+    fused kernel's :class:`Levels` of it, the product never written, where
+    :func:`fused_path` holds, else the product as a tensor."""
+    if fused_path(g, w, cfg, up=u, tp=tp):
+        return _levels(g, cfg, act=cfg.act, up=u)
+    return rmm.glu(g, u, cfg.act)
+
+
+def maybe_radix_matmul(x: Union[torch.Tensor, Levels], w, *,
+                       cfg: ArchConfig, use_kernel=None,
+                       tp=None) -> torch.Tensor:
     """x (..., d_in) @ w -> (..., d_out).
 
     ``w`` is a plain tensor (exact mode) or a :func:`quantize_weight` /
@@ -138,6 +211,16 @@ def maybe_radix_matmul(x: torch.Tensor, w, *, cfg: ArchConfig,
     launch (``kernels.autotune``'s winner for the problem, swept on a
     miss).
 
+    Where :func:`fused_path` holds, the levels come from the one-pass
+    quantize kernel and the kernel's dequantize epilogue turns the
+    accumulator into ``x.dtype`` in the float32 glue's order.  ``x`` may
+    be :class:`Levels` (:func:`radix_input`, :func:`glu_input`), which
+    take that path alone: with a plain weight, ``use_kernel`` off or a
+    ``tp`` they raise ``ValueError``.  Elsewhere the int32 accumulator
+    leaves the kernel and the glue (``rmm.dequantize``) runs as tensor
+    code.  The two paths give the same bits (:data:`PRODUCTS` counts
+    them).
+
     ``tp`` (a ``parallel.tp.TP``) makes the product row-parallel: ``x``
     and ``w`` are this rank's slice of the input channels and its rows of
     the weight (a column-parallel product is the plain call on this
@@ -147,31 +230,45 @@ def maybe_radix_matmul(x: torch.Tensor, w, *, cfg: ArchConfig,
     weight's column sums over 'model' (reduce-scattered over the
     sequence under ``tp.seq``) and only then turns them into float, the
     reference's order, so the result is exact on any split."""
+    if use_kernel is None:
+        use_kernel = cfg.use_kernel
+    if isinstance(x, Levels) and not (isinstance(w, dict) and use_kernel
+                                      and tp is None):
+        raise ValueError("Levels take the fused path only: a radix weight "
+                         "on the kernel path, not row-parallel")
     if not isinstance(w, dict):
         y = torch.einsum("...d,df->...f", x, w)
         return y if tp is None else tp.exit(y)
-    if use_kernel is None:
-        use_kernel = cfg.use_kernel
     t = cfg.radix_steps
     lvl = encoding.max_level(t)
-    qx, sx = _radix_activation(x, t, tp)
     kmajor = "qt" in w
     qw, sw = (w["qt"] if kmajor else w["q"]), w["scale"]
+    colsum = qw.sum(dim=-1 if kmajor else -2, dtype=torch.int32)
+    if isinstance(x, Levels) or fused_path(x, w, cfg, use_kernel=use_kernel,
+                                           tp=tp):
+        from repro_torch.kernels import ops as kops
+
+        lv = x if isinstance(x, Levels) else _levels(x, cfg)
+        PRODUCTS["fused"] += 1
+        return kops.radix_matmul(
+            lv.q, qw, None, t, method=cfg.kernel_dataflow, kmajor=kmajor,
+            autotune=cfg.kernel_autotune,
+            dequant=rmm.Dequant(lv.s, sw, colsum, 2.0 / lvl, lv.dtype))
+    PRODUCTS["int32"] += 1
+    qx, sx = _radix_activation(x, t, tp)
     if use_kernel:
         from repro_torch.kernels import ops as kops
         acc = kops.radix_matmul(qx, qw, None, t, method=cfg.kernel_dataflow,
                                 kmajor=kmajor, autotune=cfg.kernel_autotune)
     else:
         acc = _int_product(qx, qw.transpose(-1, -2) if kmajor else qw)
-    colsum = qw.sum(dim=-1 if kmajor else -2, dtype=torch.int32)
     if tp is not None:
         acc = tp.sum_int(acc, 1 if tp.seq else None)
         colsum = tp.sum_int(colsum)
         if tp.seq:
             sx = sx.chunk(tp.n, 1)[tp.rank]
-    y = (2.0 / lvl) * acc.to(torch.float32) - colsum.to(torch.float32)
-    y = y * sx * sw
-    return y.to(x.dtype)
+    return rmm.dequantize(acc, rmm.Dequant(sx, sw, colsum, 2.0 / lvl,
+                                           x.dtype))
 
 
 # ---------------------------------------------------------------------------

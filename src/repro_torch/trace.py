@@ -37,7 +37,9 @@ The program's spans (each read by a metric of ``BENCHMARK.json``):
 * ``lm.prefill`` — one ``LMExecutable.prefill`` (``tokens``: batch x
   bucket positions computed; ``true_tokens``: prompts x prompt length);
 * ``lm.attention`` / ``lm.ffn`` — one layer's attention / FFN block
-  (the MoE shared experts' FFN too), device-timed.
+  (the MoE shared experts' FFN too), device-timed; ``lm.ffn`` counts
+  ``fused``, the block's radix products that took the fused path
+  (``lm/radix.PRODUCTS``).
 """
 
 from __future__ import annotations
